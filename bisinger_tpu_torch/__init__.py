@@ -1,0 +1,26 @@
+"""PyTorch/CUDA port of the BiSinger singing-voice synthesis stack.
+
+The JAX package `bisinger_tpu` is the reference; this package runs its
+flagship inference path (tokens -> FastSpeech2MIDI -> PLMS diffusion
+over a DiffNet -> PitchExtractor f0 -> NSF HiFi-GAN -> waveform) on an
+NVIDIA H100. It imports torch, numpy and scipy only.
+
+Public layouts follow the reference: activations are [B, T, C].
+"""
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the card. The CPU runs only when asked for by name;
+    with no card and no explicit CPU request this raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device found; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device found")
+    return device

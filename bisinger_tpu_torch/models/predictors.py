@@ -1,0 +1,123 @@
+"""Duration predictor and the PitchExtractor's conv stacks, [B, T, C].
+
+Counterpart of `bisinger_tpu/models/predictors.py:20-115, 213-308`
+(ConvReluLN, DurationPredictor with the MSE head, PitchPredictor, Prenet,
+ConvStacks). Inference only: dropout is the identity and BatchNorm uses
+its running statistics.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from bisinger_tpu_torch.models.common import Conv, sinusoidal_positions
+
+
+class ConvReluLN(nn.Module):
+    """SAME Conv -> ReLU -> LayerNorm(eps 1e-12) (`predictors.py:20-48`)."""
+
+    def __init__(self, cin: int, channels: int, kernel_size: int):
+        super().__init__()
+        self.Conv_0 = Conv(cin, channels, kernel_size)
+        self.LayerNorm_0 = nn.LayerNorm(channels, eps=1e-12)
+
+    def forward(self, x):
+        return self.LayerNorm_0(F.relu(self.Conv_0(x)))
+
+
+class DurationPredictor(nn.Module):
+    """Conv stack -> linear -> [B, T] log durations (`predictors.py:51-115`)."""
+
+    offset = 1.0
+
+    def __init__(self, cin: int, n_layers: int = 2, n_chans: int = 384, kernel_size: int = 3):
+        super().__init__()
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            self.add_module(f"conv_{i}", ConvReluLN(cin if i == 0 else n_chans, n_chans,
+                                                    kernel_size))
+        self.linear = nn.Linear(n_chans, 1)
+
+    def forward(self, x, x_padding=None):
+        keep = None if x_padding is None else (1.0 - x_padding.to(x.dtype))[:, :, None]
+        for i in range(self.n_layers):
+            x = getattr(self, f"conv_{i}")(x)
+            if keep is not None:
+                x = x * keep
+        x = self.linear(x)
+        if keep is not None:
+            x = x * keep
+        return x[:, :, 0]
+
+    def out2dur(self, xs):
+        """Log-domain head -> integer frame counts (`predictors.py:98-103`)."""
+        return torch.clamp(torch.round(torch.exp(xs) - self.offset), min=0.0).long()
+
+
+class PitchPredictor(nn.Module):
+    """Sinusoidal positions + conv stack -> linear (`predictors.py:213-237`)."""
+
+    def __init__(self, cin: int, n_layers: int = 5, n_chans: int = 384, odim: int = 2,
+                 kernel_size: int = 5):
+        super().__init__()
+        self.n_layers = n_layers
+        self.pos_embed_alpha = nn.Parameter(torch.ones(1))
+        for i in range(n_layers):
+            self.add_module(f"conv_{i}", ConvReluLN(cin if i == 0 else n_chans, n_chans,
+                                                    kernel_size))
+        self.linear = nn.Linear(n_chans, odim)
+
+    def forward(self, x):
+        nonpad = (x.abs().sum(-1) != 0).long()
+        x = x + self.pos_embed_alpha * sinusoidal_positions(nonpad, x.shape[-1])
+        for i in range(self.n_layers):
+            x = getattr(self, f"conv_{i}")(x)
+        return self.linear(x)
+
+
+class Prenet(nn.Module):
+    """3 x (conv k=5 -> ReLU -> BatchNorm, masked) -> Dense, masked
+    (`predictors.py:247-284`); BatchNorm in eval mode."""
+
+    def __init__(self, cin: int = 80, out_dim: int = 256, kernel: int = 5, n_layers: int = 3):
+        super().__init__()
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            self.add_module(f"conv_{i}", Conv(cin if i == 0 else out_dim, out_dim, kernel))
+            self.add_module(f"norm_{i}", nn.BatchNorm1d(out_dim, eps=1e-5))
+        self.out_proj = nn.Linear(out_dim, out_dim)
+
+    def forward(self, x):
+        nonpad = 1.0 - (x.abs().sum(-1) == 0).to(x.dtype)[:, :, None]
+        for i in range(self.n_layers):
+            x = F.relu(getattr(self, f"conv_{i}")(x))
+            bn = getattr(self, f"norm_{i}")
+            x = F.batch_norm(x.transpose(1, 2), bn.running_mean, bn.running_var, bn.weight,
+                             bn.bias, training=False, eps=bn.eps).transpose(1, 2)
+            x = x * nonpad
+        return self.out_proj(x) * nonpad
+
+
+class ConvStacks(nn.Module):
+    """Residual conv stack with GroupNorm (flax eps 1e-6)
+    (`predictors.py:287-308`)."""
+
+    def __init__(self, cin: int, n_layers: int = 5, n_chans: int = 256, odim: int = 256,
+                 kernel_size: int = 5):
+        super().__init__()
+        self.n_layers = n_layers
+        self.in_proj = nn.Linear(cin, n_chans)
+        for i in range(n_layers):
+            self.add_module(f"conv_{i}", Conv(n_chans, n_chans, kernel_size))
+            self.add_module(f"norm_{i}", nn.GroupNorm(n_chans // 16, n_chans, eps=1e-6))
+        self.out_proj = nn.Linear(n_chans, odim)
+
+    def forward(self, x):
+        x = self.in_proj(x)
+        for i in range(self.n_layers):
+            y = getattr(self, f"conv_{i}")(x)
+            y = getattr(self, f"norm_{i}")(y.transpose(1, 2)).transpose(1, 2)
+            x = x + F.relu(y)
+        return self.out_proj(x)

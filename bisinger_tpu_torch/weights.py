@@ -1,0 +1,91 @@
+"""Load flax parameter trees, saved as flat "/"-joined npz files, into the
+port's modules.
+
+Counterpart, in the inverse direction, of `bisinger_tpu/compat/torch_params.py`
+and `bisinger_tpu/vocoders/torch_import.py`; the flat-key format is that of
+`bisinger_tpu/vocoders/hifigan.py` (`flatten_params` / `unflatten_params`).
+The port's modules carry the flax names, so a key maps to a state_dict
+entry by path: "fs2/encoder/layer_0/ffn/Conv_0/kernel" is
+"fs2.encoder.layer_0.ffn.Conv_0.weight". Layouts:
+
+- Conv kernel (k, in, out) -> Conv1d weight (out, in, k);
+- Dense kernel (in, out), or a 1x1 Conv kernel (1, in, out) held by an
+  nn.Linear, -> Linear weight (out, in);
+- ConvTranspose kernel (k, in, out) (flax, no kernel flip) -> torch
+  ConvTranspose1d weight (in, out, k) with the taps reversed, as
+  `models/hifigan.py:306` lays it out;
+- LayerNorm/GroupNorm/BatchNorm "scale" -> weight; BatchNorm "mean"/"var"
+  -> running_mean/running_var; Embed "embedding" -> weight.
+
+Loading fails on a key that maps onto nothing, on a shape mismatch, and on
+any parameter or buffer of the module that no key filled.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable
+
+import numpy as np
+import torch
+from torch import nn
+
+_LEAF = {
+    "kernel": "weight",
+    "scale": "weight",
+    "embedding": "weight",
+    "bias": "bias",
+    "mean": "running_mean",
+    "var": "running_var",
+}
+
+
+def load_npz(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def torch_key(flax_key: str) -> tuple:
+    """"a/b/kernel" -> ("a.b", "weight")."""
+    *path, leaf = flax_key.split("/")
+    return ".".join(path), _LEAF.get(leaf, leaf)
+
+
+def to_torch_layout(module: nn.Module, flax_leaf: str, arr: np.ndarray) -> np.ndarray:
+    if flax_leaf != "kernel":
+        return arr
+    if isinstance(module, nn.ConvTranspose1d):
+        return arr[::-1].transpose(1, 2, 0)
+    if isinstance(module, nn.Conv1d):
+        return arr.transpose(2, 1, 0)
+    if isinstance(module, nn.Linear):
+        return (arr[0] if arr.ndim == 3 else arr).T
+    raise TypeError(f"no kernel layout for {type(module).__name__}")
+
+
+def load_flax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
+    """Fill every parameter and buffer of `model` from `flat`; raise on any
+    unused key, shape mismatch or unfilled entry."""
+    modules = dict(model.named_modules())
+    state = model.state_dict()
+    filled = set()
+    for key, arr in flat.items():
+        mpath, name = torch_key(key)
+        tkey = f"{mpath}.{name}" if mpath else name
+        if tkey not in state:
+            raise KeyError(f"{key!r} maps onto nothing in {type(model).__name__} ({tkey})")
+        arr = to_torch_layout(modules[mpath], key.rsplit("/", 1)[-1], np.asarray(arr))
+        target = state[tkey]
+        if tuple(arr.shape) != tuple(target.shape):
+            raise ValueError(f"{key!r}: shape {arr.shape} != {tuple(target.shape)} of {tkey}")
+        with torch.no_grad():
+            target.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+        filled.add(tkey)
+    missing = unfilled(state.keys(), filled)
+    if missing:
+        raise KeyError(f"{type(model).__name__}: not filled by any key: {missing[:8]}"
+                       + (f" (+{len(missing) - 8} more)" if len(missing) > 8 else ""))
+
+
+def unfilled(state_keys: Iterable[str], filled: Iterable[str]) -> list:
+    filled = set(filled)
+    return [k for k in state_keys if k not in filled and not k.endswith("num_batches_tracked")]

@@ -1,0 +1,207 @@
+"""The port's whole inference path against the JAX package on a tiny model,
+the flagship checkpoint's keys against the port's modules, and the port's
+import isolation.
+
+Tolerances: the composed-path bounds of tests/test_reference_parity.py:
+mel <= 1e-3 (:694), PE f0 <= 1 Hz (:719), waveform <= 2e-3 (:780). The
+diffusion start noise is the JAX rng's draw, handed to the port; the NSF
+phase and noise are numpy draws handed to both sides.
+"""
+
+import contextlib
+import functools
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from __graft_entry__ import _batch as graft_batch
+from bisinger_tpu.models.diffusion import GaussianDiffusion as JGaussianDiffusion
+from bisinger_tpu.models.hifigan import HifiGanGenerator as JHifiGanGenerator
+from bisinger_tpu.models.pe import PitchExtractor as JPitchExtractor
+from bisinger_tpu_torch.config import load_hparams_json
+from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
+from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
+from bisinger_tpu_torch.models.pe import PitchExtractor
+from bisinger_tpu_torch.weights import load_flax_params, load_npz, unfilled
+
+from torch_port_helpers import VOCAB, hparams, max_err, midi_batch, noisy, t, to_port
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+B, T = 2, 24
+
+
+def _model_kw(batch):
+    return dict(txt_tokens=batch["txt_tokens"], spk_embed=batch["spk_ids"],
+                **{k: batch[k] for k in ("pitch_midi", "midi_dur", "is_slur", "lang",
+                                         "speechsing")})
+
+
+@contextlib.contextmanager
+def _pinned_jax_random(phase, noise):
+    """jax.random.uniform / normal hand back the given phase / noise."""
+    saved = jax.random.uniform, jax.random.normal
+    jax.random.uniform = lambda key, shape=(), dtype=jnp.float32, **kw: jnp.asarray(phase, dtype)
+    jax.random.normal = lambda key, shape=(), dtype=jnp.float32, **kw: jnp.asarray(noise, dtype)
+    try:
+        yield
+    finally:
+        jax.random.uniform, jax.random.normal = saved
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference():
+    """The tiny model's flax parameters, made once for both cases, and the
+    PE and vocoder as jitted functions (one compile each, shared by the
+    cases, instead of dispatching every op). Parameters do not depend on
+    the values they are initialised on."""
+    jhp, _ = hparams()
+    batch = midi_batch(b=B, n_tokens=8, n_frames=T, seed=7)
+    jm = JGaussianDiffusion(hp=jhp, vocab_size=VOCAB)
+    params = jax.jit(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1)},
+        mel2ph=batch["mel2ph"], **_model_kw(batch),
+        method=JGaussianDiffusion.init_path))()["params"]
+    params = noisy(dict(params), ("denoise_fn", "output_projection", "kernel"), 3, 0.2)
+    params["fs2"] = dict(params["fs2"])
+    lin = params["fs2"]["dur_predictor"]["linear"]
+    lin["bias"] = np.asarray(lin["bias"]) + 1.2  # ~2-3 frames a token when predicted
+    mel, f0 = jnp.zeros((B, T, 80)), jnp.full((B, T), 200.0)
+    jpe = JPitchExtractor(hp=jhp)
+    pe_vars = jax.jit(lambda: jpe.init(jax.random.PRNGKey(4), mel))()
+    jvoc = JHifiGanGenerator(hp=jhp)
+    voc_params = jax.jit(lambda: jvoc.init(
+        {"params": jax.random.PRNGKey(5), "nsf": jax.random.PRNGKey(6)}, mel, f0))()["params"]
+
+    def vocode(mel, f0, phase, noise):
+        with _pinned_jax_random(phase, noise):
+            return jvoc.apply({"params": voc_params}, mel, f0,
+                              rngs={"nsf": jax.random.PRNGKey(7)})
+
+    pitch = jax.jit(lambda mel: jpe.apply(pe_vars, mel)["f0_denorm_pred"])
+    return batch, jm, params, pe_vars, pitch, voc_params, jax.jit(vocode)
+
+
+@pytest.mark.parametrize("given_mel2ph", [True, False])
+def test_tiny_path_matches_jax(tmp_path, given_mel2ph):
+    _, hp = hparams()
+    batch, jm, params, pe_vars, pitch, voc_params, vocode = _jax_reference()
+    rng = jax.random.PRNGKey(123)
+    ret = jm.apply({"params": params}, mel2ph=batch["mel2ph"] if given_mel2ph else None,
+                   infer=True, rng=rng, max_frames=T, rngs={"diffusion": rng},
+                   **_model_kw(batch))
+    mel_ref = np.asarray(ret["mel_out"])
+    start = np.asarray(jax.random.normal(jax.random.split(rng)[0], (B, T, 80)))
+    f0_ref = np.asarray(pitch(mel_ref))
+    r = np.random.default_rng(8)
+    phase = r.uniform(size=(B, 9)).astype(np.float32)
+    noise = r.standard_normal((B, T * 128, 9)).astype(np.float32)
+    wav_ref = np.asarray(vocode(mel_ref, f0_ref, phase, noise))
+
+    svs = SVSInferTorch(
+        hp,
+        to_port(GaussianDiffusion(hp, VOCAB), params, tmp_path, "diff.npz"),
+        to_port(PitchExtractor(hp), pe_vars["params"], tmp_path, "pe.npz",
+                extra=pe_vars["batch_stats"]),
+        to_port(HifiGanGenerator(hp), voc_params, tmp_path, "voc.npz"),
+        device="cpu",
+    )
+    port_batch = {k: batch[k] for k in ("txt_tokens", "spk_ids", "pitch_midi", "midi_dur",
+                                        "is_slur", "lang", "speechsing")}
+    if given_mel2ph:
+        port_batch["mel2ph"] = batch["mel2ph"]
+    port_batch["n_frames"] = T
+    out = svs.synthesize(port_batch, start_noise=t(start), nsf_phase=t(phase),
+                         nsf_noise=t(noise))
+    np.testing.assert_array_equal(out["mel2ph"].numpy(), np.asarray(ret["mel2ph"]))
+    assert (out["mel2ph"].numpy() > 0).sum() >= B * T // 2
+    assert max_err(out["mel"].numpy(), mel_ref) <= 1e-3
+    assert max_err(out["f0"].numpy(), f0_ref) <= 1.0
+    assert np.abs(wav_ref).max() > 1e-3
+    assert max_err(out["wav"].numpy(), wav_ref) <= 2e-3
+
+
+def test_flagship_keys_fill_the_port_modules():
+    """Every key of the four flagship npz files maps onto a parameter or
+    buffer of the full-width port modules, with its shape, and no port
+    parameter is left unfilled (load_flax_params raises otherwise)."""
+    hp = load_hparams_json(os.path.join(FLAGSHIP_DIR, "hparams_diff.json"))
+    diff = load_npz(os.path.join(FLAGSHIP_DIR, "diff_params.npz"))
+    vocab = diff["fs2/token_embed/embed/embedding"].shape[0]
+    pe_flat = {**load_npz(os.path.join(FLAGSHIP_DIR, "pe_params.npz")),
+               **load_npz(os.path.join(FLAGSHIP_DIR, "pe_batch_stats.npz"))}
+    voc = load_npz(os.path.join(FLAGSHIP_DIR, "vocoder", "vocoder", "generator_000008000.npz"))
+    for module, flat in ((GaussianDiffusion(hp, vocab), diff), (PitchExtractor(hp), pe_flat),
+                         (HifiGanGenerator(hp), voc)):
+        load_flax_params(module, flat)
+        state = module.state_dict()
+        assert len(unfilled(state.keys(), [])) == len(flat)
+    with pytest.raises(KeyError, match="not filled"):  # PE without its BatchNorm statistics
+        load_flax_params(PitchExtractor(hp),
+                         load_npz(os.path.join(FLAGSHIP_DIR, "pe_params.npz")))
+
+
+def test_make_batch_is_the_bench_batch():
+    ours = make_batch(3, 16, 40, vocab=24, seed=5)
+    ref = graft_batch(3, 16, 40, vocab=24, seed=5)
+    for key, value in ours.items():
+        np.testing.assert_array_equal(value, ref[key], err_msg=key)
+
+
+def test_items_to_batch_pads_and_budgets():
+    hp = dict(load_hparams_json(os.path.join(FLAGSHIP_DIR, "hparams_diff.json")),
+              bucket_tokens=[8, 16], bucket_frames=[64, 128])
+    svs = SVSInferTorch.__new__(SVSInferTorch)
+    svs.hp = hp
+    item = lambda n, **kw: dict(ph_token=np.arange(1, n + 1), pitch_midi=np.full(n, 60),  # noqa
+                                midi_dur=np.full(n, 0.05, np.float32), is_slur=np.zeros(n),
+                                lang=np.ones(n), spk_id=2, **kw)
+    batch = svs.items_to_batch([item(5), item(10)])
+    assert batch["txt_tokens"].shape == (2, 16) and batch["n_frames"] == 128
+    assert "mel2ph" not in batch and batch["speechsing"].tolist() == [1, 1]
+    given = svs.items_to_batch([item(3, mel2ph=np.array([1, 1, 2, 3]))])
+    assert given["mel2ph"].tolist() == [[1, 1, 2, 3] + [0] * 60]
+    with pytest.raises(ValueError, match="every request"):
+        svs.items_to_batch([item(3, mel2ph=np.array([1])), item(3)])
+
+
+def test_port_imports_nothing_of_jax():
+    """In a fresh interpreter that refuses jax, flax, yaml, pypinyin, jieba,
+    the JAX package and __graft_entry__, every module of the port and
+    chip_smoke (without running it) import."""
+    code = textwrap.dedent("""
+        import importlib, importlib.abc, pkgutil, sys
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "pypinyin", "jieba",
+                   "bisinger_tpu", "__graft_entry__")
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import bisinger_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(bisinger_tpu_torch.__path__,
+                                                       "bisinger_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        assert callable(chip_smoke.main)
+        loaded = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+        assert not loaded, loaded
+        print(len(names))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 15  # every module was imported
