@@ -77,14 +77,25 @@ DEFAULTS: Dict[str, Any] = {
     # batching
     "bucket_frames": [512, 1024, 2048, 4096],
     "bucket_tokens": [64, 128, 256, 512],
+    # activations of the heavy stacks: "bfloat16" (bf16 products with fp32
+    # sums, on the bf16 kernels) or "float32"
+    "compute_dtype": "bfloat16",
 }
+COMPUTE_DTYPES = ("bfloat16", "float32")
+
+
+def _checked(hp: Dict[str, Any]) -> Dict[str, Any]:
+    if hp["compute_dtype"] not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {hp['compute_dtype']!r}")
+    return hp
 
 
 def make_hparams(overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """Defaults updated by `overrides` (a deep copy; callers may mutate)."""
     hp = copy.deepcopy(DEFAULTS)
     hp.update(copy.deepcopy(overrides or {}))
-    return hp
+    return _checked(hp)
 
 
 def load_hparams_json(path: str, overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
@@ -94,4 +105,4 @@ def load_hparams_json(path: str, overrides: Optional[Dict[str, Any]] = None) -> 
     saved.pop("_explicit_keys", None)
     hp = make_hparams(saved)
     hp.update(copy.deepcopy(overrides or {}))
-    return hp
+    return _checked(hp)

@@ -1,8 +1,21 @@
 """Shared NN primitives in [B, T, C] layout.
 
-Counterpart of `bisinger_tpu/models/common.py:36-345`. Submodules carry
+Counterpart of `bisinger_tpu/models/common.py:24-345`. Submodules carry
 the flax names so that `weights.load_flax_params` maps a flat key onto a
 state_dict entry by path. Inference only: dropout is the identity.
+
+Mixed precision follows the JAX package's contract
+(`bisinger_tpu/models/common.py:24-33`): `compute_dtype` (bf16 by
+default) is the type of the activations inside the heavy stacks; params,
+module outputs and the softmax and normalisation statistics stay fp32.
+`Linear` and `Conv` compute as flax's `nn.Dense` / `nn.Conv` with a
+`dtype`: input, kernel and bias cast to it, the product (fp32 sums)
+rounded, then the bias added in it. Without a dtype they compute in fp32,
+as flax promotes a bf16 input against fp32 params. In bf16, the
+activations that JAX builds from several ops (GELU, softplus) run one
+op at a time, each result rounded, as XLA runs them; the norms
+(`layer_norm`, `group_norm`, `batch_norm`) compute flax's formula in fp32,
+so that a bf16 cast after them rounds the values JAX rounds.
 """
 
 from __future__ import annotations
@@ -16,18 +29,119 @@ import torch.nn.functional as F
 from torch import nn
 
 
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(hp) -> torch.dtype:
+    """The activation dtype of `hp["compute_dtype"]`, which `config.py`
+    has checked (`bisinger_tpu/models/common.py:24`)."""
+    return DTYPES[hp["compute_dtype"]]
+
+
+def scale(x, s: float):
+    """x * s as JAX multiplies an array by a Python scalar: s is first
+    rounded to x's dtype."""
+    if x.dtype == torch.float32:
+        return x * s
+    return x * bf16_const(s)
+
+
+def bf16_const(v: float) -> float:
+    """v rounded to bf16, as JAX rounds a weakly typed scalar against a bf16
+    array; a bf16 tensor times this float is one product rounded once."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+_GELU_C1 = bf16_const(math.sqrt(2.0 / math.pi))
+_GELU_C3 = bf16_const(0.044715)
+
+
+def gelu_tanh(x):
+    """jax.nn.gelu (tanh form) in x's dtype, one op at a time as XLA runs
+    it: 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))) * x, every
+    intermediate rounded."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    inner = (x + (x * x * x) * _GELU_C3) * _GELU_C1
+    return x * ((torch.tanh(inner) + 1.0) * 0.5)
+
+
+def softplus(x):
+    """jax.nn.softplus, max(x, 0) + log1p(exp(-|x|)), op by op in x's dtype."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def layer_norm(ln: nn.LayerNorm, x):
+    """flax's LayerNorm of x over the last axis, in fp32 whatever x's dtype:
+    fast variance E[x^2] - E[x]^2 and (x - mean) * (rsqrt(var + eps) *
+    scale) + bias, the order of `flax.linen.normalization`."""
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mean * mean, 0.0)
+    return (x - mean) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias
+
+
+def group_norm(gn: nn.GroupNorm, x):
+    """flax's GroupNorm of x [B, T, C] (statistics over T and each group's
+    channels), in fp32, as `layer_norm`."""
+    b, t, c = x.shape
+    g = gn.num_groups
+    xg = x.float().reshape(b, t, g, c // g)
+    mean = xg.mean((1, 3), keepdim=True)
+    var = torch.clamp_min((xg * xg).mean((1, 3), keepdim=True) - mean * mean, 0.0)
+    mul = torch.rsqrt(var + gn.eps) * gn.weight.reshape(g, c // g)
+    return ((xg - mean) * mul).reshape(b, t, c) + gn.bias
+
+
+def batch_norm(bn: nn.BatchNorm1d, x):
+    """flax's BatchNorm of x [B, T, C] with the running statistics, in fp32:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    return (x.float() - bn.running_mean) * (torch.rsqrt(bn.running_var + bn.eps) * bn.weight) \
+        + bn.bias
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `dtype` (None: fp32), as flax's nn.Dense."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True, dtype=None):
+        super().__init__(cin, cout, bias=bias)
+        self.compute_dtype = dtype
+
+    def cast(self):
+        """(weight, bias) in the compute dtype, for a caller that reuses them
+        over many calls (`forward(x, params)`)."""
+        dt = self.compute_dtype or torch.float32
+        return self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
+
+    def forward(self, x, params=None):
+        dt = self.compute_dtype or torch.float32
+        if dt == torch.float32:
+            return F.linear(x.float(), self.weight, self.bias)
+        w, b = params if params is not None else self.cast()
+        y = F.linear(x.to(dt), w)
+        return y if b is None else y + b
+
+
 class Conv(nn.Conv1d):
-    """Conv1d over [B, T, C]. `padding=None` is flax's SAME for odd kernels:
+    """Conv1d over [B, T, C] computing in `dtype` (None: fp32), as flax's
+    nn.Conv. `padding=None` is flax's SAME for odd kernels:
     dilation * (k - 1) / 2 zeros on each side."""
 
     def __init__(self, cin: int, cout: int, k: int, dilation: int = 1,
-                 stride: int = 1, padding: Optional[int] = None):
+                 stride: int = 1, padding: Optional[int] = None, dtype=None):
         if padding is None:
             padding = dilation * (k - 1) // 2
         super().__init__(cin, cout, k, stride=stride, padding=padding, dilation=dilation)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        dt = self.compute_dtype or torch.float32
+        x = x.transpose(1, 2)
+        if dt == torch.float32:
+            return super().forward(x.float()).transpose(1, 2)
+        y = F.conv1d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+                     self.dilation)
+        return (y + self.bias.to(dt)[:, None]).transpose(1, 2)
 
 
 class Embedding(nn.Module):
@@ -70,32 +184,34 @@ def sinusoidal_positions(nonpad_mask, dim: int, padding_idx: int = 0):
 
 
 class MultiHeadAttention(nn.Module):
-    """q/k/v/out projections, q scaled by head_dim^-0.5, key padding mask
-    filled with the dtype's minimum (`common.py:110-154`)."""
+    """q/k/v/out projections in `dtype`, q scaled by head_dim^-0.5, key
+    padding mask filled with fp32's minimum (`common.py:110-154`): logits
+    and softmax fp32, the weights cast back to `dtype`."""
 
-    def __init__(self, d: int, num_heads: int, bias: bool = True):
+    def __init__(self, d: int, num_heads: int, bias: bool = True, dtype=torch.float32):
         super().__init__()
-        self.num_heads = num_heads
-        self.q_proj = nn.Linear(d, d, bias=bias)
-        self.k_proj = nn.Linear(d, d, bias=bias)
-        self.v_proj = nn.Linear(d, d, bias=bias)
-        self.out_proj = nn.Linear(d, d, bias=bias)
+        self.num_heads, self.dtype_ = num_heads, dtype
+        self.q_proj = Linear(d, d, bias=bias, dtype=dtype)
+        self.k_proj = Linear(d, d, bias=bias, dtype=dtype)
+        self.v_proj = Linear(d, d, bias=bias, dtype=dtype)
+        self.out_proj = Linear(d, d, bias=bias, dtype=dtype)
 
     def forward(self, query, key, value, key_padding_mask=None):
         b, tq, d = query.shape
         h = self.num_heads
         hd = d // h
-        q = self.q_proj(query) * hd ** -0.5
+        q = scale(self.q_proj(query), hd ** -0.5)
 
         def split(x):
             return x.reshape(x.shape[0], x.shape[1], h, hd).transpose(1, 2)
 
         q, k, v = split(q), split(self.k_proj(key)), split(self.v_proj(value))
-        logits = q @ k.transpose(-1, -2)
+        logits = q.float() @ k.float().transpose(-1, -2)  # fp32 sums, fp32 logits
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(logits.dtype).min)
-        out = torch.softmax(logits, dim=-1) @ v
+        weights = torch.softmax(logits, dim=-1).to(self.dtype_)
+        out = (weights.float() @ v.float()).to(self.dtype_)
         return self.out_proj(out.transpose(1, 2).reshape(b, tq, d))
 
 
@@ -103,33 +219,35 @@ class TransformerFFN(nn.Module):
     """SAME Conv(k) -> * k^-0.5 -> GELU -> Dense (`common.py:157-194`, the
     flagship's `ffn_padding: SAME`, `ffn_act: gelu`)."""
 
-    def __init__(self, hidden: int, filter_size: int, kernel_size: int = 9):
+    def __init__(self, hidden: int, filter_size: int, kernel_size: int = 9,
+                 dtype=torch.float32):
         super().__init__()
         self.kernel_size = kernel_size
-        self.Conv_0 = Conv(hidden, filter_size, kernel_size)
-        self.Dense_0 = nn.Linear(filter_size, hidden)
+        self.Conv_0 = Conv(hidden, filter_size, kernel_size, dtype=dtype)
+        self.Dense_0 = Linear(filter_size, hidden, dtype=dtype)
 
     def forward(self, x):
-        x = self.Conv_0(x) * self.kernel_size ** -0.5
-        return self.Dense_0(F.gelu(x, approximate="tanh"))  # jax.nn.gelu's default
+        x = scale(self.Conv_0(x), self.kernel_size ** -0.5)
+        return self.Dense_0(gelu_tanh(x))  # jax.nn.gelu's default
 
 
 class EncSALayer(nn.Module):
     """Pre-norm self-attention + conv-FFN, residuals re-masked
-    (`common.py:197-243`)."""
+    (`common.py:197-243`). x comes and goes in `dtype`; the LayerNorms
+    compute in fp32."""
 
-    def __init__(self, hidden: int, num_heads: int, kernel_size: int = 9):
+    def __init__(self, hidden: int, num_heads: int, kernel_size: int = 9, dtype=torch.float32):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(hidden, eps=1e-5)
-        self.self_attn = MultiHeadAttention(hidden, num_heads, bias=False)
+        self.self_attn = MultiHeadAttention(hidden, num_heads, bias=False, dtype=dtype)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=1e-5)
-        self.ffn = TransformerFFN(hidden, 4 * hidden, kernel_size)
+        self.ffn = TransformerFFN(hidden, 4 * hidden, kernel_size, dtype=dtype)
 
     def forward(self, x, padding_mask):
         nonpad = 1.0 - padding_mask.to(x.dtype)[:, :, None]
-        y = self.layer_norm1(x)
+        y = layer_norm(self.layer_norm1, x)
         x = (x + self.self_attn(y, y, y, key_padding_mask=padding_mask)) * nonpad
-        x = (x + self.ffn(self.layer_norm2(x))) * nonpad
+        x = (x + self.ffn(layer_norm(self.layer_norm2, x))) * nonpad
         return x
 
 
@@ -139,48 +257,53 @@ class ESM(nn.Module):
     `cross_batch=True` attends across the BATCH axis at each token index,
     as the reference does (batch_first=False MHA fed [B, T, H])."""
 
-    def __init__(self, hidden: int, num_heads: int = 8, cross_batch: bool = True):
+    def __init__(self, hidden: int, num_heads: int = 8, cross_batch: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.cross_batch = cross_batch
         self.ln1 = nn.LayerNorm(hidden, eps=1e-5)
-        self.mh = MultiHeadAttention(hidden, num_heads, bias=True)
+        self.mh = MultiHeadAttention(hidden, num_heads, bias=True, dtype=dtype)
         self.ln2 = nn.LayerNorm(hidden, eps=1e-5)
-        self.ffn1 = nn.Linear(hidden, hidden)
-        self.ffn2 = nn.Linear(hidden, hidden)
+        self.ffn1 = Linear(hidden, hidden, dtype=dtype)
+        self.ffn2 = Linear(hidden, hidden, dtype=dtype)
 
     def forward(self, eo, lp):
-        lp_norm = self.ln1(lp)
+        lp_norm = layer_norm(self.ln1, lp)
         if self.cross_batch:
             mo = self.mh(eo.transpose(0, 1), lp_norm.transpose(0, 1),
                          lp_norm.transpose(0, 1)).transpose(0, 1)
         else:
             mo = self.mh(eo, lp_norm, lp_norm)
-        mo = mo + lp
-        return self.ffn2(F.relu(self.ffn1(self.ln2(mo)))) + mo
+        mo = mo + lp  # fp32: the bf16 attention output promotes against lp
+        return self.ffn2(F.relu(self.ffn1(layer_norm(self.ln2, mo)))) + mo
 
 
 class FFTBlocks(nn.Module):
     """EncSALayer stack with optional sinusoidal positions and a final LN
-    (`common.py:304-345`)."""
+    (`common.py:304-345`): the stack runs in `dtype`, the final LN in
+    fp32, and the output is cast back to the input's dtype."""
 
     def __init__(self, hidden: int, num_layers: int, ffn_kernel_size: int = 9,
-                 num_heads: int = 2, use_pos_embed: bool = True):
+                 num_heads: int = 2, use_pos_embed: bool = True, dtype=torch.float32):
         super().__init__()
         self.hidden, self.num_layers, self.use_pos_embed = hidden, num_layers, use_pos_embed
+        self.dtype_ = dtype
         if use_pos_embed:
             self.pos_embed_alpha = nn.Parameter(torch.ones(1))
         for i in range(num_layers):
-            self.add_module(f"layer_{i}", EncSALayer(hidden, num_heads, ffn_kernel_size))
+            self.add_module(f"layer_{i}", EncSALayer(hidden, num_heads, ffn_kernel_size, dtype))
         self.final_ln = nn.LayerNorm(hidden, eps=1e-5)
 
     def forward(self, x, padding_mask=None):
         if padding_mask is None:
             padding_mask = x.abs().sum(-1) == 0
+        out_dtype = x.dtype
+        x = x.to(self.dtype_)
         nonpad = 1.0 - padding_mask.to(x.dtype)[:, :, None]
         if self.use_pos_embed:
-            x = x + self.pos_embed_alpha * sinusoidal_positions(
-                (~padding_mask).long(), self.hidden)
+            x = x + (self.pos_embed_alpha * sinusoidal_positions(
+                (~padding_mask).long(), self.hidden)).to(x.dtype)
         x = x * nonpad
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, padding_mask) * nonpad
-        return self.final_ln(x) * nonpad
+        return (layer_norm(self.final_ln, x) * nonpad).to(out_dtype)

@@ -4,7 +4,10 @@ in-proj 1x1 (80 -> C) -> ReLU -> L gated residual layers -> skip sum /
 sqrt(L) -> 1x1 -> ReLU -> 1x1 (C -> 80). The conditioner projections are
 step-invariant: `cond_projections` computes them once per utterance, and
 `stack_weights` stacks the layers' weights once per sampling loop. The
-residual layers run through K1 (`ops/diffnet_stack.residual_stack`).
+residual layers run through K1: `ops/diffnet_stack.residual_stack_bf16`
+under compute_dtype bfloat16 (the default), `residual_stack` under
+float32. As `bisinger_tpu/models/diffnet.py:100-130`, every projection but
+the last computes in `compute_dtype`, and the output is fp32.
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bisinger_tpu_torch.models.common import Conv
-from bisinger_tpu_torch.ops.diffnet_stack import residual_stack
+from bisinger_tpu_torch.models.common import Conv, Linear, compute_dtype, softplus
+from bisinger_tpu_torch.ops.diffnet_stack import residual_stack, residual_stack_bf16
 
 
 def diffusion_step_embedding(t, dim: int):
@@ -32,12 +35,12 @@ class ResidualBlock(nn.Module):
     """Parameters of one gated residual layer (`diffnet.py:47-85`); the
     layers run together in K1."""
 
-    def __init__(self, channels: int, cond_dims: int, dilation: int):
+    def __init__(self, channels: int, cond_dims: int, dilation: int, dtype=torch.float32):
         super().__init__()
         self.dilation = dilation
         self.diffusion_projection = nn.Linear(channels, channels)
         self.dilated_conv = Conv(channels, 2 * channels, 3, dilation=dilation)
-        self.conditioner_projection = nn.Linear(cond_dims, 2 * channels)
+        self.conditioner_projection = Linear(cond_dims, 2 * channels, dtype=dtype)
         self.output_projection = nn.Linear(channels, 2 * channels)
 
 
@@ -46,44 +49,53 @@ class DiffNet(nn.Module):
         super().__init__()
         c = hp["residual_channels"]
         self.channels, self.n_layers = c, hp["residual_layers"]
+        self.dtype_ = dt = compute_dtype(hp)
         self.dilations = [2 ** (i % hp["dilation_cycle_length"]) for i in range(self.n_layers)]
-        self.input_projection = nn.Linear(in_dims, c)
-        self.mlp_0 = nn.Linear(c, 4 * c)
-        self.mlp_1 = nn.Linear(4 * c, c)
+        self.input_projection = Linear(in_dims, c, dtype=dt)
+        self.mlp_0 = Linear(c, 4 * c, dtype=dt)
+        self.mlp_1 = Linear(4 * c, c, dtype=dt)
         for i, d in enumerate(self.dilations):
-            self.add_module(f"res_{i}", ResidualBlock(c, hp["hidden_size"], d))
-        self.skip_projection = nn.Linear(c, c)
-        self.output_projection = nn.Linear(c, in_dims)
+            self.add_module(f"res_{i}", ResidualBlock(c, hp["hidden_size"], d, dt))
+        self.skip_projection = Linear(c, c, dtype=dt)
+        self.output_projection = Linear(c, in_dims)  # fp32: feeds the sampler
 
     def blocks(self):
         return [getattr(self, f"res_{i}") for i in range(self.n_layers)]
 
     def cond_projections(self, cond):
-        """[B, T, H] -> [L, B, T, 2C]."""
+        """[B, T, H] -> [L, B, T, 2C] in compute_dtype."""
         return torch.stack([blk.conditioner_projection(cond) for blk in self.blocks()])
 
     def stack_weights(self):
-        """The layers' weights in K1's layout: (wstep [L,C,C] as in->out,
-        bstep [L,C], wd [L,3,C,2C], bd [L,2C], wo [L,C,2C], bo [L,2C])."""
-        blks = self.blocks()
+        """The weights one sampling loop reuses: the layers' in K1's layout,
+        (wstep [L,C,C] as in->out, bstep [L,C], wd [L,3,C,2C], bd [L,2C],
+        wo [L,C,2C], bo [L,2C]), all but the K1 biases bd and bo (fp32) in
+        compute_dtype, and the projections' (weight, bias) in it by name."""
+        blks, dt = self.blocks(), self.dtype_
         return (
-            torch.stack([b.diffusion_projection.weight.t() for b in blks]),
-            torch.stack([b.diffusion_projection.bias for b in blks]),
-            torch.stack([b.dilated_conv.weight.permute(2, 1, 0) for b in blks]).contiguous(),
+            torch.stack([b.diffusion_projection.weight.t() for b in blks]).to(dt),
+            torch.stack([b.diffusion_projection.bias for b in blks]).to(dt),
+            torch.stack([b.dilated_conv.weight.permute(2, 1, 0) for b in blks]).to(dt)
+            .contiguous(),
             torch.stack([b.dilated_conv.bias for b in blks]),
-            torch.stack([b.output_projection.weight.t() for b in blks]).contiguous(),
+            torch.stack([b.output_projection.weight.t() for b in blks]).to(dt).contiguous(),
             torch.stack([b.output_projection.bias for b in blks]),
+            {name: getattr(self, name).cast()
+             for name in ("input_projection", "mlp_0", "mlp_1", "skip_projection")},
         )
 
     def forward(self, spec, diffusion_step, cond_proj, stack=None):
         """spec [B, T, M], diffusion_step [B] int, cond_proj [L, B, T, 2C]
         -> predicted noise [B, T, M]."""
-        wstep, bstep, wd, bd, wo, bo = stack if stack is not None else self.stack_weights()
-        x = F.relu(self.input_projection(spec))
-        s = self.mlp_0(diffusion_step_embedding(diffusion_step, self.channels))
-        s = self.mlp_1(s * torch.tanh(F.softplus(s)))  # Mish
+        wstep, bstep, wd, bd, wo, bo, proj = stack if stack is not None else self.stack_weights()
+        x = F.relu(self.input_projection(spec, proj["input_projection"]))
+        s = self.mlp_0(diffusion_step_embedding(diffusion_step, self.channels), proj["mlp_0"])
+        s = self.mlp_1(s * torch.tanh(softplus(s)), proj["mlp_1"])  # Mish
+        # each layer's diffusion_projection, batched: the product rounded,
+        # then the bias added, in compute_dtype
         step_proj = torch.einsum("bc,lcd->lbd", s, wstep) + bstep[:, None, :]
-        skip = residual_stack(x.contiguous(), cond_proj, step_proj.contiguous(), wd, bd, wo, bo,
-                              self.dilations)
-        y = F.relu(self.skip_projection(skip * (1.0 / math.sqrt(self.n_layers))))
-        return self.output_projection(y)
+        stack_fn = residual_stack_bf16 if self.dtype_ == torch.bfloat16 else residual_stack
+        skip = stack_fn(x.contiguous(), cond_proj, step_proj.contiguous(), wd, bd, wo, bo,
+                        self.dilations)
+        y = (skip * (1.0 / math.sqrt(self.n_layers))).to(self.dtype_)
+        return self.output_projection(F.relu(self.skip_projection(y, proj["skip_projection"])))

@@ -7,7 +7,9 @@ and length regulator when no mel2ph is given; frame gather; speaker and
 style embeddings; FFT decoder -> `mel_out`. Options the flagship does not
 use (pitch/energy embeddings, speaker vectors, split speaker ids, the
 MoG/CRF duration heads, relative positions, LEFT-padded or non-GELU FFNs)
-are not ported and raise.
+are not ported and raise. The FFT stacks, the ESM and the duration
+predictor's convs run in `compute_dtype` (`fs2.py:66-115, 387-391`); the
+embeddings, the heads and every output stay fp32.
 """
 
 from __future__ import annotations
@@ -17,7 +19,13 @@ from typing import Optional
 
 from torch import nn
 
-from bisinger_tpu_torch.models.common import ESM, Embedding, FFTBlocks, sinusoidal_positions
+from bisinger_tpu_torch.models.common import (
+    ESM,
+    Embedding,
+    FFTBlocks,
+    compute_dtype,
+    sinusoidal_positions,
+)
 from bisinger_tpu_torch.models.predictors import DurationPredictor
 from bisinger_tpu_torch.utils.seq import gather_phoneme_states, length_regulator
 
@@ -38,20 +46,22 @@ class FastSpeech2MIDI(nn.Module):
             raise NotImplementedError("the port runs SAME/gelu FFNs and sinusoidal positions")
         self.hp, self.padding_idx = hp, padding_idx
         h = hp["hidden_size"]
+        dtype = compute_dtype(hp)
         self.token_embed = Embedding(vocab_size, h, padding_idx)
         self.encoder = FFTBlocks(h, hp["enc_layers"], hp["enc_ffn_kernel_size"],
-                                 hp["num_heads"], use_pos_embed=False)
+                                 hp["num_heads"], use_pos_embed=False, dtype=dtype)
         self.decoder = FFTBlocks(h, hp["dec_layers"], hp["dec_ffn_kernel_size"],
-                                 hp["num_heads"], use_pos_embed=True)
+                                 hp["num_heads"], use_pos_embed=True, dtype=dtype)
         self.mel_out = nn.Linear(h, out_dims or hp["audio_num_mel_bins"])
         ph = hp["predictor_hidden"] if hp["predictor_hidden"] > 0 else h
         self.dur_predictor = DurationPredictor(h, hp["dur_predictor_layers"], ph,
-                                               hp["dur_predictor_kernel"])
+                                               hp["dur_predictor_kernel"], dtype)
         if hp["use_spk_id"]:
             self.spk_embed_proj = Embedding(hp["num_spk"] + 1, h)
         self.use_lang = hp.get("use_lang_embed", True)
         if self.use_lang:
-            self.esm = ESM(h, num_heads=8, cross_batch=hp.get("esm_cross_batch", True))
+            self.esm = ESM(h, num_heads=8, cross_batch=hp.get("esm_cross_batch", True),
+                           dtype=dtype)
             self.lang_embed = Embedding(2, h)
             self.style_embed = Embedding(3, h)
         self.midi_embed = Embedding(300, h, padding_idx)

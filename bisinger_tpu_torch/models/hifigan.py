@@ -3,9 +3,15 @@
 
 conv_pre (k7) -> per stage: leaky_relu(0.1) -> ConvTranspose up ->
 + LayerNorm(ReLU(strided noise_conv(harmonic source))) -> MRF stage (K2,
-`ops/mrf_stage.mrf_stage`) -> leaky_relu(0.01) -> conv_post (k7) -> tanh.
+`ops/mrf_stage`) -> leaky_relu(0.01) -> conv_post (k7) -> tanh.
 The NSF source's random phase and noise can be handed in as tensors so
 that tests pin them. No time fold, no sub-pixel lowering, no PQMF.
+
+As `bisinger_tpu/models/hifigan.py:263-400`, conv_pre, the upsample and
+noise convs compute in `compute_dtype`, the noise LayerNorm in fp32 (so
+the stage input is fp32 again), and the MRF stages run through
+`mrf_stage_bf16` (the TPU kernel's bf16 rounding) under bfloat16 and
+`mrf_stage` under float32; the NSF source and conv_post are fp32.
 """
 
 from __future__ import annotations
@@ -17,8 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bisinger_tpu_torch.models.common import Conv
-from bisinger_tpu_torch.ops.mrf_stage import mrf_stage, pack_stage_weights
+from bisinger_tpu_torch.models.common import Conv, compute_dtype, layer_norm, scale
+from bisinger_tpu_torch.ops.mrf_stage import mrf_stage, mrf_stage_bf16, pack_stage_weights
 
 LRELU_SLOPE = 0.1
 
@@ -64,6 +70,13 @@ class SourceModuleHnNSF(nn.Module):
         return torch.tanh(self.merge(sine_wavs)), uv
 
 
+def leaky_relu(x, slope: float):
+    """jax.nn.leaky_relu in x's dtype: the slope is rounded to it first."""
+    if x.dtype == torch.float32:
+        return F.leaky_relu(x, slope)
+    return torch.where(x >= 0, x, scale(x, slope))
+
+
 class ResBlock1(nn.Module):
     """Parameters of one MRF residual block (conv1_i dilated, conv2_i);
     the stage's blocks run together in K2."""
@@ -92,7 +105,8 @@ class HifiGanGenerator(nn.Module):
         self.rk = list(hp["resblock_kernel_sizes"])
         self.rd = [list(d) for d in hp["resblock_dilation_sizes"]]
         c0 = hp["upsample_initial_channel"]
-        self.conv_pre = Conv(n_mels, c0, 7)
+        self.dtype_ = dt = compute_dtype(hp)
+        self.conv_pre = Conv(n_mels, c0, 7, dtype=dt)
         self.m_source = SourceModuleHnNSF(hp["audio_sample_rate"], harmonic_num=8)
         c_prev = c0
         for i, (u, k) in enumerate(zip(self.rates, hp["upsample_kernel_sizes"])):
@@ -100,7 +114,8 @@ class HifiGanGenerator(nn.Module):
             self.add_module(f"up_{i}", nn.ConvTranspose1d(c_prev, c, k, u, padding=(k - u) // 2))
             s = int(np.prod(self.rates[i + 1:]))
             self.add_module(f"noise_conv_{i}",
-                            Conv(1, c, 2 * s, stride=s, padding=s // 2) if s > 1 else Conv(1, c, 1))
+                            Conv(1, c, 2 * s, stride=s, padding=s // 2, dtype=dt) if s > 1
+                            else Conv(1, c, 1, dtype=dt))
             self.add_module(f"noise_norm_{i}", nn.LayerNorm(c, eps=1e-6))
             for j, (kj, dj) in enumerate(zip(self.rk, self.rd)):
                 self.add_module(f"res_{i}_{j}", ResBlock1(c, kj, dj))
@@ -108,21 +123,29 @@ class HifiGanGenerator(nn.Module):
         self.conv_post = Conv(c_prev, 1, 7)
 
     def stage_weights(self, i: int):
+        """(w in compute_dtype, b fp32) of stage i, packed for K2."""
         blocks = [getattr(self, f"res_{i}_{j}") for j in range(len(self.rk))]
-        return pack_stage_weights(blocks, self.rk, self.rd)
+        return pack_stage_weights(blocks, self.rk, self.rd, self.dtype_)
+
+    def upsample(self, i: int, x):
+        """ConvTranspose1d of stage i in compute_dtype (`ops/subpixel.py:127-145`)."""
+        up, dt = getattr(self, f"up_{i}"), self.dtype_
+        y = F.conv_transpose1d(x.transpose(1, 2).to(dt), up.weight.to(dt), None, up.stride,
+                               up.padding)
+        return (y + up.bias.to(dt)[:, None]).transpose(1, 2)
 
     def forward(self, mel, f0, phase=None, noise=None, generator=None):
         hop = int(np.prod(self.rates))
         f0_up = torch.repeat_interleave(f0, hop, dim=1)[:, :, None]
         har, _ = self.m_source(f0_up, phase, noise, generator)
+        stage = mrf_stage_bf16 if self.dtype_ == torch.bfloat16 else mrf_stage
         x = self.conv_pre(mel)
         for i in range(len(self.rates)):
-            x = F.leaky_relu(x, LRELU_SLOPE)
-            x = getattr(self, f"up_{i}")(x.transpose(1, 2)).transpose(1, 2)
+            x = self.upsample(i, leaky_relu(x, LRELU_SLOPE))
             xs = F.relu(getattr(self, f"noise_conv_{i}")(har))
-            xs = getattr(self, f"noise_norm_{i}")(xs)
-            x = (x + xs[:, :x.shape[1]]).contiguous()
+            xs = layer_norm(getattr(self, f"noise_norm_{i}"), xs)
+            x = (x + xs[:, :x.shape[1]]).contiguous()  # fp32: the norm's output promotes x
             w, b = self.stage_weights(i)
-            x = mrf_stage(x, w, b, self.rk, self.rd)
+            x = stage(x, w, b, self.rk, self.rd)
         x = F.leaky_relu(x)  # slope 0.01, as the reference's final activation
         return torch.tanh(self.conv_post(x))[..., 0]

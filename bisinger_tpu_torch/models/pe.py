@@ -4,7 +4,8 @@ Prenet (eval-mode BatchNorm) -> ConvStacks -> 5-layer PitchPredictor ->
 [f0_norm, uv_logit]; `f0_denorm_pred` is 2^f0, zero where unvoiced or
 padded. The BatchNorm running statistics come from `pe_batch_stats.npz`;
 loading raises if they are missing (weights.load_flax_params leaves
-nothing unfilled).
+nothing unfilled). The convs run in `compute_dtype` (`pe.py:38`); the
+norms, the heads and the outputs are fp32.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from bisinger_tpu_torch.models.common import compute_dtype
 from bisinger_tpu_torch.models.predictors import ConvStacks, PitchPredictor, Prenet
 
 
@@ -23,10 +25,12 @@ class PitchExtractor(nn.Module):
         if hp["pitch_norm"] != "log" or hp["ffn_padding"] != "SAME":
             raise NotImplementedError("the port's PE runs SAME convs and log-normalised f0")
         self.use_uv = hp["pitch_type"] == "frame" and hp["use_uv"]
-        self.mel_prenet = Prenet(n_mel_bins, hidden)
-        self.mel_encoder = ConvStacks(hidden, n_layers=2, n_chans=hidden, odim=hidden)
+        dtype = compute_dtype(hp)
+        self.mel_prenet = Prenet(n_mel_bins, hidden, dtype=dtype)
+        self.mel_encoder = ConvStacks(hidden, n_layers=2, n_chans=hidden, odim=hidden, dtype=dtype)
         self.pitch_predictor = PitchPredictor(hidden, n_layers=5, n_chans=predictor_hidden,
-                                              odim=2, kernel_size=hp["predictor_kernel"])
+                                              odim=2, kernel_size=hp["predictor_kernel"],
+                                              dtype=dtype)
 
     def forward(self, mel):
         pitch_pred = self.pitch_predictor(self.mel_encoder(self.mel_prenet(mel)))

@@ -3,7 +3,9 @@
 Counterpart of `bisinger_tpu/models/predictors.py:20-115, 213-308`
 (ConvReluLN, DurationPredictor with the MSE head, PitchPredictor, Prenet,
 ConvStacks). Inference only: dropout is the identity and BatchNorm uses
-its running statistics.
+its running statistics. The convs (and ConvStacks' input projection) run
+in `dtype`; the norms compute in fp32 and return fp32, and the output
+heads are fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,19 +14,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bisinger_tpu_torch.models.common import Conv, sinusoidal_positions
+from bisinger_tpu_torch.models.common import (
+    Conv,
+    Linear,
+    batch_norm,
+    group_norm,
+    layer_norm,
+    sinusoidal_positions,
+)
 
 
 class ConvReluLN(nn.Module):
     """SAME Conv -> ReLU -> LayerNorm(eps 1e-12) (`predictors.py:20-48`)."""
 
-    def __init__(self, cin: int, channels: int, kernel_size: int):
+    def __init__(self, cin: int, channels: int, kernel_size: int, dtype=torch.float32):
         super().__init__()
-        self.Conv_0 = Conv(cin, channels, kernel_size)
+        self.Conv_0 = Conv(cin, channels, kernel_size, dtype=dtype)
         self.LayerNorm_0 = nn.LayerNorm(channels, eps=1e-12)
 
     def forward(self, x):
-        return self.LayerNorm_0(F.relu(self.Conv_0(x)))
+        return layer_norm(self.LayerNorm_0, F.relu(self.Conv_0(x)))
 
 
 class DurationPredictor(nn.Module):
@@ -32,12 +41,13 @@ class DurationPredictor(nn.Module):
 
     offset = 1.0
 
-    def __init__(self, cin: int, n_layers: int = 2, n_chans: int = 384, kernel_size: int = 3):
+    def __init__(self, cin: int, n_layers: int = 2, n_chans: int = 384, kernel_size: int = 3,
+                 dtype=torch.float32):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"conv_{i}", ConvReluLN(cin if i == 0 else n_chans, n_chans,
-                                                    kernel_size))
+                                                    kernel_size, dtype))
         self.linear = nn.Linear(n_chans, 1)
 
     def forward(self, x, x_padding=None):
@@ -60,13 +70,13 @@ class PitchPredictor(nn.Module):
     """Sinusoidal positions + conv stack -> linear (`predictors.py:213-237`)."""
 
     def __init__(self, cin: int, n_layers: int = 5, n_chans: int = 384, odim: int = 2,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dtype=torch.float32):
         super().__init__()
         self.n_layers = n_layers
         self.pos_embed_alpha = nn.Parameter(torch.ones(1))
         for i in range(n_layers):
             self.add_module(f"conv_{i}", ConvReluLN(cin if i == 0 else n_chans, n_chans,
-                                                    kernel_size))
+                                                    kernel_size, dtype))
         self.linear = nn.Linear(n_chans, odim)
 
     def forward(self, x):
@@ -81,11 +91,13 @@ class Prenet(nn.Module):
     """3 x (conv k=5 -> ReLU -> BatchNorm, masked) -> Dense, masked
     (`predictors.py:247-284`); BatchNorm in eval mode."""
 
-    def __init__(self, cin: int = 80, out_dim: int = 256, kernel: int = 5, n_layers: int = 3):
+    def __init__(self, cin: int = 80, out_dim: int = 256, kernel: int = 5, n_layers: int = 3,
+                 dtype=torch.float32):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
-            self.add_module(f"conv_{i}", Conv(cin if i == 0 else out_dim, out_dim, kernel))
+            self.add_module(f"conv_{i}", Conv(cin if i == 0 else out_dim, out_dim, kernel,
+                                              dtype=dtype))
             self.add_module(f"norm_{i}", nn.BatchNorm1d(out_dim, eps=1e-5))
         self.out_proj = nn.Linear(out_dim, out_dim)
 
@@ -93,9 +105,7 @@ class Prenet(nn.Module):
         nonpad = 1.0 - (x.abs().sum(-1) == 0).to(x.dtype)[:, :, None]
         for i in range(self.n_layers):
             x = F.relu(getattr(self, f"conv_{i}")(x))
-            bn = getattr(self, f"norm_{i}")
-            x = F.batch_norm(x.transpose(1, 2), bn.running_mean, bn.running_var, bn.weight,
-                             bn.bias, training=False, eps=bn.eps).transpose(1, 2)
+            x = batch_norm(getattr(self, f"norm_{i}"), x)
             x = x * nonpad
         return self.out_proj(x) * nonpad
 
@@ -105,12 +115,12 @@ class ConvStacks(nn.Module):
     (`predictors.py:287-308`)."""
 
     def __init__(self, cin: int, n_layers: int = 5, n_chans: int = 256, odim: int = 256,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dtype=torch.float32):
         super().__init__()
         self.n_layers = n_layers
-        self.in_proj = nn.Linear(cin, n_chans)
+        self.in_proj = Linear(cin, n_chans, dtype=dtype)
         for i in range(n_layers):
-            self.add_module(f"conv_{i}", Conv(n_chans, n_chans, kernel_size))
+            self.add_module(f"conv_{i}", Conv(n_chans, n_chans, kernel_size, dtype=dtype))
             self.add_module(f"norm_{i}", nn.GroupNorm(n_chans // 16, n_chans, eps=1e-6))
         self.out_proj = nn.Linear(n_chans, odim)
 
@@ -118,6 +128,6 @@ class ConvStacks(nn.Module):
         x = self.in_proj(x)
         for i in range(self.n_layers):
             y = getattr(self, f"conv_{i}")(x)
-            y = getattr(self, f"norm_{i}")(y.transpose(1, 2)).transpose(1, 2)
-            x = x + F.relu(y)
-        return self.out_proj(x)
+            y = group_norm(getattr(self, f"norm_{i}"), y)
+            x = x + F.relu(y)  # fp32 from here: the norm's output promotes x
+        return self.out_proj(x.float())

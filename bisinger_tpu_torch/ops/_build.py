@@ -1,16 +1,18 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers) and is
-compiled on its own into `bisinger_tpu_torch/_build/lib<name>_<hash>.so`:
+compiled on its own into `bisinger_tpu_torch/_build/lib<name>_<hash>.so`
+(the bf16 sources include `csrc/mma_bf16.cuh`):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o ... csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is loaded as it is. `build_all`
-starts one nvcc per source at once and waits for all of them; it prints
-each build's time and the `-Xptxas -v` lines (registers, shared memory,
-spills) once. Nothing here runs at import.
+The file name carries a hash of the source, the headers of `csrc/` and
+the flags, so an edited source or header builds anew and an unchanged one
+is loaded as it is. `build_all` starts one nvcc per source at once and
+waits for all of them; it prints each build's time and the `-Xptxas -v`
+lines (registers, shared memory, spills) once. Nothing here runs at
+import.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "diffnet_stack": {"diffnet_residual_stack": ([_P] * 10 + [_I] * 5 + [_P], _I)},
     "mrf_stage": {"mrf_stage": ([_P] * 4 + [_I] * 5 + [_P] * 2 + [_I, _P], _I)},
+    "diffnet_stack_bf16": {"diffnet_residual_stack_bf16": ([_P] * 10 + [_I] * 5 + [_P], _I)},
+    "mrf_stage_bf16": {"mrf_stage_bf16": ([_P] * 4 + [_I] * 5 + [_P] * 2 + [_I, _P], _I)},
 }
 KERNELS = tuple(SIGNATURES)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
@@ -51,8 +55,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fn in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

@@ -1,9 +1,10 @@
 """Where the time of one synthesize() call goes on the card.
 
     python -m bisinger_tpu_torch.tools.profile_path [--batch 4] [--frames 256]
-        [--out TABLE.txt]
+        [--compute-dtype bfloat16|float32] [--out TABLE.txt]
 
-Loads the flagship checkpoint, warms the path up once, then runs one
+Loads the flagship checkpoint (in its compute_dtype, bf16, unless another
+is given), warms the path up once, then runs one
 synthesize() under torch.profiler and prints: the call's wall time, the
 summed device time of its kernels (and the share of the wall time the
 device was busy), the device time of K1 and K2 and of everything else,
@@ -24,6 +25,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--frames", type=int, default=256)
+    ap.add_argument("--compute-dtype", default=None, choices=("bfloat16", "float32"),
+                    help="override the checkpoint's compute_dtype")
     ap.add_argument("--out", default=None, help="write the full profiler table here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -34,7 +37,8 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    svs = SVSInferTorch.from_checkpoint(device="cuda")
+    over = {"compute_dtype": args.compute_dtype} if args.compute_dtype else None
+    svs = SVSInferTorch.from_checkpoint(device="cuda", hp_overrides=over)
     batch = make_batch(args.batch, 64, args.frames, svs.vocab_size, seed=0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     svs.synthesize(batch, generator=gen)
@@ -47,10 +51,12 @@ def main(argv=None) -> int:
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = lambda e: e.self_device_time_total  # noqa: E731
     total = sum(dev_us(e) for e in events)
-    k1 = sum(dev_us(e) for e in events if "residual_stack_kernel" in e.key)
-    k2 = sum(dev_us(e) for e in events if "mrf_stage_kernel" in e.key)
+    # the kernels of both routes: residual_stack[_bf16]_kernel, mrf_stage[_bf16]_kernel
+    k1 = sum(dev_us(e) for e in events if "residual_stack" in e.key)
+    k2 = sum(dev_us(e) for e in events if "mrf_stage" in e.key)
     n_launch = sum(e.count for e in events)
-    print(f"[profile] {torch.cuda.get_device_name(0)} B={args.batch} T={args.frames}: wall "
+    print(f"[profile] {torch.cuda.get_device_name(0)} {svs.hp['compute_dtype']} "
+          f"B={args.batch} T={args.frames}: wall "
           f"{wall * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms ({100 * total / 1e6 / wall:.1f}% "
           f"of wall), {n_launch} kernel launches; K1 {k1 / 1e3:.1f} ms, K2 {k2 / 1e3:.1f} ms, "
           f"other kernels {(total - k1 - k2) / 1e3:.1f} ms")

@@ -4,23 +4,31 @@ Run from the repository root, with one card:
 
     python3 chip_smoke.py
 
-Phases, each printing one line with its results and seconds (a failed
-phase exits non-zero):
+Each kernel has two routes, chosen by the hyperparameter compute_dtype:
+fp32 (csrc/diffnet_stack.cu, csrc/mrf_stage.cu) and bf16 on the tensor
+cores (csrc/diffnet_stack_bf16.cu, csrc/mrf_stage_bf16.cu), the
+flagship's default. Phases, each printing one line with its results and
+seconds (a failed phase exits non-zero):
   1. device: name, count, nvidia-smi's name and power limit;
-  2. build both kernels with nvcc (csrc/*.cu, one process per source);
-  3. K1 (DiffNet residual stack) against its plain version at the
-     flagship widths, B=4, T=256;
-  4. K2 (MRF stage) against its plain version at each stage width, B=2;
-  5. the flagship path: synthesize() on a 4 x 64-token, 256-frame batch
-     with mel2ph given, then on one request through the duration
-     predictor; launch counts, finite non-silent waveforms of frames x 128
-     samples, and a small input against the same path on the CPU;
-  6. both kernels against their plain versions at every shape the path
-     gives them in phases 5 and 7 (B=4, T=256 and the bench's B=32,
-     T=1024), with CUDA-event times of both, the conv1d yardstick for K2,
-     and each kernel's bound;
+  2. build the four kernels with nvcc (csrc/*.cu, one process per source);
+  3. K1 (DiffNet residual stack), both routes, against their plain
+     versions at the flagship widths, B=4, T=256;
+  4. K2 (MRF stage), both routes, against their plain versions at each
+     stage width, B=2;
+  5. the flagship path in fp32 (compute_dtype float32): synthesize() on a
+     4 x 64-token, 256-frame batch with mel2ph given, launch counts, and a
+     small input against the same path on the CPU; then in bf16 (the
+     default): the same batch and one request through the duration
+     predictor, launch counts on the bf16 kernels only, finite non-silent
+     waveforms of frames x 128 samples, and the small input against the
+     fp32 path on the card within the JAX package's bf16 contract;
+  6. the four kernels against their plain versions at every shape the
+     path gives them in phases 5 and 7 (B=4, T=256 and the bench's B=32,
+     T=1024), with CUDA-event times of both, the conv1d chains (fp32 and
+     bf16) for K2, and each kernel's bound;
   7. warm synthesize() wall times at B=4, T=256 and at the bench's
-     B=32, T=1024, as audio seconds made per second.
+     B=32, T=1024 under bf16 (and fp32 beside it), as audio seconds made
+     per second.
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
@@ -40,6 +48,7 @@ import torch
 BUDGET_S = 600.0  # the run fails past 10 minutes, builds included
 T_START = time.perf_counter()
 FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
+BF16_PEAK = 989e12  # H100 SXM bf16 dense tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 
 
@@ -78,8 +87,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def rel_err(got, ref):
-    err = (got.double() - ref.double()).abs().max().item()
-    return err, err / max(ref.abs().max().item(), 1e-30)
+    """max |got - ref|, that over max |ref|, and mean |got - ref| over mean
+    |ref|."""
+    diff = (got.double() - ref.double()).abs()
+    err = diff.max().item()
+    return (err, err / max(ref.abs().max().item(), 1e-30),
+            diff.mean().item() / max(ref.abs().mean().item(), 1e-30))
 
 
 def k1_inputs(B, T, C, L, gen, dev):
@@ -87,6 +100,14 @@ def k1_inputs(B, T, C, L, gen, dev):
     return (torch.relu(r(B, T, C)), r(L, B, T, 2 * C), r(L, B, C, sc=0.5),
             r(L, 3, C, 2 * C, sc=(3 * C) ** -0.5), r(L, 2 * C, sc=0.1),
             r(L, C, 2 * C, sc=C ** -0.5), r(L, 2 * C, sc=0.1))
+
+
+def k1_bf16(args):
+    """K1's fp32 inputs -> the bf16 route's: bf16 activations and weights,
+    fp32 biases."""
+    x0, cond, step, wd, bd, wo, bo = args
+    b16 = torch.bfloat16
+    return (x0.to(b16), cond.to(b16), step.to(b16), wd.to(b16), bd, wo.to(b16), bo)
 
 
 def k2_inputs(B, U, F, rk, rd, gen, dev):
@@ -130,43 +151,109 @@ def main() -> int:
         ph.done("built " + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items())
                 if secs else "libraries already built")
 
-    results = {}
     C, L = 256, 20
     dils = [2 ** (i % 4) for i in range(L)]
+    # each kernel route: (kernel, plain version, (max, mean) tolerance, input cast,
+    # source, peak FLOP/s); the fp32 routes' max bound is near fp32 rounding and
+    # needs no mean bound beside it
+    k1_routes = {
+        "fused_residual_stack": (
+            diffnet_stack.residual_stack, diffnet_stack.residual_stack_plain,
+            (diffnet_stack.TOLERANCE, None), lambda a: a, "diffnet_stack.cu", FP32_PEAK),
+        "fused_residual_stack_bf16": (
+            diffnet_stack.residual_stack_bf16, diffnet_stack.residual_stack_plain_bf16,
+            (diffnet_stack.TOLERANCE_BF16, diffnet_stack.MEAN_TOLERANCE_BF16), k1_bf16,
+            "diffnet_stack_bf16.cu", BF16_PEAK),
+    }
+    k2_routes = {
+        "fused_mrf_stage": (
+            mrf_stage.mrf_stage, mrf_stage.mrf_stage_plain, (mrf_stage.TOLERANCE, None),
+            torch.float32, "mrf_stage.cu", FP32_PEAK),
+        "fused_mrf_stage_bf16": (
+            mrf_stage.mrf_stage_bf16, mrf_stage.mrf_stage_plain_bf16,
+            (mrf_stage.TOLERANCE_BF16, mrf_stage.MEAN_TOLERANCE_BF16), torch.bfloat16,
+            "mrf_stage_bf16.cu", BF16_PEAK),
+    }
+    # a control per bf16 route: its plain version with one rounding point moved,
+    # read against the plain version; the mean bound must lie below its reading
+    controls = {"fused_residual_stack_bf16": dict(skip_dtype=torch.bfloat16),
+                "fused_mrf_stage_bf16": dict(conv1_dtype=torch.float32)}
+
+    def outside(rel, mean, tol):
+        return rel > tol[0] or (tol[1] is not None and mean > tol[1])
+
+    def tol_text(tol):
+        return f"{tol[0]:g}" + (f"/{tol[1]:g}" if tol[1] is not None else "/-")
+
+    errs = {name: 0.0 for name in (*k1_routes, *k2_routes)}
     with Phase("3 K1 vs plain") as ph:
         gen.manual_seed(1)
         args = k1_inputs(4, 256, C, L, gen, dev)
-        got = diffnet_stack.residual_stack(*args, dils)
-        torch.cuda.synchronize()
-        ref = diffnet_stack.residual_stack_plain(*args, dils)
-        err, rel = rel_err(got, ref)
-        results["k1_err"] = err
-        ok = rel <= diffnet_stack.TOLERANCE
-        ph.done(f"B=4 T=256 C={C} L={L}: max_abs_err {err:.3e}, relative {rel:.3e} "
-                f"(tolerance {diffnet_stack.TOLERANCE:g}) {'ok' if ok else 'MISMATCH'}")
-        if not ok:
+        lines, bad = [], []
+        for name, (fn, plain, tol, cast, _, _) in k1_routes.items():
+            a = cast(args)
+            got = fn(*a, dils)
+            torch.cuda.synchronize()
+            ref = plain(*a, dils)
+            err, rel, mean = rel_err(got, ref)
+            errs[name] = max(errs[name], err)
+            lines.append(f"{name} max_abs_err {err:.3e}, relative max {rel:.3e} mean {mean:.3e} "
+                         f"(tolerance {tol_text(tol)})")
+            if outside(rel, mean, tol):
+                bad.append(name)
+            if name in controls:
+                _, crel, cmean = rel_err(plain(*a, dils, **controls[name]), ref)
+                lines.append(f"control {controls[name]}: relative max {crel:.3e} mean "
+                             f"{cmean:.3e} (must exceed {tol[1]:g})")
+                if cmean <= tol[1]:
+                    bad.append(f"{name} control")
+        ph.done(f"B=4 T=256 C={C} L={L}: " + "; ".join(lines)
+                + (f" MISMATCH {bad}" if bad else " ok"))
+        if bad:
             return 1
 
     with Phase("4 K2 vs plain") as ph:
         rk, rd = [3, 7, 11], [[1, 3, 5]] * 3
-        errs, bad = [], []
+        lines, bad = [], []
         for F in (256, 128, 64, 32):
             gen.manual_seed(F)
             x, w, b = k2_inputs(2, 2048, F, rk, rd, gen, dev)
-            got = mrf_stage.mrf_stage(x, w, b, rk, rd)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, mrf_stage.mrf_stage_plain(x, w, b, rk, rd))
-            errs.append(f"F={F} {err:.3e}/{rel:.3e}")
-            results[f"k2_err_{F}"] = err
-            if rel > mrf_stage.TOLERANCE:
-                bad.append(F)
-        ph.done(f"B=2 U=2048 max_abs_err/relative (tolerance {mrf_stage.TOLERANCE:g}): "
-                + "; ".join(errs) + (f" MISMATCH at F={bad}" if bad else " ok"))
+            for name, (fn, plain, tol, wdt, _, _) in k2_routes.items():
+                wc = w.to(wdt)
+                got = fn(x, wc, b, rk, rd)
+                torch.cuda.synchronize()
+                ref = plain(x, wc, b, rk, rd)
+                err, rel, mean = rel_err(got, ref)
+                errs[name] = max(errs[name], err)
+                lines.append(f"{name} F={F} {err:.3e}/{rel:.3e}/{mean:.3e}")
+                if outside(rel, mean, tol):
+                    bad.append(f"{name} F={F}")
+                if name in controls:
+                    _, crel, cmean = rel_err(plain(x, wc, b, rk, rd, **controls[name]), ref)
+                    lines.append(f"control {crel:.3e}/{cmean:.3e}")
+                    if cmean <= tol[1]:
+                        bad.append(f"{name} F={F} control")
+        ph.done(f"B=2 U=2048 max_abs_err/relative max/relative mean (tolerances "
+                f"{tol_text(k2_routes['fused_mrf_stage'][2])} fp32, "
+                f"{tol_text(k2_routes['fused_mrf_stage_bf16'][2])} bf16; the control, the plain "
+                f"version with {controls['fused_mrf_stage_bf16']}, must exceed the mean "
+                "bound): " + "; ".join(lines)
+                + (f" MISMATCH at {bad}" if bad else " ok"))
         if bad:
             return 1
 
+    counters = {"fused_residual_stack": diffnet_stack.counter,
+                "fused_residual_stack_bf16": diffnet_stack.counter_bf16,
+                "fused_mrf_stage": mrf_stage.counter,
+                "fused_mrf_stage_bf16": mrf_stage.counter_bf16}
+    launches = {name: 0 for name in counters}
     with Phase("5 path") as ph:
+        svs32 = SVSInferTorch.from_checkpoint(FLAGSHIP_DIR, device=dev,
+                                              hp_overrides=dict(compute_dtype="float32"))
         svs = SVSInferTorch.from_checkpoint(FLAGSHIP_DIR, device=dev)
+        if svs.hp["compute_dtype"] != "bfloat16":
+            ph.done(f"FAILED: the flagship runs compute_dtype {svs.hp['compute_dtype']}")
+            return 1
         vocab = svs.vocab_size
         gen.manual_seed(0)
         batch = make_batch(4, 64, 256, vocab, seed=0)
@@ -175,18 +262,27 @@ def main() -> int:
                    "midi_dur": req["midi_dur"][0], "is_slur": req["is_slur"][0],
                    "lang": req["lang"][0], "spk_id": int(req["spk_ids"][0]), "speechsing": 1}
         pred_batch = svs.items_to_batch([request], t_txt=64)
-        launches = {"k1": 0, "k2": 0}
+        n_calls = {"fused_residual_stack": svs.hp["K_step"] // svs.hp["pndm_speedup"] + 1,
+                   "fused_mrf_stage": len(svs.hp["upsample_rates"])}
+        n_calls.update({k + "_bf16": v for k, v in n_calls.items()})
         lines = []
-        for name, b in (("mel2ph given, B=4", batch), ("predicted durations, B=1", pred_batch)):
-            diffnet_stack.counter.launches = mrf_stage.counter.launches = 0
+        for name, model, b, route in (("fp32, mel2ph given, B=4", svs32, batch, ""),
+                                      ("bf16, mel2ph given, B=4", svs, batch, "_bf16"),
+                                      ("bf16, predicted durations, B=1", svs, pred_batch, "_bf16")):
+            for c in counters.values():
+                c.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = svs.synthesize(b, generator=gen)
+            out = model.synthesize(b, generator=gen)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            k1, k2 = diffnet_stack.counter.launches, mrf_stage.counter.launches
-            launches["k1"] += k1
-            launches["k2"] += k2
+            counts = {k: c.launches for k, c in counters.items()}
+            for k, v in counts.items():
+                launches[k] += v
+            # this route's kernels once per denoiser call and per vocoder stage, the
+            # other route's never
+            want = {k: n_calls[k] if k.endswith("_bf16") == (route == "_bf16") else 0
+                    for k in counters}
             wav, mel = out["wav"], out["mel"]
             frames = mel.shape[1]
             voiced = int((out["mel2ph"] > 0).sum().item())
@@ -194,112 +290,154 @@ def main() -> int:
                 "finite": bool(torch.isfinite(wav).all() and torch.isfinite(mel).all()),
                 "non-silent": float(wav.abs().max()) > 1e-3,
                 "length": tuple(wav.shape) == (mel.shape[0], frames * 128),
-                "K1=201": k1 == svs.hp["K_step"] // svs.hp["pndm_speedup"] + 1,
-                "K2=4": k2 == len(svs.hp["upsample_rates"]),
+                "launches": counts == want,
             }
             lines.append(f"{name}: wav {tuple(wav.shape)} ({frames} frames, {voiced} filled), "
-                         f"|wav| max {float(wav.abs().max()):.3f}, K1 {k1}, K2 {k2}, "
-                         f"{secs:.2f} s, checks " + ",".join(
-                             k for k, v in checks.items() if v))
+                         f"|wav| max {float(wav.abs().max()):.3f}, launches "
+                         + ", ".join(f"{k} {v}" for k, v in counts.items())
+                         + f", {secs:.2f} s, checks " + ",".join(k for k, v in checks.items() if v))
             if not all(checks.values()):
                 ph.done(" | ".join(lines)
                         + f"; FAILED {[k for k, v in checks.items() if not v]}")
                 return 1
-        # a small input against the same path on the CPU (plain versions), with
-        # the random draws pinned: mel and waveform agree within the tolerances
+        # a small input with the random draws pinned: the fp32 path on the card
+        # against the same path on the CPU (plain versions), and the bf16 path
+        # against the fp32 path on the card
         small = make_batch(1, 16, 32, vocab, seed=2)
         g = torch.Generator().manual_seed(3)
         pins = dict(start_noise=torch.randn((1, 32, 80), generator=g),
                     nsf_phase=torch.rand((1, 9), generator=g),
                     nsf_noise=torch.randn((1, 32 * 128, 9), generator=g))
-        on_card = svs.synthesize(small, **{k: v.to(dev) for k, v in pins.items()})
-        cpu = copy.copy(svs)
+        pins_dev = {k: v.to(dev) for k, v in pins.items()}
+        on_card = svs32.synthesize(small, **pins_dev)
+        cpu = copy.copy(svs32)
         cpu.device = torch.device("cpu")
         cpu.model, cpu.pe, cpu.vocoder = (copy.deepcopy(m).cpu() for m in
-                                          (svs.model, svs.pe, svs.vocoder))
+                                          (svs32.model, svs32.pe, svs32.vocoder))
         on_cpu = cpu.synthesize(small, **pins)
+        del cpu
         mel_err = rel_err(on_card["mel"].cpu(), on_cpu["mel"])[0]
         wav_err = rel_err(on_card["wav"].cpu(), on_cpu["wav"])[0]
         # the port's parity bounds against the JAX package (tests/test_torch_pipeline.py)
         small_ok = mel_err <= 1e-3 and wav_err <= 2e-3
-        ph.done(" | ".join(lines)
-                + f" | card vs CPU on 16 tokens/32 frames: mel max err {mel_err:.3e} (tol 1e-3),"
-                f" wav max err {wav_err:.3e} (tol 2e-3) {'ok' if small_ok else 'MISMATCH'}")
-        if not small_ok:
+        lines.append(f"fp32 card vs CPU on 16 tokens/32 frames: mel max err {mel_err:.3e} "
+                     f"(tol 1e-3), wav max err {wav_err:.3e} (tol 2e-3) "
+                     + ("ok" if small_ok else "MISMATCH"))
+        # the JAX package's bf16 contract (tests/test_mixed_precision.py:77-81):
+        # mean |difference| < 2% and max < 20% of the fp32 output's mean |value|,
+        # on mel and f0 end to end, and on the waveform of the bf16 vocoder fed
+        # the fp32 path's mel and f0. End to end the waveform is only reported:
+        # the NSF source integrates f0 into the sine phase, so a 0.1% step of f0
+        # moves later samples by a large part of their amplitude.
+        on_card16 = svs.synthesize(small, **pins_dev)
+        with torch.no_grad():
+            voc16 = svs.vocoder(on_card["mel"], on_card["f0"], phase=pins_dev["nsf_phase"],
+                                noise=pins_dev["nsf_noise"])
+        contract = []
+        for key, got, gate in (("mel", on_card16["mel"], True), ("f0", on_card16["f0"], True),
+                               ("wav from fp32 mel/f0", voc16, True),
+                               ("wav end to end", on_card16["wav"], False)):
+            ref = on_card[key.split()[0]].double()
+            diff = (got.double() - ref).abs()
+            scale = ref.abs().mean().item()
+            mean_r, max_r = diff.mean().item() / scale, diff.max().item() / scale
+            ok = mean_r < 0.02 and max_r < 0.2
+            if gate:
+                contract.append(ok)
+            lines.append(f"bf16 vs fp32 {key}: mean |diff| {100 * mean_r:.3f}%, max "
+                         f"{100 * max_r:.3f}% of mean |fp32| {scale:.4g} "
+                         + (("ok" if ok else "OUTSIDE") if gate else "(reported)"))
+        ph.done(" | ".join(lines))
+        if not (small_ok and all(contract)):
             return 1
-        del cpu
 
     kernels = []
     with Phase("6 kernels at the path's shapes") as ph:
         # every shape phases 5 and 7 give the kernels: outputs held against the
         # plain versions on the same inputs, then timed
-        k1_lines, bad = [], []
-        for B, T, reps in ((4, 256, 20), (32, 1024, 2)):
-            gen.manual_seed(5 + B)
-            args = k1_inputs(B, T, C, L, gen, dev)
-            got = diffnet_stack.residual_stack(*args, dils)
-            err, rel = rel_err(got, diffnet_stack.residual_stack_plain(*args, dils))
-            results["k1_err"] = max(results["k1_err"], err)
-            if rel > diffnet_stack.TOLERANCE:
-                bad.append(f"K1 B={B} T={T}")
-            del got
-            ms = cuda_ms(lambda: diffnet_stack.residual_stack(*args, dils), reps=reps)
-            plain = cuda_ms(lambda: diffnet_stack.residual_stack_plain(*args, dils), reps=reps)
-            bound = 1e3 * max(diffnet_stack.stack_flops(B, T, C, L) / FP32_PEAK,
-                              diffnet_stack.stack_bytes(B, T, C, L) / HBM_RATE)
-            del args
-            k1_lines.append(f"B={B} T={T}: {ms:.3f} ms (plain {plain:.3f}, bound {bound:.3f}), "
-                            f"err {err:.3e}/{rel:.3e}")
-            if B == 4:
-                k1_ms, k1_plain, k1_bound = ms, plain, bound
-        kernels.append(dict(
-            name="fused_residual_stack", route="cuda",
-            source="bisinger_tpu_torch/csrc/diffnet_stack.cu",
-            replaces="bisinger_tpu/ops/diffnet_pallas.py:214",
-            launches=launches["k1"], max_abs_err=results["k1_err"], ms=k1_ms, plain_ms=k1_plain,
-            bound_ms=k1_bound, bound_by="operations", library_ms=None))
+        lines, bad = [], []
+        for name, (fn, plain, tol, cast, src, peak) in k1_routes.items():
+            row = {}
+            for B, T, reps in ((4, 256, 20), (32, 1024, 2)):
+                gen.manual_seed(5 + B)
+                a = cast(k1_inputs(B, T, C, L, gen, dev))
+                got = fn(*a, dils)
+                err, rel, mean = rel_err(got, plain(*a, dils))
+                errs[name] = max(errs[name], err)
+                if outside(rel, mean, tol):
+                    bad.append(f"{name} B={B} T={T}")
+                del got
+                ms = cuda_ms(lambda: fn(*a, dils), reps=reps)
+                plain_ms = cuda_ms(lambda: plain(*a, dils), reps=reps)
+                fl = diffnet_stack.stack_flops(B, T, C, L) / peak
+                by = diffnet_stack.stack_bytes(B, T, C, L, bf16=peak == BF16_PEAK) / HBM_RATE
+                bound = 1e3 * max(fl, by)
+                del a
+                lines.append(f"{name} B={B} T={T}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
+                             f"{bound:.3f} by {'operations' if fl >= by else 'bytes'}, "
+                             f"{ms / bound:.1f}x), err {err:.3e}/{rel:.3e}/{mean:.3e}")
+                if B == 4:
+                    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                               bound_by="operations" if fl >= by else "bytes")
+            kernels.append(dict(
+                name=name, route="cuda", source=f"bisinger_tpu_torch/csrc/{src}",
+                replaces="bisinger_tpu/ops/diffnet_pallas.py:214", launches=launches[name],
+                max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None))
         hp = svs.hp
         rk, rd = hp["resblock_kernel_sizes"], hp["resblock_dilation_sizes"]
-        k2_lines = []
-        for B, T, reps in ((4, 256, 5), (32, 1024, 1)):
-            tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0)
-            stages = []
-            F, U = hp["upsample_initial_channel"], T
-            for u in hp["upsample_rates"]:
-                F, U = F // 2, U * u
-                x, w, b = k2_inputs(B, U, F, rk, rd, gen, dev)
-                got = mrf_stage.mrf_stage(x, w, b, rk, rd)
-                err, rel = rel_err(got, mrf_stage.mrf_stage_plain(x, w, b, rk, rd))
-                results[f"k2_err_{B}_{F}"] = err
-                if rel > mrf_stage.TOLERANCE:
-                    bad.append(f"K2 B={B} U={U} F={F}")
-                del got
-                ms = cuda_ms(lambda: mrf_stage.mrf_stage(x, w, b, rk, rd), reps=reps)
-                plain = cuda_ms(lambda: mrf_stage.mrf_stage_plain(x, w, b, rk, rd), reps=reps)
-                lib = cuda_ms(lambda: mrf_stage.mrf_stage_conv1d(x, w, b, rk, rd), reps=reps)
-                del x, w, b
-                fl = mrf_stage.stage_flops(B, U, F, rk, rd) / FP32_PEAK
-                by = mrf_stage.stage_bytes(B, U, F, rk, rd) / HBM_RATE
-                bound = 1e3 * max(fl, by)
-                for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", bound)):
-                    tot[key] += v
-                stages.append(f"F={F} U={U} {ms:.3f} ms (plain {plain:.3f}, conv1d {lib:.3f}, "
-                              f"bound {bound:.3f} by {'operations' if fl >= by else 'bytes'}), "
-                              f"err {err:.3e}/{rel:.3e}")
-            k2_lines.append(f"B={B} T={T}, one vocoder pass {tot['ms']:.3f} ms (plain "
-                            f"{tot['plain']:.3f}, conv1d {tot['lib']:.3f}, bound "
-                            f"{tot['bound']:.3f}): " + "; ".join(stages))
-            if B == 4:
-                k2_tot = tot
-        kernels.append(dict(
-            name="fused_mrf_stage", route="cuda", source="bisinger_tpu_torch/csrc/mrf_stage.cu",
-            replaces="bisinger_tpu/ops/mrf_pallas.py:366", launches=launches["k2"],
-            max_abs_err=max(v for k, v in results.items() if k.startswith("k2_err")),
-            ms=k2_tot["ms"], plain_ms=k2_tot["plain"], bound_ms=k2_tot["bound"],
-            bound_by="operations", library_ms=k2_tot["lib"]))
-        ph.done(f"tolerances K1 {diffnet_stack.TOLERANCE:g}, K2 {mrf_stage.TOLERANCE:g} "
-                "(max_abs_err/relative); K1 per call: " + "; ".join(k1_lines) + " | K2: "
-                + " | ".join(k2_lines) + (f"; MISMATCH at {bad}" if bad else "; ok"))
+        for name, (fn, plain, tol, wdt, src, peak) in k2_routes.items():
+            row = {}
+            for B, T, reps in ((4, 256, 5), (32, 1024, 1)):
+                tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, fl=0.0, by=0.0)
+                stages = []
+                F, U = hp["upsample_initial_channel"], T
+                for u in hp["upsample_rates"]:
+                    F, U = F // 2, U * u
+                    x, w, b = k2_inputs(B, U, F, rk, rd, gen, dev)
+                    w = w.to(wdt)
+                    got = fn(x, w, b, rk, rd)
+                    err, rel, mean = rel_err(got, plain(x, w, b, rk, rd))
+                    errs[name] = max(errs[name], err)
+                    if outside(rel, mean, tol):
+                        bad.append(f"{name} B={B} U={U} F={F}")
+                    del got
+                    ms = cuda_ms(lambda: fn(x, w, b, rk, rd), reps=reps)
+                    plain_ms = cuda_ms(lambda: plain(x, w, b, rk, rd), reps=reps)
+                    # the same chain of conv1d calls in the route's dtype (cuDNN)
+                    lib = cuda_ms(lambda: mrf_stage.mrf_stage_conv1d(x, w, b, rk, rd, dtype=wdt),
+                                  reps=reps)
+                    del x, w, b
+                    fl = mrf_stage.stage_flops(B, U, F, rk, rd) / peak
+                    by = mrf_stage.stage_bytes(B, U, F, rk, rd, bf16=wdt == torch.bfloat16) \
+                        / HBM_RATE
+                    bound = 1e3 * max(fl, by)
+                    for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
+                                   ("bound", bound), ("fl", fl), ("by", by)):
+                        tot[key] += v
+                    stages.append(f"F={F} U={U} {ms:.3f} ms (plain {plain_ms:.3f}, conv1d "
+                                  f"{lib:.3f}, bound {bound:.3f}), "
+                                  f"err {err:.3e}/{rel:.3e}/{mean:.3e}")
+                lines.append(f"{name} B={B} T={T}, one vocoder pass {tot['ms']:.3f} ms (plain "
+                             f"{tot['plain']:.3f}, conv1d {tot['lib']:.3f}, bound "
+                             f"{tot['bound']:.3f}, {tot['ms'] / tot['bound']:.1f}x): "
+                             + "; ".join(stages))
+                if B == 4:
+                    row = dict(ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
+                               library_ms=tot["lib"],
+                               bound_by="operations" if tot["fl"] >= tot["by"] else "bytes")
+            kernels.append(dict(
+                name=name, route="cuda", source=f"bisinger_tpu_torch/csrc/{src}",
+                replaces="bisinger_tpu/ops/mrf_pallas.py:366", launches=launches[name],
+                max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"]))
+        ph.done("tolerances (relative max/mean) K1 "
+                + ", ".join(tol_text(r[2]) for r in k1_routes.values()) + "; K2 "
+                + ", ".join(tol_text(r[2]) for r in k2_routes.values())
+                + " (fp32, bf16); errors max_abs/relative max/relative mean | "
+                + " | ".join(lines)
+                + (f"; MISMATCH at {bad}" if bad else "; ok"))
         if bad:
             return 1
 
@@ -309,18 +447,20 @@ def main() -> int:
         lines = []
         for B, T, warm in ((4, 256, True), (32, 1024, False)):
             b = make_batch(B, 64, T, vocab, seed=B)
-            reps = 2 if warm else 1
-            if warm:
-                svs.synthesize(b, generator=gen)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                svs.synthesize(b, generator=gen)
-            torch.cuda.synchronize()
-            secs = (time.perf_counter() - t0) / reps
-            audio = B * T * 128 / 24000
-            lines.append(f"B={B} T={T}: {secs:.3f} s per call, {audio / secs:.2f} audio-s/s"
-                         + ("" if warm else " (first call at this shape)"))
+            for label, model in (("bf16", svs), ("fp32", svs32)):
+                reps = 2 if warm else 1
+                if warm:
+                    model.synthesize(b, generator=gen)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    model.synthesize(b, generator=gen)
+                torch.cuda.synchronize()
+                secs = (time.perf_counter() - t0) / reps
+                audio = B * T * 128 / 24000
+                lines.append(f"{label} B={B} T={T}: {secs:.3f} s per call, "
+                             f"{audio / secs:.2f} audio-s/s"
+                             + ("" if warm else " (first call at this shape)"))
         ph.done("; ".join(lines))
 
     total = time.perf_counter() - T_START

@@ -1,0 +1,387 @@
+"""compute_dtype: the port against the JAX package with "bfloat16" on both
+sides (the JAX default and the flagship's setting), on the CPU at the tiny
+widths of torch_port_helpers.
+
+The JAX side, in bf16:
+- FastSpeech2MIDI: the flax module compiled with XLA's excess precision
+  off (`_strict_jit`), so that every bf16 value is rounded where its type
+  says, as when it runs op by op (with it on, XLA keeps some bf16
+  intermediates in fp32 inside its fusions); the port rounds at the same
+  places. The PitchExtractor runs op by op: its five bf16 conv + LayerNorm
+  layers carry every fp32 sum taken in another order to the output, and
+  XLA's fused convs sum in another order than its op-by-op ones.
+- DiffNet: the flax module with its residual stack run by the JAX
+  package's TPU kernel `fused_residual_stack` (interpret mode). The port's
+  K1 rounds where that kernel rounds (bf16 state, fp32 gate and skip sum),
+  which is not where flax's XLA stack rounds; the projections around the
+  stack are the module's own.
+- HiFi-GAN: the flax generator on the JAX package's fused MRF kernel
+  (`vocoder_mrf_backend: pallas`, time-folded to the 128 lanes that path
+  needs, interpret mode), whose rounding the port's K2 follows.
+- the slice: FS2 -> PLMS over the DiffNet above -> PE -> HiFi-GAN, with
+  the start noise and the NSF phase and noise pinned on both sides; and
+  the same slice on the JAX main path's backends, flax's XLA residual
+  stack and ResBlocks (`test_slice_matches_jax_main_path_in_bf16`, its
+  bounds in its docstring).
+Parameters are seeded random draws at every leaf (no zero-initialised
+output layer makes a comparison vacuous), made from the modules' shapes.
+
+Bounds, on max |difference| and mean |difference| against each JAX output,
+each tighter than the gap that a port ignoring compute_dtype (fp32
+throughout) leaves on these inputs. Measured on the CPU with this file,
+port in bf16 / port in fp32 (the fp32 figures are its assertion messages
+on a port that ignores compute_dtype):
+- FS2 mel_out: max 4.8e-7 / 2.2e-2 -> max 1e-4 (fp32 sums in another
+  order; no bf16 rounding moves on this input);
+- DiffNet: max 0 / 7.2e-3, mean 0 / 1.3e-3 -> max 1e-3, mean 1e-4 (room
+  for one bf16 rounding that an fp32 sum in another order moves);
+- PE pitch_pred: max 3.1e-2 / 5.2e-2, mean 4.8e-3 / 1.4e-2 -> max 4.5e-2,
+  mean 8e-3. Its five bf16 conv + LayerNorm layers carry each rounding that
+  moves (fp32 sums of bf16 products taken in another order than XLA's) to
+  the output, so the mean is the tight measure here;
+- HiFi-GAN wav: max 5.6e-4 / 8.7e-4, mean 3.1e-6 / 1.8e-4 -> max 7.5e-4,
+  mean 5e-5. The max is one bf16 step of the MRF state on the output's
+  path, which both ports show; the mean separates them;
+- the slice (`test_slice_matches_jax_in_bf16`): mel (spans +-17) max
+  2.9e-3 / 1.6e-2, mean 2.5e-4 / 2.3e-3 -> max 6e-3, mean 8e-4; PE f0 max
+  1.3e-2 / 2.1e-2 -> 1.7e-2; wav max 6.0e-4 / 8.2e-4, mean 9.0e-6 / 1.8e-4
+  -> max 7e-4, mean 5e-5.
+Module outputs are fp32, as tests/test_mixed_precision.py:74-75 holds for
+the JAX modules.
+"""
+
+import functools
+import math
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bisinger_tpu.models.diffnet import DiffNet as JDiffNet
+from bisinger_tpu.models.diffnet import diffusion_step_embedding as j_step_embedding
+from bisinger_tpu.models.diffusion import GaussianDiffusion as JGaussianDiffusion
+from bisinger_tpu.models.fs2 import FastSpeech2MIDI as JFastSpeech2MIDI
+from bisinger_tpu.models.hifigan import HifiGanGenerator as JHifiGanGenerator
+from bisinger_tpu.models.pe import PitchExtractor as JPitchExtractor
+from bisinger_tpu.ops.diffnet_pallas import fused_residual_stack
+from bisinger_tpu_torch.config import make_hparams
+from bisinger_tpu_torch.inference.pipeline import SVSInferTorch
+from bisinger_tpu_torch.models.diffnet import DiffNet
+from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+from bisinger_tpu_torch.models.fs2 import FastSpeech2MIDI
+from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
+from bisinger_tpu_torch.models.pe import PitchExtractor
+
+from torch_port_helpers import VOCAB, hparams, midi_batch, t, to_port
+
+B, T = 2, 24
+MODEL_KEYS = ("pitch_midi", "midi_dur", "is_slur", "lang", "speechsing")
+
+
+def _random_params(shapes, seed, small=()):
+    """A seeded draw for every leaf of a flax variable tree of shapes:
+    kernels at unit gain (normal / sqrt(fan-in)), except those under a
+    module whose name starts with one of `small`, drawn N(0, 0.03^2) (three
+    times the HiFi-GAN reference's init, `hifigan.py:39`); norm scales near
+    1, BatchNorm statistics in a plausible range, everything else small."""
+    r = np.random.default_rng(seed)
+
+    def leaf(path, s):
+        names = [getattr(p, "key", "") for p in path]
+        name, shape = names[-1], s.shape
+        if name == "kernel" and any(n.startswith(small) for n in names if small):
+            return (0.03 * r.standard_normal(shape)).astype(np.float32)
+        if name == "kernel":
+            return (r.standard_normal(shape) * np.prod(shape[:-1]) ** -0.5).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * r.standard_normal(shape)).astype(np.float32)
+        if name == "pos_embed_alpha":
+            return np.ones(shape, np.float32)
+        if name == "var":
+            return r.uniform(0.5, 2.0, shape).astype(np.float32)
+        scale = 0.5 if name in ("embedding", "mean") else 0.1
+        return (scale * r.standard_normal(shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _diffnet_on_tpu_stack(m, spec, steps, cond_proj):
+    """The bound flax DiffNet `m` with its residual stack run by the JAX
+    package's TPU kernel: the module's own projections, in bf16, around
+    `fused_residual_stack` (interpret mode), as `diffnet_forward_pallas`
+    wires it."""
+    C, L = m.hp["residual_channels"], m.hp["residual_layers"]
+    x = jax.nn.relu(m.input_projection(spec))
+    s = m.mlp_0(j_step_embedding(steps, C))
+    s = m.mlp_1(s * jnp.tanh(jax.nn.softplus(s)))
+    step_proj = jnp.stack([blk.diffusion_projection(s) for blk in m.blocks])
+    p = m.variables["params"]
+
+    def stacked(name, key):
+        return jnp.stack([p[f"res_{i}"][name][key] for i in range(L)])
+
+    skip = fused_residual_stack(
+        x, cond_proj, step_proj, stacked("dilated_conv", "kernel"),
+        stacked("dilated_conv", "bias"), stacked("output_projection", "kernel")[:, 0],
+        stacked("output_projection", "bias"), [blk.dilation for blk in m.blocks],
+        interpret=True)
+    y = (skip * (1.0 / math.sqrt(L))).astype(m.dtype)
+    return m.output_projection(jax.nn.relu(m.skip_projection(y)))
+
+
+def _tpu_stack_interceptor(next_fun, args, kwargs, context):
+    if (isinstance(context.module, JDiffNet) and context.method_name == "__call__"
+            and kwargs.get("cond_proj") is not None):
+        return _diffnet_on_tpu_stack(context.module, args[0], args[1], kwargs["cond_proj"])
+    return next_fun(*args, **kwargs)
+
+
+def _strict_jit(f, *args):
+    """f(*args) compiled by XLA without excess precision: each bf16 result is
+    rounded to bf16, as its type says."""
+    return jax.jit(f).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
+def _pinned(phase, noise):
+    """jax.random.uniform / normal hand back the NSF phase / noise."""
+    return (lambda key, shape=(), dtype=jnp.float32, **kw: jnp.asarray(phase, dtype),
+            lambda key, shape=(), dtype=jnp.float32, **kw: jnp.asarray(noise, dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference():
+    """Parameters, inputs and the JAX package's bf16 outputs, made once for
+    every case of this file."""
+    jhp, _ = hparams(compute_dtype="bfloat16")
+    jhp_voc, _ = hparams(compute_dtype="bfloat16", vocoder_mrf_backend="pallas",
+                         vocoder_time_fold=128)
+    batch = midi_batch(b=B, n_tokens=8, n_frames=T, seed=7)
+    kw = {k: jnp.asarray(batch[k]) for k in MODEL_KEYS}
+    kw.update(txt_tokens=jnp.asarray(batch["txt_tokens"]),
+              spk_embed=jnp.asarray(batch["spk_ids"]))
+    mel2ph = jnp.asarray(batch["mel2ph"])
+    jm = JGaussianDiffusion(hp=jhp, vocab_size=VOCAB)
+    params = _random_params(jax.eval_shape(lambda: jm.init(
+        {"params": jax.random.PRNGKey(0), "diffusion": jax.random.PRNGKey(1)},
+        mel2ph=mel2ph, method=JGaussianDiffusion.init_path, **kw)), 0)["params"]
+    mel0 = jnp.zeros((B, T, 80))
+    jpe = JPitchExtractor(hp=jhp)
+    pe_vars = _random_params(jax.eval_shape(lambda: jpe.init(jax.random.PRNGKey(2), mel0)), 1)
+    jvoc = JHifiGanGenerator(hp=jhp_voc)
+    voc_params = _random_params(jax.eval_shape(lambda: jvoc.init(
+        {"params": jax.random.PRNGKey(3), "nsf": jax.random.PRNGKey(4)}, mel0,
+        jnp.full((B, T), 200.0))), 2, small=("res_", "up_", "conv_post"))["params"]
+
+    def vocode_fn(mel, f0, phase, noise):
+        saved = jax.random.uniform, jax.random.normal
+        jax.random.uniform, jax.random.normal = _pinned(phase, noise)
+        try:
+            return jvoc.apply({"params": voc_params}, mel, f0, rngs={"nsf": jax.random.PRNGKey(5)})
+        finally:
+            jax.random.uniform, jax.random.normal = saved
+
+    def vocode(*args):
+        return np.asarray(_strict_jit(vocode_fn, *args))
+
+    r = np.random.default_rng(8)
+    ref = dict(batch=batch, params=params, pe_vars=pe_vars, voc_params=voc_params)
+    # module inputs
+    ref["mel_in"] = (2.0 * r.standard_normal((B, T, 80)) - 4.0).astype(np.float32)
+    ref["mel_in"][1, T - 4:] = 0.0  # padded frames
+    ref["f0_in"] = r.uniform(150.0, 450.0, (B, T)).astype(np.float32)
+    ref["spec"] = r.standard_normal((B, T, 80)).astype(np.float32)
+    ref["cond"] = r.standard_normal((B, T, jhp["hidden_size"])).astype(np.float32)
+    ref["steps"] = r.integers(0, jhp["timesteps"], (B,)).astype(np.int32)
+    ref["phase"] = r.uniform(size=(B, 9)).astype(np.float32)
+    ref["noise"] = r.standard_normal((B, T * 128, 9)).astype(np.float32)
+
+    # the modules
+    jfs2 = JFastSpeech2MIDI(hp=jhp, vocab_size=VOCAB)
+    ref["fs2"] = np.asarray(_strict_jit(
+        lambda m, k: jfs2.apply({"params": params["fs2"]}, mel2ph=m, **k)["mel_out"], mel2ph, kw))
+    jnet = JDiffNet(hp=jhp, in_dims=80)
+
+    def denoise(spec, steps, cond):
+        variables = {"params": params["denoise_fn"]}
+        with nn.intercept_methods(_tpu_stack_interceptor):
+            cp = jnet.apply(variables, cond, method=JDiffNet.cond_projections)
+            return jnet.apply(variables, spec, steps, cond_proj=cp)
+
+    ref["diffnet"] = np.asarray(_strict_jit(denoise, ref["spec"], ref["steps"], ref["cond"]))
+
+    def pitch(mel):  # op by op
+        out = jpe.apply(pe_vars, jnp.asarray(mel))
+        return np.asarray(out["pitch_pred"]), np.asarray(out["f0_denorm_pred"])
+
+    ref["pe"], _ = pitch(ref["mel_in"])
+    ref["hifigan"] = vocode(ref["mel_in"], ref["f0_in"], ref["phase"], ref["noise"])
+
+    # the slice
+    rng = jax.random.PRNGKey(123)
+
+    def diffuse(mel2ph, kw):
+        with nn.intercept_methods(_tpu_stack_interceptor):
+            return jm.apply({"params": params}, mel2ph=mel2ph, infer=True, rng=rng,
+                            max_frames=T, rngs={"diffusion": rng}, **kw)["mel_out"]
+
+    ref["slice_mel"] = np.asarray(_strict_jit(diffuse, mel2ph, kw))
+    ref["start"] = np.asarray(jax.random.normal(jax.random.split(rng)[0], (B, T, 80)))
+    ref["slice_f0"] = pitch(ref["slice_mel"])[1]
+    ref["slice_wav"] = vocode(ref["slice_mel"], ref["slice_f0"], ref["phase"], ref["noise"])
+
+    # the slice on the JAX main path's backends: flax's XLA residual stack and
+    # XLA ResBlocks (no TPU kernel)
+    jvoc_xla = JHifiGanGenerator(hp=jhp)
+
+    def diffuse_xla(mel2ph, kw):
+        return jm.apply({"params": params}, mel2ph=mel2ph, infer=True, rng=rng, max_frames=T,
+                        rngs={"diffusion": rng}, **kw)["mel_out"]
+
+    def vocode_xla(mel, f0, phase, noise):
+        saved = jax.random.uniform, jax.random.normal
+        jax.random.uniform, jax.random.normal = _pinned(phase, noise)
+        try:
+            return jvoc_xla.apply({"params": voc_params}, mel, f0,
+                                  rngs={"nsf": jax.random.PRNGKey(5)})
+        finally:
+            jax.random.uniform, jax.random.normal = saved
+
+    ref["xla_mel"] = np.asarray(_strict_jit(diffuse_xla, mel2ph, kw))
+    ref["xla_f0"] = pitch(ref["xla_mel"])[1]
+    ref["xla_wav"] = np.asarray(_strict_jit(vocode_xla, ref["xla_mel"], ref["xla_f0"],
+                                            ref["phase"], ref["noise"]))
+    return ref
+
+
+def _err(got, ref):
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    return float(d.max()), float(d.mean())
+
+
+def _hp():
+    return hparams(compute_dtype="bfloat16")[1]
+
+
+# each case: (port output, JAX output, max bound, mean bound or None,
+# {tensor name: (tensor, the dtype it must have)})
+
+
+def _fs2_case(ref, tmp_path):
+    m = to_port(FastSpeech2MIDI(_hp(), VOCAB), ref["params"]["fs2"], tmp_path)
+    b = ref["batch"]
+    with torch.no_grad():
+        out = m(t(b["txt_tokens"]), mel2ph=t(b["mel2ph"]), spk_id=t(b["spk_ids"]),
+                **{k: t(b[k]) for k in MODEL_KEYS})
+    return out["mel_out"], ref["fs2"], 1e-4, None, {
+        "decoder_inp": (out["decoder_inp"], torch.float32)}
+
+
+def _diffnet_case(ref, tmp_path):
+    net = to_port(DiffNet(_hp(), 80), ref["params"]["denoise_fn"], tmp_path)
+    with torch.no_grad():
+        cp = net.cond_projections(t(ref["cond"]))
+        got = net(t(ref["spec"]), t(ref["steps"]).long(), cp)
+    return got, ref["diffnet"], 1e-3, 1e-4, {
+        "cond_proj": (cp, torch.bfloat16)}  # the stack's inputs are bf16
+
+
+def _pe_case(ref, tmp_path):
+    m = to_port(PitchExtractor(_hp()), ref["pe_vars"]["params"], tmp_path,
+                extra=ref["pe_vars"]["batch_stats"])
+    with torch.no_grad():
+        out = m(t(ref["mel_in"]))
+    return out["pitch_pred"], ref["pe"], 4.5e-2, 8e-3, {
+        "f0_denorm_pred": (out["f0_denorm_pred"], torch.float32)}
+
+
+def _hifigan_case(ref, tmp_path):
+    gen = to_port(HifiGanGenerator(_hp()), ref["voc_params"], tmp_path)
+    with torch.no_grad():
+        got = gen(t(ref["mel_in"]), t(ref["f0_in"]), phase=t(ref["phase"]), noise=t(ref["noise"]))
+    return got, ref["hifigan"], 7.5e-4, 5e-5, {}
+
+
+@pytest.mark.parametrize("case", [_fs2_case, _diffnet_case, _pe_case, _hifigan_case],
+                         ids=["fs2", "diffnet", "pe", "hifigan"])
+def test_module_matches_jax_in_bf16(tmp_path, case):
+    ref = _reference()
+    got, want, max_bound, mean_bound, dtypes = case(ref, tmp_path)
+    assert np.abs(want).max() > 1e-2, "vacuous comparison"
+    err_max, err_mean = _err(got.numpy(), want)
+    assert err_max <= max_bound, (err_max, err_mean)
+    if mean_bound is not None:
+        assert err_mean <= mean_bound, (err_max, err_mean)
+    assert got.dtype == torch.float32  # module outputs stay fp32
+    for name, (tensor, dtype) in dtypes.items():
+        assert tensor.dtype == dtype, name
+
+
+@pytest.fixture(scope="module")
+def port_slice(tmp_path_factory):
+    """The port's slice in bf16: tokens -> wav with mel2ph given, the
+    diffusion start and the NSF phase and noise pinned as on the JAX side."""
+    ref = _reference()
+    hp = _hp()
+    tmp_path = tmp_path_factory.mktemp("slice")
+    svs = SVSInferTorch(
+        hp,
+        to_port(GaussianDiffusion(hp, VOCAB), ref["params"], tmp_path, "diff.npz"),
+        to_port(PitchExtractor(hp), ref["pe_vars"]["params"], tmp_path, "pe.npz",
+                extra=ref["pe_vars"]["batch_stats"]),
+        to_port(HifiGanGenerator(hp), ref["voc_params"], tmp_path, "voc.npz"),
+        device="cpu",
+    )
+    b = ref["batch"]
+    batch = {k: b[k] for k in ("txt_tokens", "spk_ids", "mel2ph") + MODEL_KEYS}
+    batch["n_frames"] = T
+    return svs.synthesize(batch, start_noise=t(ref["start"]), nsf_phase=t(ref["phase"]),
+                          nsf_noise=t(ref["noise"]))
+
+
+def _slice_errs(out, ref, prefix):
+    errs = {}
+    for key in ("mel", "f0", "wav"):
+        errs[key + "_max"], errs[key + "_mean"] = _err(out[key].numpy(), ref[prefix + key])
+    return errs
+
+
+def test_slice_matches_jax_in_bf16(port_slice):
+    """The slice against JAX with the TPU kernels in place; bounds in the
+    module docstring."""
+    ref, out = _reference(), port_slice
+    assert np.abs(ref["slice_wav"]).max() > 1e-2
+    errs = _slice_errs(out, ref, "slice_")
+    bounds = dict(mel_max=6e-3, mel_mean=8e-4, f0_max=1.7e-2, wav_max=7e-4, wav_mean=5e-5)
+    assert all(errs[k] <= v for k, v in bounds.items()), \
+        " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+    assert all(out[k].dtype == torch.float32 for k in ("mel", "f0", "wav"))
+
+
+def test_slice_matches_jax_main_path_in_bf16(port_slice):
+    """The slice against JAX on its default backends, the main path: flax's
+    XLA residual stack and XLA ResBlocks, which round elsewhere than the
+    TPU kernels the port's K1 and K2 follow. Measured on the CPU with this
+    file, port in bf16 / port in fp32: mel max 9.5e-3 / 1.5e-2, mean
+    1.3e-3 / 2.5e-3 -> max 1.2e-2, mean 1.9e-3; PE f0 max 1.2e-2 / 2.0e-2
+    -> 1.7e-2 (its mean, 2.4e-3 / 1.8e-3, does not separate them); wav max
+    8.0e-4 / 1.4e-4, mean 1.8e-4 / 2.5e-5 -> max 1e-3, mean 2.5e-4. The
+    waveform bounds do not separate a port in fp32, which lands closer:
+    the XLA ResBlocks keep the MRF state in fp32 (an fp32 input plus each
+    bf16 conv output), where the TPU kernel and K2 round it to bf16
+    (`mrf_pallas.py:170`); the mel and f0 bounds do."""
+    ref, out = _reference(), port_slice
+    errs = _slice_errs(out, ref, "xla_")
+    bounds = dict(mel_max=1.2e-2, mel_mean=1.9e-3, f0_max=1.7e-2, wav_max=1e-3, wav_mean=2.5e-4)
+    assert all(errs[k] <= v for k, v in bounds.items()), \
+        " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+
+
+def test_compute_dtype_is_bf16_by_default_and_checked():
+    assert make_hparams()["compute_dtype"] == "bfloat16"
+    assert make_hparams({"compute_dtype": "float32"})["compute_dtype"] == "float32"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        make_hparams({"compute_dtype": "float16"})

@@ -5,7 +5,9 @@ widths. Needs an NVIDIA GPU and nvcc; run on the card with
 
 Elsewhere every test skips: the `cuda` fixture decides, at run time.
 Tolerances are the ones the kernels state (`diffnet_stack.TOLERANCE`,
-`mrf_stage.TOLERANCE`), as max |difference| over the largest |value|.
+`mrf_stage.TOLERANCE`, and `TOLERANCE_BF16` of each for the bf16 routes),
+as max |difference| over the largest |value|; the bf16 routes also hold
+`MEAN_TOLERANCE_BF16`, mean |difference| over mean |value|.
 """
 
 import pytest
@@ -29,6 +31,10 @@ def cuda():
 
 def _rel(got, ref):
     return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def _mean_rel(got, ref):
+    return ((got - ref).abs().mean() / ref.abs().mean()).item()
 
 
 # (4, 256) and (2, 100) take K1's 8-frame tiles; (32, 1024), the bench's
@@ -77,3 +83,107 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         mrf_stage.mrf_stage(torch.zeros((1, 64, 48), device=cuda),
                             torch.zeros((2 * 48 * 48 * 63,), device=cuda),
                             torch.zeros((18, 48), device=cuda), RK, RD)
+
+
+def _k1_bf16_args(args):
+    """fp32 stack inputs -> the bf16 route's: bf16 activations and weights,
+    fp32 biases."""
+    x0, cond, step, wd, bd, wo, bo = args
+    b16 = torch.bfloat16
+    return (x0.to(b16), cond.to(b16), step.to(b16), wd.to(b16), bd, wo.to(b16), bo)
+
+
+# (4, 256), the path's shape, and (2, 100) take the bf16 kernel's 16-frame
+# tiles over clusters of two, (4, 1100) too, with more tiles than clusters
+# resident at once; (32, 1024), the bench's shape, takes its 128-frame tiles
+@pytest.mark.parametrize("B,T", [(4, 256), (2, 100), (32, 1024), (4, 1100)])
+def test_residual_stack_bf16_kernel_matches_plain(cuda, B, T):
+    C, L = 256, 20
+    dils = [2 ** (i % 4) for i in range(L)]
+    g = torch.Generator(device=cuda).manual_seed(B * T + 1)
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    args = _k1_bf16_args((torch.relu(r(B, T, C)), r(L, B, T, 2 * C), r(L, B, C, sc=0.5),
+                          r(L, 3, C, 2 * C, sc=(3 * C) ** -0.5), r(L, 2 * C, sc=0.1),
+                          r(L, C, 2 * C, sc=C ** -0.5), r(L, 2 * C, sc=0.1)))
+    before = diffnet_stack.counter_bf16.launches
+    got = diffnet_stack.residual_stack_bf16(*args, dils)
+    torch.cuda.synchronize()
+    assert diffnet_stack.counter_bf16.launches == before + 1
+    assert got.dtype == torch.float32
+    ref = diffnet_stack.residual_stack_plain_bf16(*args, dils)
+    assert _rel(got, ref) <= diffnet_stack.TOLERANCE_BF16
+    assert _mean_rel(got, ref) <= diffnet_stack.MEAN_TOLERANCE_BF16
+
+
+@pytest.mark.parametrize("B,U,F", [(2, 2048 + 37, 256), (2, 2048 + 37, 128), (2, 2048 + 37, 64),
+                                   (2, 2048 + 37, 32), (4, 2048, 256), (4, 8192, 128),
+                                   (4, 16384, 64), (4, 32768, 32)])
+def test_mrf_stage_bf16_kernel_matches_plain(cuda, B, U, F):
+    g = torch.Generator(device=cuda).manual_seed(F + 1)
+    x = torch.randn((B, U, F), generator=g, device=cuda)
+    n_w = 2 * F * F * sum(k * len(d) for k, d in zip(RK, RD))
+    w = (torch.randn((n_w,), generator=g, device=cuda) * (7 * F) ** -0.5).to(torch.bfloat16)
+    b = 0.1 * torch.randn((18, F), generator=g, device=cuda)
+    before = mrf_stage.counter_bf16.launches
+    got = mrf_stage.mrf_stage_bf16(x, w, b, RK, RD)
+    torch.cuda.synchronize()
+    assert mrf_stage.counter_bf16.launches == before + 1
+    ref = mrf_stage.mrf_stage_plain_bf16(x, w, b, RK, RD)
+    assert _rel(got, ref) <= mrf_stage.TOLERANCE_BF16
+    assert _mean_rel(got, ref) <= mrf_stage.MEAN_TOLERANCE_BF16
+
+
+# Back-to-back launches on the same inputs give the same bits: a race in a
+# kernel's pipeline (a K2 ring on mbarriers deadlocked within 50 to 200
+# launches) shows here before it shows on the path.
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+def test_bf16_kernels_repeat_bit_identically(cuda, kernel):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    if kernel == "k1":
+        C, L, B, T = 256, 20, 4, 256
+        args = _k1_bf16_args((torch.relu(r(B, T, C)), r(L, B, T, 2 * C), r(L, B, C, sc=0.5),
+                              r(L, 3, C, 2 * C, sc=(3 * C) ** -0.5), r(L, 2 * C, sc=0.1),
+                              r(L, C, 2 * C, sc=C ** -0.5), r(L, 2 * C, sc=0.1)))
+        dils = [2 ** (i % 4) for i in range(L)]
+        run = lambda: diffnet_stack.residual_stack_bf16(*args, dils)  # noqa: E731
+    else:
+        F = 256
+        n_w = 2 * F * F * sum(k * len(d) for k, d in zip(RK, RD))
+        x, b = r(2, 2048 + 37, F), r(18, F, sc=0.1)
+        w = r(n_w, sc=(7 * F) ** -0.5).to(torch.bfloat16)
+        run = lambda: mrf_stage.mrf_stage_bf16(x, w, b, RK, RD)  # noqa: E731
+    first = run()
+    outs = [run() for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
+
+
+def test_bf16_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    b16 = torch.bfloat16
+    x = torch.zeros((1, 64, 256), device=cuda)
+    w = torch.zeros((2 * 256 * 256 * 63,), device=cuda, dtype=b16)
+    b = torch.zeros((18, 256), device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):  # fp32 weights on the bf16 route
+        mrf_stage.mrf_stage_bf16(x, w.float(), b, RK, RD)
+    with pytest.raises(ValueError, match="shape"):
+        mrf_stage.mrf_stage_bf16(x, w[:-1].contiguous(), b, RK, RD)
+    with pytest.raises(ValueError, match="contiguous"):
+        mrf_stage.mrf_stage_bf16(torch.zeros((1, 256, 64), device=cuda).transpose(1, 2), w, b,
+                                 RK, RD)
+    C, L, B, T = 256, 2, 2, 16
+    args = [torch.zeros(s, device=cuda, dtype=dt) for s, dt in (
+        ((B, T, C), b16), ((L, B, T, 2 * C), b16), ((L, B, C), b16), ((L, 3, C, 2 * C), b16),
+        ((L, 2 * C), torch.float32), ((L, C, 2 * C), b16), ((L, 2 * C), torch.float32))]
+    diffnet_stack.residual_stack_bf16(*args, [1, 2])  # the valid call launches
+    bad_dtype = list(args)
+    bad_dtype[1] = args[1].float()  # cond_proj in fp32
+    with pytest.raises(ValueError, match="bfloat16"):
+        diffnet_stack.residual_stack_bf16(*bad_dtype, [1, 2])
+    bad_shape = list(args)
+    bad_shape[2] = args[2][:, :, :-1].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        diffnet_stack.residual_stack_bf16(*bad_shape, [1, 2])
+    with pytest.raises(ValueError, match="contiguous"):
+        diffnet_stack.residual_stack_bf16(
+            args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:], [1, 2])

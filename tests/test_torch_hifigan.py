@@ -6,6 +6,15 @@ interpret mode (fp32 compute) and the ResBlock1 XLA path, the bound of
 tests/test_mrf_pallas.py:61; 1e-4 abs for the NSF source and the whole
 generator, where fp32 phase sums in another order are the difference.
 The NSF phase and noise are numpy draws handed to both sides.
+
+K2's bf16 plain version (`mrf_stage_plain_bf16`) rounds where the Pallas
+kernel with compute_dtype=bfloat16 rounds. Against it in interpret mode:
+1e-2 of the largest value and 1e-3 of the mean |value| on the mean
+difference (measured 3.0e-3 and 1.3e-4: the fp32 sums differ in order,
+which moves a bf16 rounding of the state now and then, and the move is
+carried through the block). Against the flax ResBlock1 stack in bf16
+(XLA), which keeps the residual state fp32 and rounds each conv's output
+instead: 1e-2 of the largest value (measured 4.4e-3).
 """
 
 import jax
@@ -19,8 +28,10 @@ from bisinger_tpu.ops.mrf_pallas import fused_mrf_stage
 from bisinger_tpu_torch.models.hifigan import HifiGanGenerator, ResBlock1, sine_gen
 from bisinger_tpu_torch.ops.mrf_stage import (
     mrf_stage,
+    mrf_stage_bf16,
     mrf_stage_conv1d,
     mrf_stage_plain,
+    mrf_stage_plain_bf16,
     pack_stage_weights,
 )
 
@@ -70,10 +81,46 @@ def test_mrf_plain_matches_xla_resblocks(tmp_path, C, U):
     np.testing.assert_allclose(mrf_stage_conv1d(t(x), w, b, RK, RD).numpy(), got, atol=3e-5)
 
 
+def _bf16_stage(tmp_path, C, U):
+    x, jparams, _, b = _stage(tmp_path, C=C, U=U)
+    blocks = [to_port(ResBlock1(C, k, d), p, tmp_path, name=f"res16_{j}.npz")
+              for j, (k, d, p) in enumerate(zip(RK, RD, jparams))]
+    w, _ = pack_stage_weights(blocks, RK, RD, torch.bfloat16)
+    return x, jparams, w.detach(), b
+
+
+def test_mrf_plain_bf16_matches_pallas_interpret(tmp_path):
+    # the roll taps, the generator's default (`hifigan.py:379`); the static
+    # ones compute the same function and are held in fp32 above
+    x, jparams, w, b = _bf16_stage(tmp_path, C=32, U=300)
+    ref = np.asarray(fused_mrf_stage(jnp.asarray(x), jparams, RK, RD, fold=1, u_chunk=128,
+                                     compute_dtype=jnp.bfloat16, tap_mode="roll",
+                                     interpret=True))
+    got = mrf_stage_plain_bf16(t(x), w, b, RK, RD).numpy()
+    assert np.abs(got - x).max() > 0.05, "vacuous: the stage must change x"
+    diff = np.abs(got - ref)
+    assert diff.max() / np.abs(ref).max() < 1e-2
+    assert diff.mean() / np.abs(ref).mean() < 1e-3
+
+
+def test_mrf_plain_bf16_matches_flax_bf16_resblocks(tmp_path):
+    x, jparams, w, b = _bf16_stage(tmp_path, C=32, U=200)
+    ref = 0.0
+    for j, (k, d) in enumerate(zip(RK, RD)):
+        ref = ref + jhifigan.ResBlock1(channels=32, kernel_size=k, dilations=d,
+                                       dtype=jnp.bfloat16).apply({"params": jparams[j]},
+                                                                 jnp.asarray(x))
+    ref = np.asarray(ref / len(RK))
+    got = mrf_stage_bf16(t(x), w, b, RK, RD).numpy()  # CPU tensor: the plain version
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-2
+
+
 def test_mrf_wrapper_rejects_other_devices(tmp_path):
     x, _, w, b = _stage(tmp_path, C=32, U=64)
     with pytest.raises(ValueError, match="no kernel"):
         mrf_stage(t(x).to("meta"), w.to("meta"), b.to("meta"), RK, RD)
+    with pytest.raises(ValueError, match="no kernel"):
+        mrf_stage_bf16(t(x).to("meta"), w.to(torch.bfloat16).to("meta"), b.to("meta"), RK, RD)
 
 
 def _pinned_jax_random(monkeypatch, phase, noise):
