@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of the BiSinger singing-voice synthesis stack.
 
 The JAX package `bisinger_tpu` is the reference; this package runs its
-flagship inference path (tokens -> FastSpeech2MIDI -> PLMS diffusion
-over a DiffNet -> PitchExtractor f0 -> NSF HiFi-GAN -> waveform) on an
-NVIDIA H100. It imports torch, numpy and scipy only.
+flagship inference path (score -> bilingual front end -> FastSpeech2MIDI
+-> diffusion over a DiffNet (PLMS, DPM-Solver++ or DDPM) -> PitchExtractor
+f0 -> NSF HiFi-GAN -> waveform) on an NVIDIA H100, through the
+`run --infer` CLI, the HTTP server (`inference/server.py`) or
+`SVSInferTorch`. It imports torch, numpy and scipy only.
 
 Public layouts follow the reference: activations are [B, T, C].
 """

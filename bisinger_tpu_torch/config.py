@@ -4,14 +4,17 @@ Counterpart of `bisinger_tpu/config/defaults.py` and
 `bisinger_tpu/config/hparams.py`, cut to the keys the inference slice
 reads and without YAML: a trained run's settings are read from its JSON
 dump (`artifacts/flagship/hparams_diff.json`). Precedence, lowest to
-highest: `DEFAULTS` < JSON file < overrides.
+highest: `DEFAULTS` < JSON file < overrides. Overrides are a dict or, as
+the CLI's `--hparams`, a "k=v,k2=[1,2]" string (`parse_overrides`, with
+values typed as `bisinger_tpu/config/hparams.py:204-250` types them).
 """
 
 from __future__ import annotations
 
 import copy
 import json
-from typing import Any, Dict, Optional
+import re
+from typing import Any, Dict
 
 # Same values as the reference defaults (config/defaults.py) for every key
 # listed; keys the slice does not read are left out.
@@ -64,6 +67,7 @@ DEFAULTS: Dict[str, Any] = {
     "spec_max": [0.0] * 80,
     "gaussian_start": True,
     "pndm_speedup": 5,
+    "dpm_steps": 40,  # read when diff_sampler is "dpmpp"
     # vocoder
     "use_nsf": True,
     "resblock": "1",
@@ -77,6 +81,9 @@ DEFAULTS: Dict[str, Any] = {
     # batching
     "bucket_frames": [512, 1024, 2048, 4096],
     "bucket_tokens": [64, 128, 256, 512],
+    "bucket_batch_sizes": [1, 2, 4, 8, 16, 32, 64],
+    # inference entry points
+    "profile_infer": False,
     # activations of the heavy stacks: "bfloat16" (bf16 products with fp32
     # sums, on the bf16 kernels) or "float32"
     "compute_dtype": "bfloat16",
@@ -91,18 +98,75 @@ def _checked(hp: Dict[str, Any]) -> Dict[str, Any]:
     return hp
 
 
-def make_hparams(overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """Defaults updated by `overrides` (a deep copy; callers may mutate)."""
-    hp = copy.deepcopy(DEFAULTS)
-    hp.update(copy.deepcopy(overrides or {}))
+_BOOL_STRINGS = {"true": True, "false": False, "True": True, "False": False}
+
+
+def _parse_literal(value: str) -> Any:
+    try:
+        return json.loads(value)
+    except (json.JSONDecodeError, ValueError):
+        return value
+
+
+def _coerce(value: str, old: Any) -> Any:
+    """Type a CLI override from the existing value's type."""
+    if value in _BOOL_STRINGS:
+        return _BOOL_STRINGS[value]
+    if old is None:
+        return _parse_literal(value)
+    if isinstance(old, bool):
+        return value in ("1", "true", "True")
+    if isinstance(old, int):
+        try:
+            return int(value)
+        except ValueError:
+            return float(value)
+    if isinstance(old, float):
+        return float(value)
+    if isinstance(old, (list, tuple)):
+        return _parse_literal(value)
+    return value
+
+
+def parse_overrides(spec: str) -> Dict[str, str]:
+    """Parse 'a=1,b=2' (commas inside [] are protected)."""
+    out: Dict[str, str] = {}
+    if not spec:
+        return out
+    for part in re.split(r",(?![^\[]*\])", spec):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(f"override {part!r} must be k=v")
+        k, v = part.split("=", 1)
+        out[k.strip()] = v.strip()
+    return out
+
+
+def _apply(hp: Dict[str, Any], overrides) -> Dict[str, Any]:
+    """`overrides` onto `hp`: a dict as it is, or a string for
+    `parse_overrides`, whose values are typed from the values they replace
+    and whose dotted keys write into nested dicts."""
+    if isinstance(overrides, str):
+        for k, v in parse_overrides(overrides).items():
+            node, keys = hp, k.split(".")
+            for kk in keys[:-1]:
+                node = node.setdefault(kk, {})
+            node[keys[-1]] = _coerce(v, node.get(keys[-1]))
+    else:
+        hp.update(copy.deepcopy(overrides or {}))
     return _checked(hp)
 
 
-def load_hparams_json(path: str, overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+def make_hparams(overrides=None) -> Dict[str, Any]:
+    """Defaults updated by `overrides` (a deep copy; callers may mutate)."""
+    return _apply(copy.deepcopy(DEFAULTS), overrides)
+
+
+def load_hparams_json(path: str, overrides=None) -> Dict[str, Any]:
     """Defaults < the JSON dump of a trained run < `overrides`."""
     with open(path) as f:
         saved = json.load(f)
     saved.pop("_explicit_keys", None)
-    hp = make_hparams(saved)
-    hp.update(copy.deepcopy(overrides or {}))
-    return _checked(hp)
+    return _apply(make_hparams(saved), overrides)

@@ -1,22 +1,29 @@
-"""Token-level requests -> waveforms on one device
-(counterpart of `bisinger_tpu/inference/pipeline.py:157-313`, the fused
-synth of `_make_fused_synth`, and of bench.py's `synth`).
+"""Scores -> waveforms on one device (counterpart of
+`bisinger_tpu/inference/pipeline.py`: `SVSInfer` with its fused synth,
+and bench.py's `synth`).
 
-A request is a dict of per-token arrays (`ph_token`, `pitch_midi`,
-`midi_dur`, `is_slur`, `lang`) plus `spk_id` and `speechsing`, and may
-carry a frame map `mel2ph`; `items_to_batch` pads requests into one batch
-and `synthesize` runs
+A score is a dict as the JAX package takes it (`text`, `notes`,
+`notes_duration`, optional `spk_name`, `bpm`, or the phoneme-level keys);
+`infer_once`, `infer_batch` and `infer_from_json` put scores through the
+bilingual front end (`data/text/frontend.py`) into items: per-token
+arrays (`ph_token`, `pitch_midi`, `midi_dur`, `is_slur`, `lang`) plus
+`spk_id`, `speechsing` and `total_sec`. An item made by hand may instead
+carry a frame map `mel2ph`. `items_to_batch` pads items into one batch at
+the configured buckets, and `synthesize` runs
 
-    FastSpeech2MIDI -> PLMS diffusion (DiffNet through K1) -> mel
+    FastSpeech2MIDI -> diffusion sampler (DiffNet through K1) -> mel
     -> PitchExtractor f0 -> NSF HiFi-GAN (MRF stages through K2) -> wav.
 
-The score front end (text -> tokens) stays on the JAX side for now.
+The score entry points trim each waveform to its filled frames.
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -24,13 +31,17 @@ import torch
 
 from bisinger_tpu_torch import resolve_device
 from bisinger_tpu_torch.config import load_hparams_json
+from bisinger_tpu_torch.data.text.frontend import BilingualFrontend
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
 from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
 from bisinger_tpu_torch.models.pe import PitchExtractor
+from bisinger_tpu_torch.utils.audio import save_wav
+from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder, build_phone_encoder
 from bisinger_tpu_torch.weights import load_flax_params, load_npz
 
 FLAGSHIP_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "artifacts", "flagship")
+JSON_GROUP = 8  # scores a batch in infer_from_json (the JAX default batch_size)
 
 
 def make_batch(b: int, n_tokens: int, n_frames: int, vocab: int = 32, seed: int = 0
@@ -66,24 +77,44 @@ def pick_bucket(n: int, buckets) -> int:
 
 class SVSInferTorch:
     """The flagship's inference path on one device. Build it with
-    `from_checkpoint` (the flagship npz files) or from modules."""
+    `from_checkpoint` (the flagship's files) or from modules; the score
+    entry points need a phone `encoder` (and take a speaker map)."""
 
     def __init__(self, hp: dict, model: GaussianDiffusion, pe: PitchExtractor,
-                 vocoder: HifiGanGenerator, device=None):
+                 vocoder: HifiGanGenerator, device=None,
+                 encoder: Optional[TokenTextEncoder] = None,
+                 spk_map: Optional[Dict[str, int]] = None):
         self.device = resolve_device(device)
         self.hp = hp
         self.model = model.to(self.device).eval()
         self.pe = pe.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
+        self.spk_map = dict(spk_map or {})
+        self.frontend = None if encoder is None else BilingualFrontend(
+            encoder, phone_subst=hp.get("en_phone_subst"))
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str = FLAGSHIP_DIR, device=None,
-                        hp_overrides: Optional[dict] = None) -> "SVSInferTorch":
-        """diff_params.npz (fs2 + DiffNet), pe_params.npz + pe_batch_stats.npz,
-        and the newest vocoder/**/generator_*.npz of a trained run."""
+                        hp_overrides=None) -> "SVSInferTorch":
+        """hparams_diff.json, phone_set.json and spk_map.json (the
+        binarizer's vocabulary and speakers), diff_params.npz (fs2 +
+        DiffNet), pe_params.npz + pe_batch_stats.npz, and the newest
+        vocoder/**/generator_*.npz of a trained run. `hp_overrides` is a
+        dict or a "k=v,..." string, as the CLI's --hparams."""
+        device = resolve_device(device)
         hp = load_hparams_json(os.path.join(ckpt_dir, "hparams_diff.json"), hp_overrides)
+        for fn in ("phone_set.json", "spk_map.json"):
+            if not os.path.exists(os.path.join(ckpt_dir, fn)):
+                raise FileNotFoundError(f"{os.path.join(ckpt_dir, fn)} is missing: the score "
+                                        "front end needs the binarizer's phone set and speakers")
+        encoder = build_phone_encoder(ckpt_dir)
+        with open(os.path.join(ckpt_dir, "spk_map.json")) as f:
+            spk_map = json.load(f)
         flat = load_npz(os.path.join(ckpt_dir, "diff_params.npz"))
         vocab = int(flat["fs2/token_embed/embed/embedding"].shape[0])
+        if vocab != encoder.vocab_size:
+            raise ValueError(f"phone_set.json gives {encoder.vocab_size} tokens, the token "
+                             f"embedding of diff_params.npz has {vocab} rows")
         model = GaussianDiffusion(hp, vocab, hp["audio_num_mel_bins"])
         load_flax_params(model, flat)
         stats_fn = os.path.join(ckpt_dir, "pe_batch_stats.npz")
@@ -99,7 +130,7 @@ class SVSInferTorch:
             raise FileNotFoundError(f"no vocoder/**/generator_*.npz under {ckpt_dir}")
         vocoder = HifiGanGenerator(hp)
         load_flax_params(vocoder, load_npz(cands[-1]))
-        return cls(hp, model, pe, vocoder, device)
+        return cls(hp, model, pe, vocoder, device, encoder=encoder, spk_map=spk_map)
 
     @property
     def vocab_size(self) -> int:
@@ -107,25 +138,40 @@ class SVSInferTorch:
 
     def items_to_batch(self, items: List[Dict[str, Any]], t_txt: Optional[int] = None,
                        t_mel: Optional[int] = None) -> Dict[str, np.ndarray]:
-        """Pad requests to one batch. Token and frame lengths default to the
-        configured buckets; a batch either gives every request's `mel2ph`
-        or none (then durations are predicted within `t_mel` frames)."""
+        """Pad items to one batch, as `SVSInfer.items_to_batch`
+        (`bisinger_tpu/inference/pipeline.py:157-230`) pads them: tokens to
+        the token bucket, frames to the frame bucket of the score's length
+        (`total_sec`, each note counted once, else the `midi_dur` sum), the
+        batch axis to `bucket_batch_sizes` (padding rows: no tokens,
+        speaker 0, singing). `t_txt` and `t_mel` override the buckets. A
+        batch either gives every item's `mel2ph` (then `t_mel` defaults to
+        the longest) or none (then durations are predicted within `n_frames`
+        frames). Training targets are not made."""
         hp = self.hp
-        t_txt = t_txt or pick_bucket(max(len(it["ph_token"]) for it in items),
-                                     hp["bucket_tokens"])
+        max_tok = max(len(it["ph_token"]) for it in items)
+        t_txt = t_txt or pick_bucket(max_tok, hp["bucket_tokens"])
         given = [it.get("mel2ph") is not None for it in items]
         if any(given) and not all(given):
             raise ValueError("give mel2ph for every request of a batch or for none")
-        if t_mel is None:
-            if all(given):
-                frames = [len(it["mel2ph"]) for it in items]
-            else:  # the score's duration, as the reference's items_to_batch budgets it
-                frames = [int(float(np.sum(it["midi_dur"])) * hp["audio_sample_rate"]
-                              / hp["hop_size"]) + 8 for it in items]
-            t_mel = pick_bucket(max(frames), hp["bucket_frames"])
+        if all(given):
+            frames = [len(it["mel2ph"]) for it in items]
+        else:
+            frames = [int(float(it.get("total_sec") or np.sum(it["midi_dur"]))
+                          * hp["audio_sample_rate"] / hp["hop_size"]) + 8 for it in items]
+        t_mel = t_mel or pick_bucket(max(frames), hp["bucket_frames"])
+        if max_tok > t_txt or max(frames) > t_mel:
+            print(f"| WARNING: score exceeds the largest static bucket (tokens {max_tok}>"
+                  f"{t_txt} or frames {max(frames)}>{t_mel}) and will be TRUNCATED — split "
+                  "the score (the HTTP server's chunked synthesis does this) or raise "
+                  "bucket_tokens/bucket_frames", flush=True)
+        b = len(items)
+        b_buckets = hp.get("bucket_batch_sizes") or []
+        if b_buckets and b <= max(b_buckets):
+            b = pick_bucket(b, b_buckets)
+        n_pad = b - len(items)
 
         def pad(key, dtype, width):
-            out = np.zeros((len(items), width), dtype)
+            out = np.zeros((b, width), dtype)
             for i, it in enumerate(items):
                 x = np.asarray(it[key])[:width]
                 out[i, : len(x)] = x
@@ -137,8 +183,9 @@ class SVSInferTorch:
             "midi_dur": pad("midi_dur", np.float32, t_txt),
             "is_slur": pad("is_slur", np.int64, t_txt),
             "lang": pad("lang", np.int64, t_txt),
-            "spk_ids": np.asarray([it["spk_id"] for it in items], np.int64),
-            "speechsing": np.asarray([it.get("speechsing", 1) for it in items], np.int64),
+            "spk_ids": np.asarray([it["spk_id"] for it in items] + [0] * n_pad, np.int64),
+            "speechsing": np.asarray([it.get("speechsing", 1) for it in items] + [1] * n_pad,
+                                     np.int64),
             "n_frames": t_mel,
         }
         if all(given):
@@ -147,11 +194,11 @@ class SVSInferTorch:
 
     @torch.no_grad()
     def synthesize(self, batch: Dict[str, Any], start_noise=None, nsf_phase=None,
-                   nsf_noise=None, generator: Optional[torch.Generator] = None
-                   ) -> Dict[str, torch.Tensor]:
+                   nsf_noise=None, generator: Optional[torch.Generator] = None,
+                   step_noise=None) -> Dict[str, torch.Tensor]:
         """One batch -> {"wav" [B, T*hop], "mel" [B, T, 80], "f0" [B, T],
-        "mel2ph" [B, T]}. Random draws (diffusion start, NSF phase and
-        noise) come from `generator` unless given."""
+        "mel2ph" [B, T]}. Random draws (diffusion start, DDPM's steps, NSF
+        phase and noise) come from `generator` unless given."""
         dev = self.device
         as_t = lambda k: torch.as_tensor(batch[k], device=dev)  # noqa: E731
         mel2ph = batch.get("mel2ph")
@@ -161,9 +208,73 @@ class SVSInferTorch:
             spk_id=as_t("spk_ids"), pitch_midi=as_t("pitch_midi"), midi_dur=as_t("midi_dur"),
             is_slur=as_t("is_slur"), lang=as_t("lang"), speechsing=as_t("speechsing"),
             max_frames=batch.get("n_frames") if mel2ph is None else None,
-            start_noise=start_noise, generator=generator,
+            start_noise=start_noise, step_noise=step_noise, generator=generator,
         )
         mel = ret["mel_out"]
         f0 = self.pe(mel)["f0_denorm_pred"]
         wav = self.vocoder(mel, f0, phase=nsf_phase, noise=nsf_noise, generator=generator)
         return {"wav": wav, "mel": mel, "f0": f0, "mel2ph": ret["mel2ph"]}
+
+    # ---- score entry points ------------------------------------------------
+    def score_items(self, inputs: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        if self.frontend is None:
+            raise RuntimeError("no phone encoder: build with from_checkpoint or pass encoder=")
+        return [self.frontend(inp, self.spk_map) for inp in inputs]
+
+    @torch.no_grad()
+    def infer_batch(self, inputs: List[Dict[str, Any]],
+                    generator: Optional[torch.Generator] = None, **pins) -> List[np.ndarray]:
+        """Several scores in one batch -> one float32 waveform each, trimmed
+        to its filled frames x hop. Without a generator the draws come from
+        one seeded with 0, so a request repeated gives the same audio;
+        `pins` (start_noise, step_noise, nsf_phase, nsf_noise) fix them at
+        the padded batch's shapes."""
+        items = self.score_items(inputs)
+        batch = self.items_to_batch(items)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        out = self.synthesize(batch, generator=generator, **pins)
+        wavs = out["wav"].float().cpu().numpy()  # one host fetch for the batch
+        mel2ph = out["mel2ph"].cpu().numpy()
+        filled = (mel2ph > 0).sum(axis=1)
+        t_mel = mel2ph.shape[1]
+        full = int((filled[: len(items)] >= t_mel).sum())
+        if full:
+            print(f"| WARNING: predicted durations fill the entire mel bucket (t_mel={t_mel}) "
+                  f"for {full} item(s) — output is likely truncated; split the score or raise "
+                  "bucket_frames", flush=True)
+        hop = self.hp["hop_size"]
+        return [wavs[i][: max(int(filled[i]), 1) * hop] for i in range(len(items))]
+
+    @torch.no_grad()
+    def infer_once(self, inp: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None) -> np.ndarray:
+        return self.infer_batch([inp], generator)[0]
+
+    def infer_from_json(self, json_fn: str, save_dir: str) -> List[str]:
+        """Batch inference over a JSON list of scores, `JSON_GROUP` scores a
+        batch; each WAV is written by a thread pool while the next batch
+        runs. With `profile_infer` set, prints audio seconds made per
+        second."""
+        with open(json_fn) as f:
+            inputs = json.load(f)
+        os.makedirs(save_dir, exist_ok=True)
+        sr = self.hp["audio_sample_rate"]
+        paths, futures, audio_seconds = [], [], 0.0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            for start in range(0, len(inputs), JSON_GROUP):
+                group = inputs[start: start + JSON_GROUP]
+                for i, (inp, wav) in enumerate(zip(group, self.infer_batch(group))):
+                    name = inp.get("item_name", f"item_{start + i}")
+                    path = os.path.join(save_dir, f"{name}.wav")
+                    futures.append(pool.submit(save_wav, wav, path, sr))
+                    audio_seconds += len(wav) / sr
+                    paths.append(path)
+            for f in futures:
+                f.result()
+        if self.hp.get("profile_infer"):
+            dt = time.perf_counter() - t0
+            print(f"| profile_infer: {audio_seconds:.2f} audio-s in {dt:.2f} s "
+                  f"({audio_seconds / max(dt, 1e-9):.2f} audio-s/s)", flush=True)
+        return paths

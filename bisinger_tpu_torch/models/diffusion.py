@@ -1,10 +1,14 @@
-"""Gaussian diffusion mel decoder, inference with the PLMS sampler
-(counterpart of `bisinger_tpu/models/diffusion.py:35-120, 211-277, 352-435`).
+"""Gaussian diffusion mel decoder, inference
+(counterpart of `bisinger_tpu/models/diffusion.py:35-435`).
 
-fs2 -> cond (decoder input) -> gaussian start -> PLMS over K steps with
-stride `pndm_speedup` (the 2-call warmup, then Adams-Bashforth 2/3/4) ->
-denormalised mel. The DDPM and DPM-Solver++ samplers and the shallow
-(q_sample) start are not ported yet and raise.
+fs2 -> cond (decoder input) -> the start: pure noise (`gaussian_start`)
+or the fs2 mel noised to step K-1 (`q_sample`, the shallow start) -> one
+of three samplers, picked as `_dispatch_sampler` picks it:
+- DPM-Solver++(2M) when `diff_sampler` is "dpmpp" (`dpm_steps` calls);
+- PLMS with stride `pndm_speedup` when it is set (the 2-call warmup, then
+  Adams-Bashforth 2/3/4; K/stride + 1 calls);
+- ancestral DDPM otherwise (K calls, fresh noise at each step).
+-> denormalised mel. Every denoiser call runs the residual layers in K1.
 """
 
 from __future__ import annotations
@@ -50,10 +54,26 @@ class GaussianDiffusion(nn.Module):
         self.hp = hp
         self.fs2 = FastSpeech2MIDI(hp, vocab_size)
         self.denoise_fn = DiffNet(hp, out_dims)
-        # float32 as the reference's buffers; kept on the device so that the
-        # sampler's per-step reads need no host-to-device copy
-        alphas_cumprod = np.cumprod(1.0 - make_betas(hp), axis=0).astype(np.float32)
-        self.register_buffer("alphas_cumprod", torch.from_numpy(alphas_cumprod),
+        # float32 as the reference's buffers (`DiffusionBuffers`, computed in
+        # float64 and then rounded); alphas_cumprod is kept on the device so
+        # that PLMS's per-step reads need no host-to-device copy. The DDPM
+        # and DPM-Solver++ coefficients are host floats, one per step.
+        betas = make_betas(hp)
+        ac = np.cumprod(1.0 - betas, axis=0)
+        ac_prev = np.append(1.0, ac[:-1])
+        f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+        self.sched = dict(
+            alphas_cumprod=f32(ac),
+            sqrt_alphas_cumprod=f32(np.sqrt(ac)),
+            sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - ac)),
+            sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / ac)),
+            sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / ac - 1)),
+            posterior_log_variance_clipped=f32(np.log(np.maximum(
+                betas * (1.0 - ac_prev) / (1.0 - ac), 1e-20))),
+            posterior_mean_coef1=f32(betas * np.sqrt(ac_prev) / (1.0 - ac)),
+            posterior_mean_coef2=f32((1.0 - ac_prev) * np.sqrt(1.0 - betas) / (1.0 - ac)),
+        )
+        self.register_buffer("alphas_cumprod", torch.from_numpy(self.sched["alphas_cumprod"]),
                              persistent=False)
         keep = hp.get("keep_bins", out_dims)
         self.register_buffer("spec_min", torch.tensor(hp["spec_min"][:keep], dtype=torch.float32),
@@ -83,12 +103,7 @@ class GaussianDiffusion(nn.Module):
         """PLMS reverse loop (`diffusion.py:227-277`): one denoiser call per
         step after a 2-call warmup; k/interval + 1 calls in all."""
         ts = np.arange(0, k, interval)[::-1]
-        b = x.shape[0]
-
-        def dn(xx, tv: int):
-            tb = torch.full((b,), tv, dtype=torch.long, device=x.device)
-            return self.denoise_fn(xx, tb, cond_proj, stack)
-
+        dn = lambda xx, tv: self._dn(xx, cond_proj, int(tv), stack)  # noqa: E731
         t0 = int(ts[0])
         t0_prev = max(t0 - interval, 0)
         noise_pred = dn(x, t0)
@@ -110,17 +125,103 @@ class GaussianDiffusion(nn.Module):
             history = [noise_pred, h0, h1]
         return x
 
+    def _dn(self, x, cond_proj, tv: int, stack):
+        tb = torch.full((x.shape[0],), tv, dtype=torch.long, device=x.device)
+        return self.denoise_fn(x, tb, cond_proj, stack)
+
+    def q_sample(self, x_start, t: int, noise):
+        """x_start noised to step t (`diffusion.py:120-126`)."""
+        b = self.sched
+        return (float(b["sqrt_alphas_cumprod"][t]) * x_start
+                + float(b["sqrt_one_minus_alphas_cumprod"][t]) * noise)
+
+    def predict_start_from_noise(self, x_t, t: int, noise):
+        b = self.sched
+        return (float(b["sqrt_recip_alphas_cumprod"][t]) * x_t
+                - float(b["sqrt_recipm1_alphas_cumprod"][t]) * noise)
+
+    def p_sample(self, x, t: int, cond_proj, noise, stack=None):
+        """One ancestral step t -> t-1 with x0 clipped to [-1, 1]
+        (`diffusion.py:166-186`); `noise` is this step's draw (unused at t=0)."""
+        b = self.sched
+        x_recon = self.predict_start_from_noise(x, t, self._dn(x, cond_proj, t, stack))
+        x_recon = x_recon.clamp(-1.0, 1.0)
+        mean = (float(b["posterior_mean_coef1"][t]) * x_recon
+                + float(b["posterior_mean_coef2"][t]) * x)
+        if t == 0:
+            return mean
+        return mean + float(np.exp(0.5 * b["posterior_log_variance_clipped"][t])) * noise
+
+    def ddpm_sample_loop(self, x, cond_proj, k: int, stack=None, generator=None,
+                         step_noise=None):
+        """Reverse DDPM from step k-1 down to 0 (`diffusion.py:188-209`): k
+        denoiser calls. Step i's noise is `step_noise[i]` when given (the
+        first step, t=k-1, at 0), else a draw from `generator`."""
+        if step_noise is not None and tuple(step_noise.shape) != (k, *x.shape):
+            raise ValueError(f"step_noise {tuple(step_noise.shape)} != {(k, *x.shape)}")
+        for i, tv in enumerate(range(k - 1, -1, -1)):
+            noise = (step_noise[i] if step_noise is not None
+                     else torch.randn(x.shape, generator=generator, device=x.device))
+            x = self.p_sample(x, tv, cond_proj, noise, stack)
+        return x
+
+    def dpmpp_schedule(self, k: int, steps: int):
+        """DPM-Solver++(2M)'s steps and per-step constants
+        (`diffusion.py:285-300`): the steps, then alpha, sigma and the
+        lambda step h at them, in float32 from the float32 alphas_cumprod,
+        as the reference computes them."""
+        ac = self.sched["alphas_cumprod"]
+        steps = min(int(steps), int(k))
+        ts = np.linspace(k - 1, 0, steps).round().astype(np.int64)
+        ts = ts[np.concatenate([[True], np.diff(ts) != 0])]
+        alpha = np.sqrt(ac[ts])
+        sigma = np.sqrt(np.maximum(1.0 - ac[ts], 1e-12))
+        h = np.diff(np.log(alpha / sigma))
+        return ts, alpha, sigma, h
+
+    def dpmpp_sample_loop(self, x, cond_proj, k: int, steps: int, stack=None):
+        """DPM-Solver++(2M) (`diffusion.py:278-330`): deterministic, one
+        denoiser call per step (`dpm_steps`, at most k): the first
+        transition first order, then second order multistep, and the last
+        call's data prediction is the result."""
+        ts, alpha, sigma, h = self.dpmpp_schedule(k, steps)
+        n = len(ts)
+
+        def x0_of(x, i):
+            eps = self._dn(x, cond_proj, int(ts[i]), stack)
+            return ((x - float(sigma[i]) * eps) / float(alpha[i])).clamp(-1.0, 1.0)
+
+        x0_prev = x0_of(x, 0)
+        x = float(sigma[1] / sigma[0]) * x - float(alpha[1] * np.expm1(-h[0])) * x0_prev
+        for i in range(1, n - 1):
+            x0 = x0_of(x, i)
+            r = h[i - 1] / h[i]
+            d = float(1.0 + 1.0 / (2.0 * r)) * x0 - float(1.0 / (2.0 * r)) * x0_prev
+            x = (float(sigma[i + 1] / sigma[i]) * x
+                 - float(alpha[i + 1] * np.expm1(-h[i])) * d)
+            x0_prev = x0
+        return x0_of(x, n - 1)
+
+    def _dispatch_sampler(self, x, cond_proj, stack, generator=None, step_noise=None):
+        """DPM-Solver++ when `diff_sampler` is "dpmpp", PLMS when
+        `pndm_speedup` is set, ancestral DDPM otherwise
+        (`diffusion.py:142-157`)."""
+        hp, k = self.hp, self.hp["K_step"]
+        if hp.get("diff_sampler", "plms") == "dpmpp":
+            return self.dpmpp_sample_loop(x, cond_proj, k, int(hp.get("dpm_steps", 40)), stack)
+        if hp.get("pndm_speedup"):
+            return self.plms_sample_loop(x, cond_proj, k, int(hp["pndm_speedup"]), stack)
+        return self.ddpm_sample_loop(x, cond_proj, k, stack, generator, step_noise)
+
     def forward(self, txt_tokens, mel2ph=None, spk_id=None, pitch_midi=None, midi_dur=None,
                 is_slur=None, lang=None, speechsing=None, max_frames: Optional[int] = None,
-                start_noise=None, generator: Optional[torch.Generator] = None):
+                start_noise=None, step_noise=None, generator: Optional[torch.Generator] = None):
         """Inference: -> dict with mel_out [B, T, 80], mel2ph, decoder_inp,
-        fs2_mel. `start_noise` [B, T, 80] pins the gaussian start; else it
-        is drawn from `generator`."""
+        fs2_mel. `start_noise` [B, T, 80] pins the start's draw (the gaussian
+        start itself, or the noise `q_sample` adds to the fs2 mel), and
+        `step_noise` [K, B, T, 80] DDPM's per-step draws; else they are
+        drawn from `generator`."""
         hp = self.hp
-        if not hp.get("gaussian_start"):
-            raise NotImplementedError("the shallow (q_sample) start is not ported")
-        if hp.get("diff_sampler", "plms") != "plms" or not hp.get("pndm_speedup"):
-            raise NotImplementedError("the port's sampler is PLMS (pndm_speedup > 0)")
         ret = self.fs2(txt_tokens, mel2ph=mel2ph, spk_id=spk_id, pitch_midi=pitch_midi,
                        midi_dur=midi_dur, is_slur=is_slur, lang=lang, speechsing=speechsing,
                        max_frames=max_frames)
@@ -130,10 +231,12 @@ class GaussianDiffusion(nn.Module):
             start_noise = torch.randn(shape, generator=generator, device=txt_tokens.device)
         elif tuple(start_noise.shape) != tuple(shape):
             raise ValueError(f"start_noise {tuple(start_noise.shape)} != {tuple(shape)}")
+        x = start_noise
+        if not hp.get("gaussian_start"):
+            x = self.q_sample(self.norm_spec(ret["mel_out"]), hp["K_step"] - 1, start_noise)
         cond_proj = self.denoise_fn.cond_projections(ret["decoder_inp"]).contiguous()
         stack = self.denoise_fn.stack_weights()
-        x = self.plms_sample_loop(start_noise, cond_proj, hp["K_step"], int(hp["pndm_speedup"]),
-                                  stack)
+        x = self._dispatch_sampler(x, cond_proj, stack, generator, step_noise)
         x = self.denorm_spec(x)
         if mel2ph is not None:
             x = x * (ret["mel2ph"] > 0).to(x.dtype)[:, :, None]

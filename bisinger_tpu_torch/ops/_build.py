@@ -11,18 +11,23 @@ The file name carries a hash of the source, the headers of `csrc/` and
 the flags, so an edited source or header builds anew and an unchanged one
 is loaded as it is. `build_all` starts one nvcc per source at once and
 waits for all of them; it prints each build's time and the `-Xptxas -v`
-lines (registers, shared memory, spills) once. Nothing here runs at
-import.
+lines (registers, shared memory, spills) once. Builds and loads hold a
+lock (a thread lock and a file lock on `_build/.lock`), so threads or
+processes that reach a kernel first together build it once. Nothing here
+runs at import.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from typing import Dict, Iterable
 
@@ -42,6 +47,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _locked():
+    """This process's threads one at a time, and then other processes too."""
+    with _lock:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, ".lock"), "w") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def nvcc_path() -> str:
@@ -68,8 +87,13 @@ def build_all(names: Iterable[str] = KERNELS, log=None) -> Dict[str, float]:
     """Compile every listed kernel whose library is missing, one nvcc per
     source, all started together. Returns {name: seconds} of the builds
     that ran; raises with nvcc's output if any fails."""
+    with _locked():
+        return _build(names, log)
+
+
+def _build(names: Iterable[str], log=None) -> Dict[str, float]:
+    """`build_all` for a caller that holds the lock."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
-    os.makedirs(BUILD_DIR, exist_ok=True)
     todo = [n for n in names if not os.path.exists(library_path(n))]
     procs = {}
     nvcc = nvcc_path() if todo else None
@@ -97,24 +121,34 @@ def build_all(names: Iterable[str] = KERNELS, log=None) -> Dict[str, float]:
 
 
 class LaunchCounter:
-    """Launches of one kernel since the last reset (`launches = 0`)."""
+    """Launches of one kernel since the last reset (`launches = 0`), and
+    the input shape of every launch since import (`shapes`, never reset)."""
 
     def __init__(self):
         self.launches = 0
+        self.shapes = set()
+
+    def add(self, shape) -> None:
+        self.launches += 1
+        self.shapes.add(tuple(shape))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The library of `csrc/<name>.cu`, built at first use, with the
     argument and result types of its entry points set."""
     lib = _loaded.get(name)
-    if lib is None:
-        if not os.path.exists(library_path(name)):
-            build_all([name])
-        lib = ctypes.CDLL(library_path(name))
-        for fn, (argtypes, restype) in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
-        lib.kernel_error_string.argtypes, lib.kernel_error_string.restype = [_I], ctypes.c_char_p
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _locked():
+        lib = _loaded.get(name)
+        if lib is None:
+            _build([name])
+            lib = ctypes.CDLL(library_path(name))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+            lib.kernel_error_string.argtypes = [_I]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib
 
 

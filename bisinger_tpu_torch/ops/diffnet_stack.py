@@ -125,7 +125,7 @@ def residual_stack(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence
         xbuf.data_ptr(), skip.data_ptr(), B, T, C, L, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "diffnet_residual_stack", lib)
-    counter.launches += 1
+    counter.add(x0.shape)
     return skip
 
 
@@ -160,8 +160,31 @@ def residual_stack_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Seq
         xbuf.data_ptr(), skip.data_ptr(), B, T, C, L, dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "diffnet_residual_stack_bf16", lib)
-    counter_bf16.launches += 1
+    counter_bf16.add(x0.shape)
     return skip
+
+
+def residual_stack_library(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[int],
+                           dtype=None):
+    """The same stack as a chain of library calls in `dtype` (default: x0's):
+    per layer, the dilated conv as one cuDNN `conv1d` over [B, C, T] and
+    the 1x1 output projection as one cuBLAS product, with the gate and the
+    sums as elementwise ops. A yardstick for timing only; the port never
+    calls it. Returns the fp32 skip sum [B, T, C]."""
+    dtype = dtype or x0.dtype
+    C = x0.shape[-1]
+    x = x0.to(dtype).transpose(1, 2)  # [B, C, T]
+    skip = 0.0
+    for l, d in enumerate(dilations):
+        a = x + step_proj[l].to(dtype)[:, :, None]
+        y = torch.nn.functional.conv1d(a, wd[l].to(dtype).permute(2, 1, 0), bd[l].to(dtype),
+                                       padding=d, dilation=d)
+        y = y + cond_proj[l].to(dtype).transpose(1, 2)
+        g = torch.sigmoid(y[:, :C]) * torch.tanh(y[:, C:])
+        z = torch.matmul(wo[l].to(dtype).t(), g) + bo[l].to(dtype)[:, None]
+        x = (x + z[:, :C]) * RSQRT2
+        skip = skip + z[:, C:]
+    return skip.transpose(1, 2).float()
 
 
 def stack_flops(B: int, T: int, C: int, L: int) -> int:

@@ -201,7 +201,7 @@ def mrf_stage_bf16(x, w, b, kernel_sizes: Sequence[int], dilations: Sequence[Seq
     _check_stage("mrf_stage_bf16", x, w, b, kernel_sizes, dilations, torch.bfloat16)
     out = _launch("mrf_stage_bf16", _build.load("mrf_stage_bf16"), x, w, b, kernel_sizes,
                   dilations)
-    counter_bf16.launches += 1
+    counter_bf16.add(x.shape)
     return out
 
 
@@ -213,7 +213,7 @@ def mrf_stage(x, w, b, kernel_sizes: Sequence[int], dilations: Sequence[Sequence
         raise ValueError(f"mrf_stage: no kernel for device {x.device}")
     _check_stage("mrf_stage", x, w, b, kernel_sizes, dilations, torch.float32)
     out = _launch("mrf_stage", _build.load("mrf_stage"), x, w, b, kernel_sizes, dilations)
-    counter.launches += 1
+    counter.add(x.shape)
     return out
 
 

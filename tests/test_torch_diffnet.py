@@ -28,6 +28,7 @@ from bisinger_tpu_torch.models.diffnet import DiffNet, diffusion_step_embedding
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
 from bisinger_tpu_torch.ops.diffnet_stack import (
     residual_stack,
+    residual_stack_library,
     residual_stack_plain,
     residual_stack_plain_bf16,
 )
@@ -163,6 +164,19 @@ def test_stack_plain_bf16_matches_flax_bf16_blocks(tmp_path):
     scale = np.abs(ref).max()
     assert scale > 0.1
     assert max_err(got.numpy(), ref) / scale < 0.02
+
+
+def test_stack_library_chain_computes_the_stack():
+    """The library-call yardstick chip_smoke.py times beside K1 (cuDNN
+    conv1d and cuBLAS products) computes the same stack: fp32 within 1e-5
+    of the largest value, bf16 within 2% (it rounds every op to bf16)."""
+    dils = [1, 2, 4, 8]
+    args = [t(a) for a in _stack_inputs(2, 40, 32, len(dils), seed=9)]
+    ref = residual_stack_plain(*args, dils).numpy()
+    scale = np.abs(ref).max()
+    assert max_err(residual_stack_library(*args, dils).numpy(), ref) / scale < 1e-5
+    got16 = residual_stack_library(*args, dils, dtype=torch.bfloat16)
+    assert got16.dtype == torch.float32 and max_err(got16.numpy(), ref) / scale < 0.02
 
 
 def test_stack_wrapper_uses_plain_on_cpu_and_rejects_other_devices():

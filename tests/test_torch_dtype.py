@@ -372,7 +372,17 @@ def test_slice_matches_jax_main_path_in_bf16(port_slice):
     waveform bounds do not separate a port in fp32, which lands closer:
     the XLA ResBlocks keep the MRF state in fp32 (an fp32 input plus each
     bf16 conv output), where the TPU kernel and K2 round it to bf16
-    (`mrf_pallas.py:170`); the mel and f0 bounds do."""
+    (`mrf_pallas.py:170`); the mel and f0 bounds do.
+
+    Decision: the port keeps K2's MRF state in bf16, as the TPU kernel
+    does. Its waveform gap to the XLA path (8.0e-4) is inside the suite's
+    2e-3 bound, and an fp32 state would cost K2-bf16 its window: at F=256
+    a row of the shared-memory window holds the state and conv1's output,
+    (256 + 8) x 2 bf16 = 1056 bytes (`csrc/mrf_stage_bf16.cu` launch: the
+    227 KiB opt-in limit less the 24 KiB weight ring gives 196 rows, less
+    the 2 x 60 halo rows, Uc = 76 central rows); an fp32 state makes it
+    1584 bytes, 131 rows, Uc = 11, and the widest block's recompute
+    (Uc + 120) / Uc rises from 2.6x to 11.9x."""
     ref, out = _reference(), port_slice
     errs = _slice_errs(out, ref, "xla_")
     bounds = dict(mel_max=1.2e-2, mel_mean=1.9e-3, f0_max=1.7e-2, wav_max=1e-3, wav_mean=2.5e-4)

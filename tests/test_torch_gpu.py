@@ -187,3 +187,51 @@ def test_bf16_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         diffnet_stack.residual_stack_bf16(
             args[0].transpose(0, 1).contiguous().transpose(0, 1), *args[1:], [1, 2])
+
+
+# The kernel build is shared by threads (the server's handler threads can
+# reach a kernel first together): two threads loading one library into an
+# empty build directory run nvcc once and get the same library.
+def test_first_build_from_two_threads_runs_nvcc_once(cuda, tmp_path, monkeypatch):
+    import threading
+
+    from bisinger_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_loaded", {})
+    runs, real_popen = [], _build.subprocess.Popen
+    monkeypatch.setattr(_build.subprocess, "Popen",
+                        lambda cmd, **kw: runs.append(cmd) or real_popen(cmd, **kw))
+    libs = []
+    threads = [threading.Thread(target=lambda: libs.append(_build.load("mrf_stage")))
+               for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert len(runs) == 1 and len(libs) == 2 and libs[0] is libs[1]
+
+
+# The score entry points run inference on threads that did not enter
+# no_grad (the micro-batcher's worker, the serial path's handler threads);
+# infer_batch sets it itself, and the kernels count their launches there.
+def test_infer_batch_on_a_worker_thread(cuda):
+    import threading
+
+    import numpy as np
+
+    from bisinger_tpu_torch.inference.pipeline import SVSInferTorch
+
+    svs = SVSInferTorch.from_checkpoint(device=cuda, hp_overrides="K_step=20,pndm_speedup=5")
+    score = dict(text="SP wo ai ni", notes="rest | C4 | D4 | E4",
+                 notes_duration="0.1 | 0.3 | 0.3 | 0.4")
+    diffnet_stack.counter_bf16.launches = 0
+    out = {}
+    th = threading.Thread(target=lambda: out.update(wav=svs.infer_once(score),
+                                                    grad=torch.is_grad_enabled()))
+    th.start()
+    th.join()
+    torch.cuda.synchronize()
+    assert out["grad"] and np.isfinite(out["wav"]).all() and len(out["wav"]) % 128 == 0
+    assert diffnet_stack.counter_bf16.launches == 20 // 5 + 1
+    assert np.array_equal(out["wav"], svs.infer_once(score))

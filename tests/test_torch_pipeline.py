@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import jax
 import jax.numpy as jnp
@@ -21,14 +22,18 @@ import numpy as np
 import pytest
 
 from __graft_entry__ import _batch as graft_batch
+from bisinger_tpu.data.text.frontend import BilingualFrontend as JBilingualFrontend
+from bisinger_tpu.inference.pipeline import SVSInfer
 from bisinger_tpu.models.diffusion import GaussianDiffusion as JGaussianDiffusion
 from bisinger_tpu.models.hifigan import HifiGanGenerator as JHifiGanGenerator
 from bisinger_tpu.models.pe import PitchExtractor as JPitchExtractor
+from bisinger_tpu.utils.text_encoder import TokenTextEncoder as JTokenTextEncoder
 from bisinger_tpu_torch.config import load_hparams_json
 from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
 from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
 from bisinger_tpu_torch.models.pe import PitchExtractor
+from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder
 from bisinger_tpu_torch.weights import load_flax_params, load_npz, unfilled
 
 from torch_port_helpers import VOCAB, hparams, max_err, midi_batch, noisy, t, to_port
@@ -173,10 +178,146 @@ def test_items_to_batch_pads_and_budgets():
         svs.items_to_batch([item(3, mel2ph=np.array([1])), item(3)])
 
 
+# 17 phones + the 3 reserved ids fill the tiny model's VOCAB rows
+PHONES = ["AY", "AE", "N", "T", "S", "B", "IY", "UW", "AH", "F", "L", "JH", "AA", "NG", "Y",
+          "<AP>", "<SP>"]
+# pinyin, English and mixed scores, short enough for the tiny buckets;
+# three of them, so the batch axis pads to the bucket of 4
+SCORES = [
+    dict(item_name="pinyin", text="ai", notes="C4 D4", notes_duration="0.05 0.03",
+         spk_name="b"),
+    dict(item_name="english", text="oh la", notes="C4 | D4", notes_duration="0.06 | 0.05"),
+    dict(item_name="mixed", text="SP ni love", notes="rest | E4 | F4 G4",
+         notes_duration="0.01 | 0.03 | 0.02 0.02", speechsing=0),
+]
+SPK_MAP = {"a": 1, "b": 3}
+
+
+def _stub(hp):
+    """An object holding only `hp`, for the JAX package's items_to_batch."""
+    return types.SimpleNamespace(hp=hp)
+
+
+def _jax_frontend():
+    return JBilingualFrontend(JTokenTextEncoder(PHONES, replace_oov=","))
+
+
+def _port_svs(tmp_path, hp, params, pe_vars, voc_params):
+    return SVSInferTorch(
+        hp,
+        to_port(GaussianDiffusion(hp, VOCAB), params, tmp_path, "diff.npz"),
+        to_port(PitchExtractor(hp), pe_vars["params"], tmp_path, "pe.npz",
+                extra=pe_vars["batch_stats"]),
+        to_port(HifiGanGenerator(hp), voc_params, tmp_path, "voc.npz"),
+        device="cpu", encoder=TokenTextEncoder(PHONES, replace_oov=","), spk_map=SPK_MAP,
+    )
+
+
+def _assert_batch_is_jax(port, ref):
+    """Every array of the JAX package's batch: the inputs equal, dtype and
+    values; the training targets it makes as zeros (mels, f0, uv, mel2ph,
+    word_boundary), which inference never reads, at the port's sizes."""
+    b, t_txt = ref["txt_tokens"].shape
+    assert port["n_frames"] == ref["mels"].shape[1]
+    for key, value in ref.items():
+        if key in port:
+            assert port[key].dtype == value.dtype, key
+            np.testing.assert_array_equal(port[key], value, err_msg=key)
+        else:
+            assert key in ("mels", "f0", "uv", "mel2ph", "word_boundary"), key
+            assert not np.any(value), key
+            assert value.shape[:2] == ((b, t_txt) if key == "word_boundary"
+                                       else (b, port["n_frames"])), key
+
+
+def test_frame_budget_uses_total_sec():
+    """Six "zhang ai" phrases: 5.4 s of notes (total_sec), while the
+    per-phone midi_dur sum counts each note once per phone (10.2 s). The
+    frame bucket follows the notes, as the JAX package's does: 1024 frames,
+    not 2048."""
+    jhp, hp = hparams(bucket_tokens=[64], bucket_frames=[256, 512, 1024, 2048])
+    item = _jax_frontend()(dict(text=" ".join(["zhang ai"] * 6),
+                                notes=" | ".join(["C4 D4 | E4"] * 6),
+                                notes_duration=" | ".join(["0.3 0.2 | 0.4"] * 6)))
+    assert item["total_sec"] == pytest.approx(5.4) and np.sum(item["midi_dur"]) > 10
+    svs = SVSInferTorch.__new__(SVSInferTorch)
+    svs.hp = hp
+    ref = SVSInfer.items_to_batch(_stub(jhp), [item])
+    assert ref["mels"].shape[1] == 1024
+    port = svs.items_to_batch([item])
+    assert port["n_frames"] == 1024
+    _assert_batch_is_jax(port, ref)
+
+
+@pytest.mark.parametrize("n_scores", [1, 3])
+def test_score_items_to_batch_is_jax(n_scores, capsys):
+    """The same scores through both front ends, then both items_to_batch:
+    equal arrays, the batch axis padded to bucket_batch_sizes, and the
+    truncation warning when a score outgrows the largest bucket."""
+    jhp, hp = hparams(bucket_tokens=[4], bucket_frames=[16, 32])
+    port_svs = SVSInferTorch.__new__(SVSInferTorch)
+    port_svs.hp = hp
+    jfe = _jax_frontend()
+    items = [jfe(sc, SPK_MAP) for sc in SCORES[:n_scores]]
+    ref = SVSInfer.items_to_batch(_stub(jhp), items)
+    jax_said = capsys.readouterr().out
+    port = port_svs.items_to_batch(items)
+    assert capsys.readouterr().out == jax_said
+    assert port["txt_tokens"].shape[0] == {1: 1, 3: 4}[n_scores]
+    _assert_batch_is_jax(port, ref)
+    assert ("TRUNCATED" in jax_said) == (n_scores == 3)
+
+
+def test_score_to_wav_matches_jax(tmp_path):
+    """Scores -> waveforms on the tiny model: the JAX package's front end,
+    items_to_batch and infer step (`DiffSingerMIDITask.infer_step`:
+    durations predicted within the bucket) -> PE -> vocoder, against the
+    port's `infer_batch`, with the start noise and the NSF draws pinned.
+    Bounds as test_tiny_path_matches_jax; each waveform trimmed to its
+    filled frames as `SVSInfer.infer_batch` trims it. The pinyin and the
+    mixed score, at that test's shapes (B=2, 8 tokens, 24 frames), whose
+    compiled JAX functions it reuses."""
+    jhp, hp = hparams(bucket_tokens=[8], bucket_frames=[24])
+    _, jm, params, pe_vars, pitch, voc_params, vocode = _jax_reference()
+    scores = [SCORES[0], SCORES[2]]
+    items = [_jax_frontend()(sc, SPK_MAP) for sc in scores]
+    batch = SVSInfer.items_to_batch(_stub(jhp), items)
+    b, t_mel = batch["mels"].shape[:2]
+    assert (b, t_mel, batch["txt_tokens"].shape[1]) == (B, T, 8)
+    rng = jax.random.PRNGKey(9)
+    ret = jm.apply({"params": params}, mel2ph=None, infer=True, rng=rng, max_frames=t_mel,
+                   rngs={"diffusion": rng}, **_model_kw(batch))
+    mel_ref, mel2ph_ref = np.asarray(ret["mel_out"]), np.asarray(ret["mel2ph"])
+    f0_ref = np.asarray(pitch(mel_ref))
+    r = np.random.default_rng(10)
+    phase = r.uniform(size=(b, 9)).astype(np.float32)
+    noise = r.standard_normal((b, t_mel * 128, 9)).astype(np.float32)
+    wav_ref = np.asarray(vocode(mel_ref, f0_ref, phase, noise))
+    pins = dict(start_noise=t(np.asarray(jax.random.normal(jax.random.split(rng)[0],
+                                                           (b, t_mel, 80)))),
+                nsf_phase=t(phase), nsf_noise=t(noise))
+
+    svs = _port_svs(tmp_path, hp, params, pe_vars, voc_params)
+    out = svs.synthesize(svs.items_to_batch(svs.score_items(scores)), **pins)
+    np.testing.assert_array_equal(out["mel2ph"].numpy(), mel2ph_ref)
+    assert max_err(out["mel"].numpy(), mel_ref) <= 1e-3
+    assert max_err(out["f0"].numpy(), f0_ref) <= 1.0
+    wavs = svs.infer_batch(scores, **pins)
+    filled = (mel2ph_ref > 0).sum(axis=1)
+    assert len(wavs) == 2 and filled.min() >= 4
+    for i, wav in enumerate(wavs):
+        ref_i = wav_ref[i][: max(int(filled[i]), 1) * 128]
+        assert wav.dtype == np.float32 and wav.shape == ref_i.shape
+        assert np.abs(ref_i).max() > 1e-3
+        assert max_err(wav, ref_i) <= 2e-3
+    assert np.array_equal(svs.infer_once(SCORES[1]), svs.infer_once(SCORES[1]))
+
+
 def test_port_imports_nothing_of_jax():
     """In a fresh interpreter that refuses jax, flax, yaml, pypinyin, jieba,
-    the JAX package and __graft_entry__, every module of the port and
-    chip_smoke (without running it) import."""
+    the JAX package and __graft_entry__, every module of the port (the
+    score front end, the server and the CLI among them) and chip_smoke
+    (without running it) import."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "pypinyin", "jieba",
@@ -198,10 +339,15 @@ def test_port_imports_nothing_of_jax():
         assert callable(chip_smoke.main)
         loaded = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
-        print(len(names))
+        print(" ".join(names))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15  # every module was imported
+    names = set(proc.stdout.split())
+    assert len(names) >= 24  # every module was imported
+    assert {"bisinger_tpu_torch.data.text.frontend", "bisinger_tpu_torch.data.text.english",
+            "bisinger_tpu_torch.data.text.pinyin", "bisinger_tpu_torch.utils.text_encoder",
+            "bisinger_tpu_torch.utils.audio", "bisinger_tpu_torch.inference.server",
+            "bisinger_tpu_torch.run"} <= names
