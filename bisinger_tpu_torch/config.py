@@ -1,12 +1,18 @@
 """Hyperparameters of the port: a plain dict.
 
 Counterpart of `bisinger_tpu/config/defaults.py` and
-`bisinger_tpu/config/hparams.py`, cut to the keys the inference slice
-reads and without YAML: a trained run's settings are read from its JSON
-dump (`artifacts/flagship/hparams_diff.json`). Precedence, lowest to
-highest: `DEFAULTS` < JSON file < overrides. Overrides are a dict or, as
-the CLI's `--hparams`, a "k=v,k2=[1,2]" string (`parse_overrides`, with
-values typed as `bisinger_tpu/config/hparams.py:204-250` types them).
+`bisinger_tpu/config/hparams.py`, cut to the keys the port reads and
+without YAML: a run's settings are read from a JSON file, a JAX work dir's
+`config.json` or a trained run's dump (`artifacts/flagship/hparams_*.json`).
+Precedence, lowest to highest: `DEFAULTS` < JSON file < overrides.
+Overrides are a dict or, as the CLI's `--hparams`, a "k=v,k2=[1,2]" string
+(`parse_overrides`, with values typed as
+`bisinger_tpu/config/hparams.py:204-250` types them).
+
+`_explicit_keys` records which keys a file or an override set, as the JAX
+package records them: a dump carries its own list, any other JSON file
+counts every key it holds, and every override key is added. The step-decay
+schedule reads it (`training/optim.py`).
 """
 
 from __future__ import annotations
@@ -82,6 +88,61 @@ DEFAULTS: Dict[str, Any] = {
     "bucket_frames": [512, 1024, 2048, 4096],
     "bucket_tokens": [64, 128, 256, 512],
     "bucket_batch_sizes": [1, 2, 4, 8, 16, 32, 64],
+    # data and training (the two acoustic stages)
+    "seed": 1234,
+    "work_dir": "",
+    "raw_data_dir": "",
+    "binary_data_dir": "",
+    "raw_json_fn": "",
+    "test_prefixes": [],
+    "test_num": 100,
+    "sort_by_len": True,
+    "binarization_args": {"with_wav": False, "with_spk_embed": False, "with_f0": True,
+                          "with_f0cwt": False},
+    "loud_norm": False,
+    "reset_phone_dict": True,
+    "win_size": 512,
+    "fft_size": 512,
+    "fmin": 30,
+    "fmax": 12000,
+    "wav2spec_eps": 1e-6,
+    "pitch_extractor": "parselmouth",
+    "pitch_norm": "log",
+    "dropout": 0.1,
+    "predictor_dropout": 0.5,
+    "predictor_grad": 0.1,
+    "mel_loss": "l1:0.5|ssim:0.5",
+    "lambda_ph_dur": 1.0,
+    "lambda_sent_dur": 1.0,
+    "lambda_word_dur": 1.0,
+    "max_words": 128,
+    "diff_loss_type": "l1",
+    "switch_midi2f0_step": None,
+    "fs2_ckpt": "",
+    "task_cls": "",
+    "lr": 2.0,
+    "warmup_updates": 2000,
+    "optimizer_adam_beta1": 0.9,
+    "optimizer_adam_beta2": 0.98,
+    "weight_decay": 0.0,
+    "clip_grad_norm": 1.0,
+    "decay_steps": 100000,
+    "accumulate_grad_batches": 1,
+    "save_ckpt": True,
+    "num_ckpt_keep": 3,
+    "log_interval": 100,
+    "num_sanity_val_steps": 5,
+    "val_check_interval": 2000,
+    "max_updates": 160000,
+    "max_tokens": 31250,
+    "max_sentences": 100000,
+    "max_eval_tokens": -1,
+    "max_eval_sentences": -1,
+    "train_set_name": "train",
+    "valid_set_name": "valid",
+    "test_set_name": "test",
+    "device_resident_corpus": False,
+    "dataloader_prefetch": 2,
     # inference entry points
     "profile_infer": False,
     # activations of the heavy stacks: "bfloat16" (bf16 products with fp32
@@ -147,26 +208,47 @@ def parse_overrides(spec: str) -> Dict[str, str]:
 def _apply(hp: Dict[str, Any], overrides) -> Dict[str, Any]:
     """`overrides` onto `hp`: a dict as it is, or a string for
     `parse_overrides`, whose values are typed from the values they replace
-    and whose dotted keys write into nested dicts."""
+    and whose dotted keys write into nested dicts. Their keys join
+    `_explicit_keys`."""
+    explicit = set(hp.get("_explicit_keys", ()))
     if isinstance(overrides, str):
         for k, v in parse_overrides(overrides).items():
             node, keys = hp, k.split(".")
+            explicit.add(keys[0])
             for kk in keys[:-1]:
                 node = node.setdefault(kk, {})
             node[keys[-1]] = _coerce(v, node.get(keys[-1]))
     else:
-        hp.update(copy.deepcopy(overrides or {}))
+        overrides = copy.deepcopy(overrides or {})
+        # a whole set of hparams (one that carries its provenance) brings its
+        # own list; any other dict sets its keys explicitly
+        explicit.update(overrides.pop("_explicit_keys") if "_explicit_keys" in overrides
+                        else overrides)
+        hp.update(overrides)
+    hp["_explicit_keys"] = sorted(explicit)
     return _checked(hp)
+
+
+def apply_overrides(hp: Dict[str, Any], overrides) -> Dict[str, Any]:
+    """A copy of `hp` with `overrides` (a dict or a "k=v,..." string) set
+    and recorded in `_explicit_keys`."""
+    return _apply(copy.deepcopy(hp), overrides)
 
 
 def make_hparams(overrides=None) -> Dict[str, Any]:
     """Defaults updated by `overrides` (a deep copy; callers may mutate)."""
-    return _apply(copy.deepcopy(DEFAULTS), overrides)
+    hp = copy.deepcopy(DEFAULTS)
+    hp["_explicit_keys"] = []
+    return _apply(hp, overrides)
 
 
 def load_hparams_json(path: str, overrides=None) -> Dict[str, Any]:
-    """Defaults < the JSON dump of a trained run < `overrides`."""
+    """Defaults < a JSON file (a run's dump, or a config of its own) <
+    `overrides`."""
     with open(path) as f:
         saved = json.load(f)
-    saved.pop("_explicit_keys", None)
-    return _apply(make_hparams(saved), overrides)
+    hp = copy.deepcopy(DEFAULTS)
+    hp.update(saved)
+    hp["_explicit_keys"] = sorted(saved["_explicit_keys"] if "_explicit_keys" in saved
+                                  else saved)
+    return _apply(hp, overrides)

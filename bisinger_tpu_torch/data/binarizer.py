@@ -1,0 +1,361 @@
+"""Offline binarizer: raw corpus metadata -> feature record shards
+(counterpart of `bisinger_tpu/data/binarizer.py:1-531`, `M4SingerBinarizer`).
+
+  - metadata: the BiSinger `raw_json_fn` line-per-dict format: {item_name,
+    txt, phs, ph_dur, notes, notes_dur, is_slur, word_boundary, lang,
+    speechsing};
+  - features per utterance: log-mel (`utils.audio.wav2spec`), f0 + coarse
+    pitch, and mel2ph from the cumulative rounding of `ph_dur`;
+  - split: test items by `test_prefixes`, else the tail; valid == test;
+  - output per split: `<prefix>.data/.idx` shards (`data/records.py`),
+    `<prefix>_lengths.npy`, `<prefix>_f0s_mean_std.npy`, plus
+    `phone_set.json` and `spk_map.json`.
+
+f0: `pitch_extractor: parselmouth` (the flagship's) uses parselmouth when
+it imports and otherwise, with a warning, the in-repo Praat AC tracker
+(`utils/praat_pitch.py`); `autocorr` is the quick numpy tracker. Options
+not ported raise: speaker embeddings (`with_spk_embed`), CWT features,
+silence trimming and loudness normalisation. `N_PROC` worker processes
+(default 1; one spawned pool for all the splits) extract the items.
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import multiprocessing as mp
+import os
+from concurrent.futures import ProcessPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from bisinger_tpu_torch.data.records import RecordWriter
+from bisinger_tpu_torch.utils.audio import wav2spec
+from bisinger_tpu_torch.utils.pitch import f0_to_coarse_np
+from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder
+
+_UNPORTED_ARGS = ("with_spk_embed", "with_f0cwt", "trim_long_sil")
+
+
+class BinarizationError(Exception):
+    pass
+
+
+def _align_f0(f0: np.ndarray, n_frames: int, hop: int) -> np.ndarray:
+    """A Praat track aligned to the mel frames (reference
+    `data_gen_utils.py:152-186`: a hop-dependent left pad, then the last
+    value repeated)."""
+    lpad = (4 if hop == 128 else 2) * 2
+    rpad = n_frames - len(f0) - lpad
+    f0 = np.pad(f0, (lpad, max(rpad, 0)))
+    delta = n_frames - len(f0)
+    if delta > 0:
+        f0 = np.concatenate([f0, [f0[-1]] * delta])
+    return f0[:n_frames].astype(np.float32)
+
+
+def extract_f0_parselmouth(wav: np.ndarray, n_frames: int, hp) -> np.ndarray:
+    """Praat's AC through parselmouth: f0_min 80, f0_max 750, voicing 0.6."""
+    import parselmouth
+
+    hop, sr = hp["hop_size"], hp["audio_sample_rate"]
+    f0 = parselmouth.Sound(wav, sr).to_pitch_ac(
+        time_step=hop / sr, voicing_threshold=0.6, pitch_floor=80,
+        pitch_ceiling=750).selected_array["frequency"]
+    return _align_f0(f0, n_frames, hop)
+
+
+def extract_f0_praat_ac(wav: np.ndarray, n_frames: int, hp) -> np.ndarray:
+    """The in-repo Praat AC tracker, same parameters and alignment as
+    `extract_f0_parselmouth`."""
+    from bisinger_tpu_torch.utils.praat_pitch import praat_pitch_ac
+
+    hop, sr = hp["hop_size"], hp["audio_sample_rate"]
+    f0 = praat_pitch_ac(wav, sr, time_step=hop / sr, voicing_threshold=0.6,
+                        pitch_floor=80.0, pitch_ceiling=750.0)
+    return _align_f0(f0, n_frames, hop)
+
+
+def extract_f0_autocorr(wav: np.ndarray, n_frames: int, hp) -> np.ndarray:
+    """Quick numpy tracker: windowed normalized autocorrelation peak within
+    [80, 750] Hz, energy-gated voicing (`pitch_extractor: autocorr`)."""
+    hop, sr = hp["hop_size"], hp["audio_sample_rate"]
+    win = 1024
+    lag_min, lag_max = int(sr / 750.0), int(sr / 80.0)
+    pad = win // 2
+    x = np.pad(wav.astype(np.float64), (pad, pad + win))
+    f0 = np.zeros(n_frames, dtype=np.float32)
+    rms_all = np.sqrt(np.mean(wav ** 2) + 1e-12)
+    for i in range(n_frames):
+        frame = x[i * hop: i * hop + win]
+        frame = frame - frame.mean()
+        rms = np.sqrt(np.mean(frame ** 2) + 1e-12)
+        if rms < 0.1 * rms_all:
+            continue
+        spec = np.fft.rfft(frame, n=2 * win)
+        ac = np.fft.irfft(spec * np.conj(spec))[:lag_max + 1]
+        if ac[0] <= 0:
+            continue
+        ac = ac / ac[0]
+        lag = int(np.argmax(ac[lag_min:lag_max + 1])) + lag_min
+        if ac[lag] > 0.3:
+            f0[i] = sr / lag
+    return f0
+
+
+_FALLBACK_WARNED: set = set()
+
+
+def _warn_fallback(key: str, msg: str):
+    if key not in _FALLBACK_WARNED:
+        _FALLBACK_WARNED.add(key)
+        print(f"| WARNING: {msg}", flush=True)
+
+
+def extract_f0(wav: np.ndarray, n_frames: int, hp) -> np.ndarray:
+    extractor = hp.get("pitch_extractor", "parselmouth")
+    if extractor == "autocorr":
+        return extract_f0_autocorr(wav, n_frames, hp)
+    if extractor == "parselmouth":
+        try:
+            return extract_f0_parselmouth(wav, n_frames, hp)
+        except ImportError:
+            _warn_fallback(
+                "f0",
+                "parselmouth not installed — using the built-in Praat-AC "
+                "tracker (same Boersma-1993 algorithm and parameters, own "
+                "implementation; contours are algorithm-equivalent but not "
+                "bit-identical to Praat)",
+            )
+    return extract_f0_praat_ac(wav, n_frames, hp)
+
+
+def is_sil_phoneme(p: str) -> bool:
+    return not p[:1].isalpha()
+
+
+def derive_word_boundary(phs: List[str]) -> List[int]:
+    """1 on every pinyin final or silence phone, for metas without an
+    explicit word_boundary (reference `train_m4singer/binarize.py:203`)."""
+    from bisinger_tpu_torch.data.text.pinyin import FINALS
+
+    sil = {"AP", "SP", "<SIL>", "<AP>", "<SP>"}
+    return [1 if p in FINALS or p in sil else 0 for p in phs]
+
+
+def ph_durs_to_mel2ph(ph_durs: List[float], n_frames: int, hop_size: int,
+                      sample_rate: int) -> np.ndarray:
+    """Seconds per phone -> frame->phone map with cumulative rounding
+    (reference `MidiSingingBinarizer.get_align`, `binarize.py:230-253`)."""
+    mel2ph = np.zeros(n_frames, dtype=np.int64)
+    start_time = 0.0
+    for i, d in enumerate(ph_durs):
+        start_frame = int(start_time * sample_rate / hop_size + 0.5)
+        end_frame = int((start_time + d) * sample_rate / hop_size + 0.5)
+        mel2ph[start_frame:end_frame] = i + 1
+        start_time += d
+    return mel2ph
+
+
+def load_wav(path: str, sample_rate: int) -> np.ndarray:
+    from scipy.io import wavfile
+
+    sr, wav = wavfile.read(path)
+    if wav.dtype == np.int16:
+        wav = wav.astype(np.float32) / 32768.0
+    elif wav.dtype == np.int32:
+        wav = wav.astype(np.float32) / 2147483648.0
+    elif wav.dtype != np.float32:
+        wav = wav.astype(np.float32)
+    if wav.ndim > 1:
+        wav = wav.mean(axis=1)
+    if sr != sample_rate:
+        n_out = int(round(len(wav) * sample_rate / sr))
+        wav = np.interp(np.linspace(0, len(wav) - 1, n_out), np.arange(len(wav)),
+                        wav).astype(np.float32)
+    return wav
+
+
+class M4SingerBinarizer:
+    """BiSinger binarizer over the `raw_json_fn` metadata format."""
+
+    def __init__(self, hp):
+        args = hp["binarization_args"]
+        for key in _UNPORTED_ARGS:
+            if args.get(key):
+                raise NotImplementedError(f"binarization_args.{key} is not ported")
+        if hp.get("loud_norm"):
+            raise NotImplementedError("loud_norm is not ported")
+        self.hp = hp
+        self.items: Dict[str, Dict[str, Any]] = {}
+        self.item_names: List[str] = []
+
+    # ---- metadata --------------------------------------------------------
+    def load_meta_data(self):
+        hp = self.hp
+        path = os.path.join(hp["raw_data_dir"], hp["raw_json_fn"])
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    song = json.loads(line)
+                except json.JSONDecodeError:
+                    song = ast.literal_eval(line)
+                name = song["item_name"]
+                wav_fn = song.get("wav_fn")
+                if wav_fn is None:
+                    singer_, song_name, sent_id = name.split("#")
+                    wav_fn = f"{hp['raw_data_dir']}/{singer_}#{song_name}/{sent_id}.wav"
+                # monolingual M4Singer metas carry no lang: Chinese (1)
+                lang = song.get("lang", 1)
+                wdb = song.get("word_boundary")
+                self.items[name] = {
+                    "item_name": name,
+                    "wav_fn": wav_fn,
+                    "txt": song["txt"],
+                    "ph": " ".join(song["phs"]),
+                    "ph_durs": song["ph_dur"],
+                    "pitch_midi": song["notes"],
+                    "midi_dur": song["notes_dur"],
+                    "is_slur": song["is_slur"],
+                    "word_boundary": derive_word_boundary(song["phs"]) if wdb is None else wdb,
+                    "lang": lang if isinstance(lang, list) else [lang] * len(song["phs"]),
+                    "speechsing": [song.get("speechsing", 1)],
+                    "spk": name.split("#")[0],
+                }
+        self.item_names = sorted(self.items.keys())
+
+    def split_train_test(self) -> Tuple[List[str], List[str]]:
+        prefixes = self.hp["test_prefixes"]
+        test = [n for n in self.item_names if any(n.startswith(p) for p in prefixes)]
+        if prefixes and not test and self.item_names:
+            raise ValueError(
+                f"test_prefixes {list(prefixes)!r} match no items "
+                f"(first items: {self.item_names[:3]}); fix the prefixes "
+                "or clear them to use the tail-holdout split")
+        if not test and self.item_names:
+            n_test = max(1, min(self.hp.get("test_num", 100), len(self.item_names) // 5))
+            test = self.item_names[-n_test:]
+        test_set = set(test)
+        return [n for n in self.item_names if n not in test_set], test
+
+    # ---- vocab -----------------------------------------------------------
+    def build_phone_encoder(self) -> TokenTextEncoder:
+        hp = self.hp
+        out = os.path.join(hp["binary_data_dir"], "phone_set.json")
+        os.makedirs(hp["binary_data_dir"], exist_ok=True)
+        if not os.path.exists(out) or hp.get("reset_phone_dict", True):
+            phones = sorted({p for item in self.items.values() for p in item["ph"].split()})
+            with open(out, "w") as f:
+                json.dump(phones, f, ensure_ascii=False)
+        with open(out) as f:
+            phones = json.load(f)
+        return TokenTextEncoder(vocab_list=phones, replace_oov=",")
+
+    def build_spk_map(self) -> Dict[str, int]:
+        spks = sorted({item["spk"] for item in self.items.values()})
+        spk_map = {s: i for i, s in enumerate(spks)}
+        if len(spk_map) > self.hp["num_spk"]:
+            raise ValueError(f"{len(spk_map)} speakers in the corpus, num_spk is "
+                             f"{self.hp['num_spk']}")
+        with open(os.path.join(self.hp["binary_data_dir"], "spk_map.json"), "w") as f:
+            json.dump(spk_map, f, ensure_ascii=False)
+        return spk_map
+
+    # ---- per item --------------------------------------------------------
+    def process_item(self, item: Dict[str, Any], encoder: TokenTextEncoder,
+                     spk_map: Dict[str, int]) -> Optional[Dict[str, Any]]:
+        hp = self.hp
+        try:
+            wav = load_wav(item["wav_fn"], hp["audio_sample_rate"])
+            wav, mel = wav2spec(
+                wav, sample_rate=hp["audio_sample_rate"], fft_size=hp["fft_size"],
+                hop_size=hp["hop_size"], win_size=hp["win_size"],
+                num_mels=hp["audio_num_mel_bins"], fmin=hp["fmin"], fmax=hp["fmax"],
+                eps=float(hp.get("wav2spec_eps", 1e-6)))
+            n_frames = mel.shape[0]
+            res = {
+                "item_name": item["item_name"],
+                "txt": item["txt"],
+                "ph": item["ph"],
+                "mel": mel.astype(np.float32),
+                "sec": len(wav) / hp["audio_sample_rate"],
+                "len": n_frames,
+                "spk_id": spk_map[item["spk"]],
+            }
+            if hp["binarization_args"].get("with_wav"):
+                res["wav"] = wav.astype(np.float32)
+            if hp["binarization_args"].get("with_f0", True):
+                f0 = extract_f0(wav, n_frames, hp)
+                if f0.sum() == 0:
+                    raise BinarizationError("Empty f0")
+                res["f0"] = f0
+                res["pitch"] = f0_to_coarse_np(f0)
+            phone = encoder.encode(item["ph"])
+            if len(phone) == 0:
+                raise BinarizationError("Empty phoneme")
+            res["phone"] = np.asarray(phone, dtype=np.int64)
+            res["ph_is_sil"] = np.asarray(
+                [int(is_sil_phoneme(p)) for p in item["ph"].split()], dtype=np.int64)
+            res["mel2ph"] = ph_durs_to_mel2ph(item["ph_durs"], n_frames, hp["hop_size"],
+                                              hp["audio_sample_rate"])
+            for key in ("pitch_midi", "is_slur", "word_boundary", "lang"):
+                res[key] = np.asarray(item[key], dtype=np.int64)
+            res["midi_dur"] = np.asarray(item["midi_dur"], dtype=np.float32)
+            res["speechsing"] = np.asarray(item["speechsing"], dtype=np.int64)
+            if not (res["pitch_midi"].shape == res["is_slur"].shape == res["lang"].shape
+                    == (len(phone),)):
+                raise ValueError(f"{item['item_name']}: notes {res['pitch_midi'].shape}, slurs "
+                                 f"{res['is_slur'].shape}, lang {res['lang'].shape} against "
+                                 f"{len(phone)} phones")
+            return res
+        except BinarizationError as e:
+            print(f"| Skip item ({e}). item_name: {item['item_name']}")
+            return None
+
+    # ---- the whole corpus ------------------------------------------------
+    def process(self):
+        hp = self.hp
+        self.load_meta_data()
+        os.makedirs(hp["binary_data_dir"], exist_ok=True)
+        encoder = self.build_phone_encoder()
+        spk_map = self.build_spk_map()
+        train, test = self.split_train_test()
+        n_proc = int(os.environ.get("N_PROC", 1))
+        pool = (ProcessPoolExecutor(n_proc, mp_context=mp.get_context("spawn"))
+                if n_proc > 1 else None)
+        try:
+            for prefix, names in [("valid", test), ("test", test), ("train", train)]:
+                self.process_split(prefix, names, encoder, spk_map, pool)
+        finally:
+            if pool is not None:
+                pool.shutdown()
+
+    def process_split(self, prefix, names, encoder, spk_map, pool=None):
+        hp = self.hp
+        items = [self.items[name] for name in names]
+        if pool is not None:
+            results = list(pool.map(self.process_item, items, [encoder] * len(items),
+                                    [spk_map] * len(items)))
+        else:
+            results = [self.process_item(item, encoder, spk_map) for item in items]
+        lengths, f0s = [], []
+        with RecordWriter(os.path.join(hp["binary_data_dir"], prefix)) as writer:
+            for res in results:
+                if res is None:
+                    continue
+                writer.add_item(res)
+                lengths.append(res["len"])
+                if "f0" in res:
+                    f0s.append(res["f0"])
+        np.save(os.path.join(hp["binary_data_dir"], f"{prefix}_lengths.npy"),
+                np.asarray(lengths, dtype=np.int64))
+        if f0s:
+            cat = np.concatenate(f0s)
+            voiced = cat[cat > 0]
+            np.save(os.path.join(hp["binary_data_dir"], f"{prefix}_f0s_mean_std.npy"),
+                    np.asarray([voiced.mean(), voiced.std()], dtype=np.float32))
+        print(f"| binarized {prefix}: {len(lengths)} items")

@@ -75,6 +75,25 @@ def pick_bucket(n: int, buckets) -> int:
     return buckets[-1]
 
 
+def _pe_and_vocoder(ckpt_dir: str, hp: dict):
+    """The PitchExtractor (pe_params.npz + pe_batch_stats.npz) and the newest
+    vocoder/**/generator_*.npz of a trained run's directory."""
+    stats_fn = os.path.join(ckpt_dir, "pe_batch_stats.npz")
+    if not os.path.exists(stats_fn):
+        raise FileNotFoundError(f"{stats_fn} is missing: the PE's BatchNorm needs its "
+                                "running statistics")
+    pe = PitchExtractor(hp)
+    load_flax_params(pe, {**load_npz(os.path.join(ckpt_dir, "pe_params.npz")),
+                          **load_npz(stats_fn)})
+    cands = sorted(glob.glob(os.path.join(ckpt_dir, "vocoder", "**", "generator_*.npz"),
+                             recursive=True))
+    if not cands:
+        raise FileNotFoundError(f"no vocoder/**/generator_*.npz under {ckpt_dir}")
+    vocoder = HifiGanGenerator(hp)
+    load_flax_params(vocoder, load_npz(cands[-1]))
+    return pe, vocoder
+
+
 class SVSInferTorch:
     """The flagship's inference path on one device. Build it with
     `from_checkpoint` (the flagship's files) or from modules; the score
@@ -117,20 +136,32 @@ class SVSInferTorch:
                              f"embedding of diff_params.npz has {vocab} rows")
         model = GaussianDiffusion(hp, vocab, hp["audio_num_mel_bins"])
         load_flax_params(model, flat)
-        stats_fn = os.path.join(ckpt_dir, "pe_batch_stats.npz")
-        if not os.path.exists(stats_fn):
-            raise FileNotFoundError(f"{stats_fn} is missing: the PE's BatchNorm needs its "
-                                    "running statistics")
-        pe = PitchExtractor(hp)
-        load_flax_params(pe, {**load_npz(os.path.join(ckpt_dir, "pe_params.npz")),
-                              **load_npz(stats_fn)})
-        cands = sorted(glob.glob(os.path.join(ckpt_dir, "vocoder", "**", "generator_*.npz"),
-                                 recursive=True))
-        if not cands:
-            raise FileNotFoundError(f"no vocoder/**/generator_*.npz under {ckpt_dir}")
-        vocoder = HifiGanGenerator(hp)
-        load_flax_params(vocoder, load_npz(cands[-1]))
-        return cls(hp, model, pe, vocoder, device, encoder=encoder, spk_map=spk_map)
+        return cls(hp, model, *_pe_and_vocoder(ckpt_dir, hp), device, encoder=encoder,
+                   spk_map=spk_map)
+
+    @classmethod
+    def from_work_dir(cls, work_dir: str, assets_dir: str = FLAGSHIP_DIR, device=None,
+                      hp_overrides=None) -> "SVSInferTorch":
+        """The diffusion model of a port training run: `config.json` and the
+        latest `ckpt/<step>/params.npz` of `work_dir`, the phone set and
+        speakers its binarizer wrote (`binary_data_dir`); the PE and the
+        vocoder, and their hyperparameters, from `assets_dir` (laid out as
+        `from_checkpoint` reads it)."""
+        from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+
+        device = resolve_device(device)
+        hp = load_hparams_json(os.path.join(work_dir, "config.json"), hp_overrides)
+        restored = CheckpointManager(os.path.join(work_dir, "ckpt")).restore()
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint under {work_dir!r}/ckpt")
+        encoder = build_phone_encoder(hp["binary_data_dir"])
+        with open(os.path.join(hp["binary_data_dir"], "spk_map.json")) as f:
+            spk_map = json.load(f)
+        model = GaussianDiffusion(hp, encoder.vocab_size, hp["audio_num_mel_bins"])
+        load_flax_params(model, restored["params"])
+        assets_hp = load_hparams_json(os.path.join(assets_dir, "hparams_diff.json"))
+        return cls(hp, model, *_pe_and_vocoder(assets_dir, assets_hp), device, encoder=encoder,
+                   spk_map=spk_map)
 
     @property
     def vocab_size(self) -> int:

@@ -2,7 +2,9 @@
 
 Counterpart of `bisinger_tpu/models/common.py:24-345`. Submodules carry
 the flax names so that `weights.load_flax_params` maps a flat key onto a
-state_dict entry by path. Inference only: dropout is the identity.
+state_dict entry by path. Dropout sits where flax has `nn.Dropout`; it is
+the identity in eval mode (flax's `deterministic=True`) and in train mode
+draws its masks from the generator `set_dropout_generator` hands it.
 
 Mixed precision follows the JAX package's contract
 (`bisinger_tpu/models/common.py:24-33`): `compute_dtype` (bf16 by
@@ -56,6 +58,44 @@ _GELU_C1 = bf16_const(math.sqrt(2.0 / math.pi))
 _GELU_C3 = bf16_const(0.044715)
 
 
+def div(x, s: float):
+    """x / s as JAX divides an array by a Python scalar: s is first rounded
+    to x's dtype."""
+    return x / (s if x.dtype == torch.float32 else bf16_const(s))
+
+
+def grad_scale(x, s: float):
+    """x in value, with s times its gradient (`bisinger_tpu/models/fs2.py:45-49`)."""
+    sg = x.detach()
+    return sg + s * (x - sg)
+
+
+class Dropout(nn.Module):
+    """flax's `nn.Dropout(rate)`: in train mode each value is kept with
+    probability 1 - rate and divided by it, else zeroed; the mask is drawn
+    from `self.generator` (a `torch.Generator` on the input's device, set by
+    `set_dropout_generator`). The identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, div(x, keep), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(module: nn.Module, generator) -> None:
+    """Hand every Dropout under `module` the generator its masks come from."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 def gelu_tanh(x):
     """jax.nn.gelu (tanh form) in x's dtype, one op at a time as XLA runs
     it: 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))) * x, every
@@ -101,11 +141,15 @@ def batch_norm(bn: nn.BatchNorm1d, x):
 
 
 class Linear(nn.Linear):
-    """nn.Linear computing in `dtype` (None: fp32), as flax's nn.Dense."""
+    """nn.Linear computing in `dtype` (None: fp32), as flax's nn.Dense.
+    `conv1x1` marks one that holds a flax 1x1 nn.Conv (kernel (1, in, out)),
+    for `weights.export_flax_params`."""
 
-    def __init__(self, cin: int, cout: int, bias: bool = True, dtype=None):
+    def __init__(self, cin: int, cout: int, bias: bool = True, dtype=None,
+                 conv1x1: bool = False):
         super().__init__(cin, cout, bias=bias)
         self.compute_dtype = dtype
+        self.conv1x1 = conv1x1
 
     def cast(self):
         """(weight, bias) in the compute dtype, for a caller that reuses them
@@ -220,15 +264,16 @@ class TransformerFFN(nn.Module):
     flagship's `ffn_padding: SAME`, `ffn_act: gelu`)."""
 
     def __init__(self, hidden: int, filter_size: int, kernel_size: int = 9,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
         self.kernel_size = kernel_size
         self.Conv_0 = Conv(hidden, filter_size, kernel_size, dtype=dtype)
+        self.dropout = Dropout(dropout)
         self.Dense_0 = Linear(filter_size, hidden, dtype=dtype)
 
     def forward(self, x):
         x = scale(self.Conv_0(x), self.kernel_size ** -0.5)
-        return self.Dense_0(gelu_tanh(x))  # jax.nn.gelu's default
+        return self.Dense_0(self.dropout(gelu_tanh(x)))  # jax.nn.gelu's default
 
 
 class EncSALayer(nn.Module):
@@ -236,18 +281,22 @@ class EncSALayer(nn.Module):
     (`common.py:197-243`). x comes and goes in `dtype`; the LayerNorms
     compute in fp32."""
 
-    def __init__(self, hidden: int, num_heads: int, kernel_size: int = 9, dtype=torch.float32):
+    def __init__(self, hidden: int, num_heads: int, kernel_size: int = 9, dtype=torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(hidden, eps=1e-5)
         self.self_attn = MultiHeadAttention(hidden, num_heads, bias=False, dtype=dtype)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=1e-5)
-        self.ffn = TransformerFFN(hidden, 4 * hidden, kernel_size, dtype=dtype)
+        self.ffn = TransformerFFN(hidden, 4 * hidden, kernel_size, dtype=dtype, dropout=dropout)
+        self.attn_dropout = Dropout(dropout)
+        self.ffn_dropout = Dropout(dropout)
 
     def forward(self, x, padding_mask):
         nonpad = 1.0 - padding_mask.to(x.dtype)[:, :, None]
         y = layer_norm(self.layer_norm1, x)
-        x = (x + self.self_attn(y, y, y, key_padding_mask=padding_mask)) * nonpad
-        x = (x + self.ffn(layer_norm(self.layer_norm2, x))) * nonpad
+        y = self.attn_dropout(self.self_attn(y, y, y, key_padding_mask=padding_mask))
+        x = (x + y) * nonpad
+        x = (x + self.ffn_dropout(self.ffn(layer_norm(self.layer_norm2, x)))) * nonpad
         return x
 
 
@@ -284,14 +333,17 @@ class FFTBlocks(nn.Module):
     fp32, and the output is cast back to the input's dtype."""
 
     def __init__(self, hidden: int, num_layers: int, ffn_kernel_size: int = 9,
-                 num_heads: int = 2, use_pos_embed: bool = True, dtype=torch.float32):
+                 num_heads: int = 2, use_pos_embed: bool = True, dtype=torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.hidden, self.num_layers, self.use_pos_embed = hidden, num_layers, use_pos_embed
         self.dtype_ = dtype
         if use_pos_embed:
             self.pos_embed_alpha = nn.Parameter(torch.ones(1))
+            self.pos_dropout = Dropout(dropout)
         for i in range(num_layers):
-            self.add_module(f"layer_{i}", EncSALayer(hidden, num_heads, ffn_kernel_size, dtype))
+            self.add_module(f"layer_{i}", EncSALayer(hidden, num_heads, ffn_kernel_size, dtype,
+                                                     dropout))
         self.final_ln = nn.LayerNorm(hidden, eps=1e-5)
 
     def forward(self, x, padding_mask=None):
@@ -301,8 +353,8 @@ class FFTBlocks(nn.Module):
         x = x.to(self.dtype_)
         nonpad = 1.0 - padding_mask.to(x.dtype)[:, :, None]
         if self.use_pos_embed:
-            x = x + (self.pos_embed_alpha * sinusoidal_positions(
-                (~padding_mask).long(), self.hidden)).to(x.dtype)
+            x = self.pos_dropout(x + (self.pos_embed_alpha * sinusoidal_positions(
+                (~padding_mask).long(), self.hidden)).to(x.dtype))
         x = x * nonpad
         for i in range(self.num_layers):
             x = getattr(self, f"layer_{i}")(x, padding_mask) * nonpad

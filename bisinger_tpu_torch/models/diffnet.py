@@ -8,6 +8,11 @@ residual layers run through K1: `ops/diffnet_stack.residual_stack_bf16`
 under compute_dtype bfloat16 (the default), `residual_stack` under
 float32. As `bisinger_tpu/models/diffnet.py:100-130`, every projection but
 the last computes in `compute_dtype`, and the output is fp32.
+
+Training passes `cond` (the fs2 decoder input) instead of `cond_proj`, as
+`bisinger_tpu/models/diffnet.py:164-174` does: that path runs the layers
+one by one in plain autograd ops (`ResidualBlock.forward`), rounding where
+flax's layers round, and never reaches K1, which has no backward.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bisinger_tpu_torch.models.common import Conv, Linear, compute_dtype, softplus
+from bisinger_tpu_torch.models.common import Conv, Linear, compute_dtype, div, softplus
 from bisinger_tpu_torch.ops.diffnet_stack import residual_stack, residual_stack_bf16
 
 
@@ -32,16 +37,27 @@ def diffusion_step_embedding(t, dim: int):
 
 
 class ResidualBlock(nn.Module):
-    """Parameters of one gated residual layer (`diffnet.py:47-85`); the
-    layers run together in K1."""
+    """One gated residual layer (`diffnet.py:47-85`). Sampling runs the
+    layers together in K1 from `DiffNet.stack_weights`; training runs
+    `forward`, every projection in compute_dtype."""
 
     def __init__(self, channels: int, cond_dims: int, dilation: int, dtype=torch.float32):
         super().__init__()
         self.dilation = dilation
-        self.diffusion_projection = nn.Linear(channels, channels)
-        self.dilated_conv = Conv(channels, 2 * channels, 3, dilation=dilation)
-        self.conditioner_projection = Linear(cond_dims, 2 * channels, dtype=dtype)
-        self.output_projection = nn.Linear(channels, 2 * channels)
+        self.diffusion_projection = Linear(channels, channels, dtype=dtype)
+        self.dilated_conv = Conv(channels, 2 * channels, 3, dilation=dilation, dtype=dtype)
+        self.conditioner_projection = Linear(cond_dims, 2 * channels, dtype=dtype, conv1x1=True)
+        self.output_projection = Linear(channels, 2 * channels, dtype=dtype, conv1x1=True)
+
+    def forward(self, x, cond_proj, step):
+        """x [B, T, C], cond_proj [B, T, 2C], step [B, C] -> (the next x, this
+        layer's skip), flax's `ResidualBlock.__call__` op for op."""
+        y = x + self.diffusion_projection(step)[:, None, :]
+        y = self.dilated_conv(y) + cond_proj
+        gate, filt = y.chunk(2, dim=-1)
+        residual, skip = self.output_projection(torch.sigmoid(gate) * torch.tanh(filt)).chunk(
+            2, dim=-1)
+        return div(x + residual, math.sqrt(2.0)), skip
 
 
 class DiffNet(nn.Module):
@@ -51,13 +67,13 @@ class DiffNet(nn.Module):
         self.channels, self.n_layers = c, hp["residual_layers"]
         self.dtype_ = dt = compute_dtype(hp)
         self.dilations = [2 ** (i % hp["dilation_cycle_length"]) for i in range(self.n_layers)]
-        self.input_projection = Linear(in_dims, c, dtype=dt)
+        self.input_projection = Linear(in_dims, c, dtype=dt, conv1x1=True)
         self.mlp_0 = Linear(c, 4 * c, dtype=dt)
         self.mlp_1 = Linear(4 * c, c, dtype=dt)
         for i, d in enumerate(self.dilations):
             self.add_module(f"res_{i}", ResidualBlock(c, hp["hidden_size"], d, dt))
-        self.skip_projection = Linear(c, c, dtype=dt)
-        self.output_projection = Linear(c, in_dims)  # fp32: feeds the sampler
+        self.skip_projection = Linear(c, c, dtype=dt, conv1x1=True)
+        self.output_projection = Linear(c, in_dims, conv1x1=True)  # fp32: feeds the sampler
 
     def blocks(self):
         return [getattr(self, f"res_{i}") for i in range(self.n_layers)]
@@ -84,9 +100,12 @@ class DiffNet(nn.Module):
              for name in ("input_projection", "mlp_0", "mlp_1", "skip_projection")},
         )
 
-    def forward(self, spec, diffusion_step, cond_proj, stack=None):
-        """spec [B, T, M], diffusion_step [B] int, cond_proj [L, B, T, 2C]
-        -> predicted noise [B, T, M]."""
+    def forward(self, spec, diffusion_step, cond_proj=None, stack=None, cond=None):
+        """spec [B, T, M], diffusion_step [B] int, and cond_proj [L, B, T, 2C]
+        (sampling, through K1) or cond [B, T, H] (training) -> predicted
+        noise [B, T, M]."""
+        if cond is not None:
+            return self._forward_layers(spec, diffusion_step, self.cond_projections(cond))
         wstep, bstep, wd, bd, wo, bo, proj = stack if stack is not None else self.stack_weights()
         x = F.relu(self.input_projection(spec, proj["input_projection"]))
         s = self.mlp_0(diffusion_step_embedding(diffusion_step, self.channels), proj["mlp_0"])
@@ -99,3 +118,17 @@ class DiffNet(nn.Module):
                         self.dilations)
         y = (skip * (1.0 / math.sqrt(self.n_layers))).to(self.dtype_)
         return self.output_projection(F.relu(self.skip_projection(y, proj["skip_projection"])))
+
+    def _forward_layers(self, spec, diffusion_step, cond_proj):
+        """flax's `DiffNet.__call__` without the fused kernel
+        (`diffnet.py:186-200`): the layers one by one, the skip sum in
+        compute_dtype."""
+        x = F.relu(self.input_projection(spec))
+        s = self.mlp_0(diffusion_step_embedding(diffusion_step, self.channels))
+        s = self.mlp_1(s * torch.tanh(softplus(s)))  # Mish
+        skip_sum = None
+        for blk, cp in zip(self.blocks(), cond_proj):
+            x, skip = blk(x, cp, s)
+            skip_sum = skip if skip_sum is None else skip_sum + skip
+        y = div(skip_sum, math.sqrt(self.n_layers))
+        return self.output_projection(F.relu(self.skip_projection(y)))

@@ -1,6 +1,13 @@
-"""Gaussian diffusion mel decoder, inference
-(counterpart of `bisinger_tpu/models/diffusion.py:35-435`).
+"""Gaussian diffusion mel decoder (counterpart of
+`bisinger_tpu/models/diffusion.py:35-435`).
 
+Training (`train_forward`, `diffusion.py:128-140, 356-401`): fs2 up to the
+decoder input (skip_decoder) -> cond; t ~ U[0, K_step); the target mel,
+normalised, noised to t (`q_sample_t`); the DiffNet's noise prediction on
+its layer-by-layer path (`cond=`, never K1) against the noise under the
+l1 (nonpadding-weighted) or l2 loss. `t` and `noise` may be handed in.
+
+Inference:
 fs2 -> cond (decoder input) -> the start: pure noise (`gaussian_start`)
 or the fs2 mel noised to step K-1 (`q_sample`, the shallow start) -> one
 of three samplers, picked as `_dispatch_sampler` picks it:
@@ -73,8 +80,8 @@ class GaussianDiffusion(nn.Module):
             posterior_mean_coef1=f32(betas * np.sqrt(ac_prev) / (1.0 - ac)),
             posterior_mean_coef2=f32((1.0 - ac_prev) * np.sqrt(1.0 - betas) / (1.0 - ac)),
         )
-        self.register_buffer("alphas_cumprod", torch.from_numpy(self.sched["alphas_cumprod"]),
-                             persistent=False)
+        for name in ("alphas_cumprod", "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod"):
+            self.register_buffer(name, torch.from_numpy(self.sched[name]), persistent=False)
         keep = hp.get("keep_bins", out_dims)
         self.register_buffer("spec_min", torch.tensor(hp["spec_min"][:keep], dtype=torch.float32),
                              persistent=False)
@@ -128,6 +135,45 @@ class GaussianDiffusion(nn.Module):
     def _dn(self, x, cond_proj, tv: int, stack):
         tb = torch.full((x.shape[0],), tv, dtype=torch.long, device=x.device)
         return self.denoise_fn(x, tb, cond_proj, stack)
+
+    def q_sample_t(self, x_start, t, noise):
+        """x_start [B, T, M] noised to the steps t [B] (`diffusion.py:120-126`)."""
+        return (self.sqrt_alphas_cumprod[t][:, None, None] * x_start
+                + self.sqrt_one_minus_alphas_cumprod[t][:, None, None] * noise)
+
+    def p_losses(self, x_start, t, cond, noise, nonpadding=None):
+        """The denoiser's loss at steps t [B] (`diffusion.py:128-140`): l1
+        over the nonpadding frames, or the l2 mean over every value."""
+        x_recon = self.denoise_fn(self.q_sample_t(x_start, t, noise), t, cond=cond)
+        loss_type = self.hp.get("diff_loss_type", "l1")
+        if loss_type == "l1":
+            err = (noise - x_recon).abs()
+            if nonpadding is None:
+                return err.mean()
+            w = nonpadding[:, :, None]
+            return (err * w).sum() / torch.clamp_min(w.sum() * x_start.shape[-1], 1.0)
+        if loss_type == "l2":
+            return ((noise - x_recon) ** 2).mean()
+        raise NotImplementedError(f"diff_loss_type={loss_type}")
+
+    def train_forward(self, txt_tokens, mel2ph, ref_mels, spk_id=None, pitch_midi=None,
+                      midi_dur=None, is_slur=None, lang=None, speechsing=None, t=None,
+                      noise=None, generator: Optional[torch.Generator] = None):
+        """-> dict with diff_loss, dur, mel2ph, decoder_inp. `t` [B] and
+        `noise` [B, T, M] pin the draws, else they come from `generator`."""
+        ret = self.fs2(txt_tokens, mel2ph=mel2ph, spk_id=spk_id, pitch_midi=pitch_midi,
+                       midi_dur=midi_dur, is_slur=is_slur, lang=lang, speechsing=speechsing,
+                       ref_mels=ref_mels, skip_decoder=True)
+        x = self.norm_spec(ref_mels)
+        dev = txt_tokens.device
+        if t is None:
+            t = torch.randint(0, self.hp["K_step"], (x.shape[0],), generator=generator,
+                              device=dev)
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, device=dev)
+        nonpadding = (mel2ph != 0).to(x.dtype)
+        ret["diff_loss"] = self.p_losses(x, t.long(), ret["decoder_inp"], noise, nonpadding)
+        return ret
 
     def q_sample(self, x_start, t: int, noise):
         """x_start noised to step t (`diffusion.py:120-126`)."""

@@ -1,5 +1,4 @@
-"""FastSpeech2MIDI conditioner, inference path
-(counterpart of `bisinger_tpu/models/fs2.py:52-433`).
+"""FastSpeech2MIDI conditioner (counterpart of `bisinger_tpu/models/fs2.py:52-433`).
 
 encoder input = sqrt(H) * token emb + midi emb + midi-dur emb + slur emb
 + ESM(token emb, lang emb) + sinusoidal positions; FFT encoder; duration predictor
@@ -9,7 +8,13 @@ use (pitch/energy embeddings, speaker vectors, split speaker ids, the
 MoG/CRF duration heads, relative positions, LEFT-padded or non-GELU FFNs)
 are not ported and raise. The FFT stacks, the ESM and the duration
 predictor's convs run in `compute_dtype` (`fs2.py:66-115, 387-391`); the
-embeddings, the heads and every output stay fp32.
+embeddings, the heads and every output stay fp32. In train mode dropout
+(`dropout`) runs where flax's does; the duration predictor runs
+deterministically, as flax runs it here (see `models/predictors.py`). A
+training or validation call passes `ref_mels`: the duration predictor
+then runs on the given mel2ph for the duration losses, and `skip_decoder`
+stops at the decoder input, as the diffusion stage trains
+(`fs2.py:316-356`).
 """
 
 from __future__ import annotations
@@ -21,9 +26,11 @@ from torch import nn
 
 from bisinger_tpu_torch.models.common import (
     ESM,
+    Dropout,
     Embedding,
     FFTBlocks,
     compute_dtype,
+    grad_scale,
     sinusoidal_positions,
 )
 from bisinger_tpu_torch.models.predictors import DurationPredictor
@@ -47,15 +54,18 @@ class FastSpeech2MIDI(nn.Module):
         self.hp, self.padding_idx = hp, padding_idx
         h = hp["hidden_size"]
         dtype = compute_dtype(hp)
+        drop = hp.get("dropout", 0.0)
         self.token_embed = Embedding(vocab_size, h, padding_idx)
+        self.embed_dropout = Dropout(drop)
         self.encoder = FFTBlocks(h, hp["enc_layers"], hp["enc_ffn_kernel_size"],
-                                 hp["num_heads"], use_pos_embed=False, dtype=dtype)
+                                 hp["num_heads"], use_pos_embed=False, dtype=dtype, dropout=drop)
         self.decoder = FFTBlocks(h, hp["dec_layers"], hp["dec_ffn_kernel_size"],
-                                 hp["num_heads"], use_pos_embed=True, dtype=dtype)
+                                 hp["num_heads"], use_pos_embed=True, dtype=dtype, dropout=drop)
         self.mel_out = nn.Linear(h, out_dims or hp["audio_num_mel_bins"])
         ph = hp["predictor_hidden"] if hp["predictor_hidden"] > 0 else h
         self.dur_predictor = DurationPredictor(h, hp["dur_predictor_layers"], ph,
-                                               hp["dur_predictor_kernel"], dtype)
+                                               hp["dur_predictor_kernel"], dtype,
+                                               hp.get("predictor_dropout", 0.0))
         if hp["use_spk_id"]:
             self.spk_embed_proj = Embedding(hp["num_spk"] + 1, h)
         self.use_lang = hp.get("use_lang_embed", True)
@@ -80,19 +90,22 @@ class FastSpeech2MIDI(nn.Module):
             x = x + self.esm(emb, self.lang_embed(lang))
         if hp["use_pos_embed"]:
             x = x + sinusoidal_positions((txt_tokens != self.padding_idx).long(), h)
-        return self.encoder(x, txt_tokens == self.padding_idx)
+        return self.encoder(self.embed_dropout(x), txt_tokens == self.padding_idx)
 
     def forward(self, txt_tokens, mel2ph=None, spk_id=None, pitch_midi=None, midi_dur=None,
-                is_slur=None, lang=None, speechsing=None, max_frames: Optional[int] = None):
+                is_slur=None, lang=None, speechsing=None, max_frames: Optional[int] = None,
+                ref_mels=None, skip_decoder: bool = False):
         ret = {}
         encoder_out = self.encode(txt_tokens, pitch_midi, midi_dur, is_slur, lang)
         src_padding = txt_tokens == self.padding_idx
         src_nonpadding = (txt_tokens > 0).to(encoder_out.dtype)[:, :, None]
         spk = self.spk_embed_proj(spk_id)[:, None, :] if self.hp["use_spk_id"] else 0.0
+        if mel2ph is None or ref_mels is not None:
+            dur_inp = grad_scale((encoder_out + spk) * src_nonpadding,
+                                 self.hp.get("predictor_grad", 1.0))
+            ret["dur"] = self.dur_predictor(dur_inp, src_padding)
         if mel2ph is None:
-            dur_inp = (encoder_out + spk) * src_nonpadding
-            ret["dur"] = dur_log = self.dur_predictor(dur_inp, src_padding)
-            dur = self.dur_predictor.out2dur(dur_log)
+            dur = self.dur_predictor.out2dur(ret["dur"])
             mel2ph = length_regulator(dur, src_padding,
                                       max_frames=max_frames or self.hp["max_frames"])
         ret["mel2ph"] = mel2ph
@@ -103,5 +116,7 @@ class FastSpeech2MIDI(nn.Module):
             style = self.style_embed(speechsing)[:, None, :]
         decoder_inp = (decoder_inp + spk + style) * tgt_nonpadding
         ret["decoder_inp"] = decoder_inp
+        if skip_decoder:
+            return ret
         ret["mel_out"] = self.mel_out(self.decoder(decoder_inp)) * tgt_nonpadding
         return ret

@@ -2,7 +2,11 @@
 
 Counterpart of `bisinger_tpu/models/predictors.py:20-115, 213-308`
 (ConvReluLN, DurationPredictor with the MSE head, PitchPredictor, Prenet,
-ConvStacks). Inference only: dropout is the identity and BatchNorm uses
+ConvStacks). The duration predictor's layers end in dropout
+(`predictor_dropout`), which runs only when a caller passes
+`deterministic=False`: FastSpeech2 calls its predictors without that
+argument (`bisinger_tpu/models/fs2.py:203,211`), so flax runs them
+deterministically in training too, and so does the port. BatchNorm uses
 its running statistics. The convs (and ConvStacks' input projection) run
 in `dtype`; the norms compute in fp32 and return fp32, and the output
 heads are fp32, as in the JAX package.
@@ -16,6 +20,7 @@ from torch import nn
 
 from bisinger_tpu_torch.models.common import (
     Conv,
+    Dropout,
     Linear,
     batch_norm,
     group_norm,
@@ -25,15 +30,19 @@ from bisinger_tpu_torch.models.common import (
 
 
 class ConvReluLN(nn.Module):
-    """SAME Conv -> ReLU -> LayerNorm(eps 1e-12) (`predictors.py:20-48`)."""
+    """SAME Conv -> ReLU -> LayerNorm(eps 1e-12) -> dropout
+    (`predictors.py:20-48`)."""
 
-    def __init__(self, cin: int, channels: int, kernel_size: int, dtype=torch.float32):
+    def __init__(self, cin: int, channels: int, kernel_size: int, dtype=torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.Conv_0 = Conv(cin, channels, kernel_size, dtype=dtype)
         self.LayerNorm_0 = nn.LayerNorm(channels, eps=1e-12)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x):
-        return layer_norm(self.LayerNorm_0, F.relu(self.Conv_0(x)))
+    def forward(self, x, deterministic: bool = True):
+        x = layer_norm(self.LayerNorm_0, F.relu(self.Conv_0(x)))
+        return x if deterministic else self.dropout(x)
 
 
 class DurationPredictor(nn.Module):
@@ -42,18 +51,18 @@ class DurationPredictor(nn.Module):
     offset = 1.0
 
     def __init__(self, cin: int, n_layers: int = 2, n_chans: int = 384, kernel_size: int = 3,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"conv_{i}", ConvReluLN(cin if i == 0 else n_chans, n_chans,
-                                                    kernel_size, dtype))
+                                                    kernel_size, dtype, dropout))
         self.linear = nn.Linear(n_chans, 1)
 
-    def forward(self, x, x_padding=None):
+    def forward(self, x, x_padding=None, deterministic: bool = True):
         keep = None if x_padding is None else (1.0 - x_padding.to(x.dtype))[:, :, None]
         for i in range(self.n_layers):
-            x = getattr(self, f"conv_{i}")(x)
+            x = getattr(self, f"conv_{i}")(x, deterministic)
             if keep is not None:
                 x = x * keep
         x = self.linear(x)

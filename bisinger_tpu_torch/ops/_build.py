@@ -31,6 +31,8 @@ import threading
 import time
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -118,6 +120,20 @@ def _build(names: Iterable[str], log=None) -> Dict[str, float]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernels
+    have no backward, and their output would silently cut the graph (on the
+    CPU their plain versions would differentiate, but round as the TPU
+    kernel does, not as a training step). Training runs the layers' plain
+    autograd path instead, as the JAX package trains through flax's
+    layers."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, and the kernel has no backward; "
+                           "call it under torch.no_grad() (training takes the layers' "
+                           "autograd path)")
 
 
 class LaunchCounter:

@@ -7,7 +7,8 @@ Two routes, chosen by the model's `compute_dtype`:
   cores), rounding where the TPU kernel rounds.
 Each runs its kernel (one cooperative launch for all layers) on CUDA
 tensors and its plain version (`residual_stack_plain`,
-`residual_stack_plain_bf16`) on CPU tensors. Inference only.
+`residual_stack_plain_bf16`) on CPU tensors. Inference only: on any device,
+both raise when grad mode is on and an input requires grad.
 """
 
 from __future__ import annotations
@@ -98,6 +99,7 @@ def residual_stack(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence
     """x0 [B,T,C] (after the input projection), cond_proj [L,B,T,2C],
     step_proj [L,B,C], wd [L,3,C,2C], bd [L,2C], wo [L,C,2C], bo [L,2C]
     -> skip sum [B,T,C] fp32 (the caller scales by 1/sqrt(L))."""
+    _build.refuse_autograd("residual_stack", x0, cond_proj, step_proj, wd, bd, wo, bo)
     if x0.device.type == "cpu":
         return residual_stack_plain(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations)
     if x0.device.type != "cuda":
@@ -133,6 +135,7 @@ def residual_stack_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Seq
     """x0 [B,T,C] bf16, cond_proj [L,B,T,2C] bf16, step_proj [L,B,C] bf16,
     wd [L,3,C,2C] bf16, bd [L,2C] fp32, wo [L,C,2C] bf16, bo [L,2C] fp32
     -> skip sum [B,T,C] fp32 (the caller scales by 1/sqrt(L))."""
+    _build.refuse_autograd("residual_stack_bf16", x0, cond_proj, step_proj, wd, bd, wo, bo)
     if x0.device.type == "cpu":
         return residual_stack_plain_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations)
     if x0.device.type != "cuda":

@@ -7,7 +7,8 @@ Two routes, chosen by the vocoder's `compute_dtype`:
   wgmma), rounding where the TPU kernel rounds with compute_dtype=bfloat16.
 Each runs its kernel (one launch per stage) on CUDA tensors and its plain
 version (`mrf_stage_plain`, `mrf_stage_plain_bf16`) on CPU tensors. All
-take the stage's weights packed by `pack_stage_weights`. Inference only;
+take the stage's weights packed by `pack_stage_weights`. Inference only (on
+any device both raise when grad mode is on and an input requires grad);
 the port never time-folds (the TPU kernel's `fold` is always 1).
 """
 
@@ -194,6 +195,7 @@ def _launch(fn, lib, x, w, b, kernel_sizes, dilations):
 def mrf_stage_bf16(x, w, b, kernel_sizes: Sequence[int], dilations: Sequence[Sequence[int]]):
     """x [B,U,F] fp32, w bf16 (packed), b fp32 -> mean over ResBlock1 blocks
     [B,U,F] fp32, computed in bf16 as `mrf_stage_plain_bf16`."""
+    _build.refuse_autograd("mrf_stage_bf16", x, w, b)
     if x.device.type == "cpu":
         return mrf_stage_plain_bf16(x, w, b, kernel_sizes, dilations)
     if x.device.type != "cuda":
@@ -207,6 +209,7 @@ def mrf_stage_bf16(x, w, b, kernel_sizes: Sequence[int], dilations: Sequence[Seq
 
 def mrf_stage(x, w, b, kernel_sizes: Sequence[int], dilations: Sequence[Sequence[int]]):
     """x [B,U,F] fp32 -> mean over ResBlock1 blocks [B,U,F] fp32."""
+    _build.refuse_autograd("mrf_stage", x, w, b)
     if x.device.type == "cpu":
         return mrf_stage_plain(x, w, b, kernel_sizes, dilations)
     if x.device.type != "cuda":

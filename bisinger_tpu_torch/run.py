@@ -1,47 +1,139 @@
-"""CLI entry point of the port (counterpart of the `--infer` branch of
-`bisinger_tpu/run.py`).
+"""CLI entry point of the port (counterpart of `bisinger_tpu/run.py`).
 
-    python -m bisinger_tpu_torch.run --infer --input scores.json --out out/ \
-        [--ckpt_dir artifacts/flagship] [--hparams "k=v,..."] [--device cpu]
+    # binarize the corpus the config names (raw_data_dir -> binary_data_dir)
+    python -m bisinger_tpu_torch.run --config exp.json --binarize
+    # train (the default action) into checkpoints/<exp_name>; a rerun with a
+    # larger --max_updates resumes from the latest checkpoint
+    python -m bisinger_tpu_torch.run --config exp.json --exp_name fs2 \\
+        --hparams "task_cls=usr.diffsinger_task.AuxDecoderMIDITask" --max_updates 100
+    # validate the latest checkpoint
+    python -m bisinger_tpu_torch.run --exp_name fs2 --validate
+    # scores -> wavs: the flagship's files, or a work dir's latest checkpoint
+    python -m bisinger_tpu_torch.run --infer --input scores.json --out out/ \\
+        [--ckpt_dir artifacts/flagship | --exp_name diff]
 
-writes one 24 kHz WAV per score of the JSON list, named by its
-`item_name`, and prints their paths. It runs on the card unless
-`--device cpu` asks for the CPU. Binarizing and training are not ported
-yet and raise.
+`--config` is JSON: a config of its own, a JAX work dir's `config.json` or
+a trained run's dump (`artifacts/flagship/hparams_{fs2,diff}.json`).
+Precedence: defaults < --config < the work dir's saved config.json (unless
+--reset) < --hparams. The task is `task_cls` (the reference's names or the
+JAX package's are accepted), the diffusion stage by default. Every action
+runs on the card unless `--device cpu` asks for the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
+# one BLAS/OpenMP thread per process before numpy loads: the binarizer's
+# worker processes would otherwise oversubscribe the host
+os.environ.setdefault("OMP_NUM_THREADS", "1")
 
-def main(argv=None) -> int:
-    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
+TASKS = ("AuxDecoderMIDITask", "DiffSingerMIDITask")
 
+
+def task_class(name: str):
+    """`task_cls` (a dotted path of the reference or of the JAX package, or
+    empty for the diffusion stage) -> the port's task class."""
+    from bisinger_tpu_torch.training import tasks
+
+    short = (name or "DiffSingerMIDITask").rsplit(".", 1)[-1]
+    if short not in TASKS:
+        raise NotImplementedError(f"task_cls={name!r} is not ported (the port trains "
+                                  f"{', '.join(TASKS)})")
+    return getattr(tasks, short)
+
+
+def load_config(args, work_dir: str):
+    from bisinger_tpu_torch.config import apply_overrides, load_hparams_json, make_hparams
+
+    hp = load_hparams_json(args.config) if args.config else make_hparams()
+    saved = os.path.join(work_dir, "config.json")
+    if not args.reset and os.path.exists(saved):
+        hp = load_hparams_json(saved)  # the run's own dump, its provenance included
+    hp = apply_overrides(hp, args.hparams)
+    hp.update(exp_name=args.exp_name, work_dir=work_dir, infer=args.infer)
+    return hp
+
+
+def parse_args(argv=None):
     parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, default="", help="a JSON config")
+    parser.add_argument("--exp_name", type=str, default="",
+                        help="work dir checkpoints/<exp_name>")
+    parser.add_argument("--hparams", type=str, default="", help="overrides, 'k=v,k2=[1,2]'")
     parser.add_argument("--binarize", action="store_true")
+    parser.add_argument("--validate", action="store_true",
+                        help="validate the latest checkpoint and exit")
+    parser.add_argument("--max_updates", type=int, default=0)
+    parser.add_argument("--reset", action="store_true",
+                        help="ignore the config saved in the work dir")
     parser.add_argument("--infer", action="store_true")
     parser.add_argument("--input", type=str, default="", help="score json for --infer")
     parser.add_argument("--out", type=str, default="infer_out")
-    parser.add_argument("--ckpt_dir", type=str, default=FLAGSHIP_DIR,
-                        help="hparams_diff.json, phone_set.json, spk_map.json and the weights")
-    parser.add_argument("--hparams", type=str, default="", help="overrides, 'k=v,k2=[1,2]'")
+    parser.add_argument("--ckpt_dir", type=str, default="",
+                        help="--infer: hparams_diff.json, phone_set.json, spk_map.json and the "
+                             "weights (default artifacts/flagship); with --exp_name, the PE "
+                             "and vocoder come from here")
     parser.add_argument("--device", type=str, default=None,
                         help="default: the card; 'cpu' to ask for it")
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def work_dir_of(args) -> str:
+    return os.path.join("checkpoints", args.exp_name or "default")
+
+
+def trainer_from_args(args):
+    """The task of `task_cls` and its Trainer in the work dir, as the train
+    and --validate actions build them."""
+    from bisinger_tpu_torch.training.trainer import Trainer
+    from bisinger_tpu_torch.utils.text_encoder import build_phone_encoder
+
+    hp = load_config(args, work_dir_of(args))
+    if not hp["binary_data_dir"]:
+        raise ValueError("binary_data_dir is not set: name a config (--config) or set it "
+                         "(--hparams binary_data_dir=...)")
+    encoder = build_phone_encoder(hp["binary_data_dir"])
+    task = task_class(hp.get("task_cls", ""))(hp, encoder.vocab_size, device=args.device)
+    return Trainer(task, hp, work_dir_of(args))
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    work_dir = work_dir_of(args)
+    if args.infer:
+        from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
+
+        if not args.input:
+            print("--infer requires --input scores.json", file=sys.stderr)
+            return 2
+        assets = args.ckpt_dir or FLAGSHIP_DIR
+        if args.exp_name:
+            infer = SVSInferTorch.from_work_dir(work_dir, assets, device=args.device,
+                                                hp_overrides=args.hparams or None)
+        else:
+            infer = SVSInferTorch.from_checkpoint(assets, device=args.device,
+                                                  hp_overrides=args.hparams or None)
+        for p in infer.infer_from_json(args.input, args.out):
+            print(p)
+        return 0
 
     if args.binarize:
-        raise NotImplementedError("binarizing is not ported yet (ROADMAP Queue 1, item 6)")
-    if not args.infer:
-        raise NotImplementedError("training is not ported yet (ROADMAP Queue 1, item 7)")
-    if not args.input:
-        print("--infer requires --input scores.json", file=sys.stderr)
-        return 2
-    infer = SVSInferTorch.from_checkpoint(args.ckpt_dir, device=args.device,
-                                          hp_overrides=args.hparams or None)
-    for p in infer.infer_from_json(args.input, args.out):
-        print(p)
+        from bisinger_tpu_torch.data.binarizer import M4SingerBinarizer
+
+        hp = load_config(args, work_dir)
+        cls = (hp.get("binarizer_cls") or "M4SingerBinarizer").rsplit(".", 1)[-1]
+        if cls not in ("M4SingerBinarizer", "SingingBinarizer"):
+            raise NotImplementedError(f"binarizer_cls={hp['binarizer_cls']!r} is not ported")
+        M4SingerBinarizer(hp).process()
+        return 0
+    trainer = trainer_from_args(args)
+    if args.validate:
+        print(f"| validate: total_loss={trainer.validate():.4f}")
+        return 0
+    trainer.fit(max_updates=args.max_updates or None)
     return 0
 
 

@@ -1,0 +1,148 @@
+"""Training losses of the two acoustic stages (counterpart of
+`bisinger_tpu/training/losses.py:26-215`): the mel l1 and SSIM losses and
+the MIDI tasks' phone, word and sentence duration losses. Every reduction
+is masked over static shapes; the word-duration loss sums into a fixed
+`max_words` segments. The pitch and energy losses wait with the pitch and
+energy embeddings, which the port does not build.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def weights_nonzero_speech(target):
+    """1.0 for frames with any energy, broadcast over the mel bins."""
+    mask = (target.abs().sum(-1, keepdim=True) != 0).to(target.dtype)
+    return mask.expand_as(target)
+
+
+def mel_l1_loss(mel_out, target):
+    w = weights_nonzero_speech(target)
+    return ((mel_out - target).abs() * w).sum() / torch.clamp_min(w.sum(), 1.0)
+
+
+def _gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
+    g = np.exp(-((np.arange(window_size) - window_size // 2) ** 2) / (2 * sigma ** 2))
+    g = g / g.sum()
+    return np.outer(g, g).astype(np.float32)
+
+
+def ssim(img1, img2, window_size: int = 11):
+    """Per-pixel SSIM map of [B, T, M] 'images' (reference `ssim.py:330-351`,
+    one channel): one 2D convolution with a Gaussian window."""
+    win = torch.from_numpy(_gaussian_window(window_size)).to(img1.device)[None, None]
+    pad = window_size // 2
+
+    def filt(x):
+        return F.conv2d(x[:, None], win, padding=pad)[:, 0]
+
+    mu1, mu2 = filt(img1), filt(img2)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 ** 2, mu2 ** 2, mu1 * mu2
+    sigma1_sq = filt(img1 * img1) - mu1_sq
+    sigma2_sq = filt(img2 * img2) - mu2_sq
+    sigma12 = filt(img1 * img2) - mu1_mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    return ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+
+
+def mel_ssim_loss(mel_out, target, bias: float = 6.0):
+    w = weights_nonzero_speech(target)
+    loss = (1.0 - ssim(mel_out + bias, target + bias)) * w
+    return loss.sum() / torch.clamp_min(w.sum(), 1.0)
+
+
+def parse_mel_loss_spec(spec: str) -> Dict[str, float]:
+    """'l1:0.5|ssim:0.5' -> {'l1': 0.5, 'ssim': 0.5}."""
+    out = {}
+    for part in spec.split("|"):
+        if ":" in part:
+            name, lbd = part.split(":")
+            out[name] = float(lbd)
+        else:
+            out[part] = 1.0
+    return out
+
+
+def add_mel_loss(mel_out, target, losses: Dict, hp, postfix: str = ""):
+    for name, lbd in parse_mel_loss_spec(hp["mel_loss"]).items():
+        if name == "l1":
+            loss = mel_l1_loss(mel_out, target)
+        elif name == "ssim":
+            loss = mel_ssim_loss(mel_out, target)
+        else:
+            raise NotImplementedError(name)
+        losses[f"{name}{postfix}"] = loss * lbd
+
+
+def mel2ph_to_dur(mel2ph, t_txt: int):
+    """mel2ph [B, T_mel] -> frames per phone [B, t_txt] (fp32); frame
+    indices past t_txt count nowhere."""
+    b = mel2ph.shape[0]
+    out = torch.zeros((b, t_txt + 2), dtype=torch.float32, device=mel2ph.device)
+    idx = mel2ph.long().clamp(max=t_txt + 1)
+    out.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
+    return out[:, 1:t_txt + 1]
+
+
+def segment_sum(values, segment_ids, num_segments: int):
+    """values [B, T] summed into [B, num_segments] by segment_ids [B, T];
+    ids >= num_segments are dropped."""
+    ids = segment_ids.long().clamp(max=num_segments)
+    out = torch.zeros((values.shape[0], num_segments + 1), dtype=values.dtype,
+                      device=values.device)
+    return out.scatter_add(1, ids, values)[:, :num_segments]
+
+
+def _masked_mean(x, mask):
+    return (x * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def add_dur_loss_midi(dur_pred_log, mel2ph, txt_tokens, word_boundary, losses: Dict, hp):
+    """Phone (log-MSE), word (summed between word boundaries) and sentence
+    duration losses (reference `usr/diffsinger_task.py:518-564`)."""
+    if hp.get("dur_loss", "mse") not in ("mse", "huber"):
+        raise NotImplementedError(f"dur_loss={hp['dur_loss']} is not ported")
+    nonpadding = (txt_tokens != 0).float()
+    dur_gt = mel2ph_to_dur(mel2ph, txt_tokens.shape[1]) * nonpadding
+    pdur = (dur_pred_log - torch.log(dur_gt + 1.0)) ** 2
+    losses["pdur"] = _masked_mean(pdur, nonpadding) * hp["lambda_ph_dur"]
+    dur_pred = torch.clamp_min(torch.exp(dur_pred_log) - 1.0, 0.0)
+    if hp["lambda_word_dur"] > 0 and word_boundary is not None:
+        idx = F.pad(torch.cumsum(word_boundary.long(), dim=1), (1, 0))[:, :-1]
+        n_words = hp.get("max_words", 128)
+        word_dur_p = segment_sum(dur_pred * nonpadding, idx, n_words)
+        word_dur_g = segment_sum(dur_gt * nonpadding, idx, n_words)
+        wdur = (torch.log(word_dur_p + 1.0) - torch.log(word_dur_g + 1.0)) ** 2
+        losses["wdur"] = _masked_mean(wdur, (word_dur_g > 0).float()) * hp["lambda_word_dur"]
+    if hp["lambda_sent_dur"] > 0:
+        sent_p = (dur_pred * nonpadding).sum(-1)
+        sent_g = dur_gt.sum(-1)
+        sdur = ((torch.log(sent_p + 1.0) - torch.log(sent_g + 1.0)) ** 2).mean()
+        losses["sdur"] = sdur * hp["lambda_sent_dur"]
+
+
+def add_dur_loss_sil(dur_pred_log, mel2ph, txt_tokens, is_sil, losses: Dict, hp):
+    """The speech variant: words delimited by silence phones
+    (`tasks/tts/fs2.py:213-259`); `is_sil` [B, T_txt] float."""
+    nonpadding = (txt_tokens != 0).float()
+    dur_gt = mel2ph_to_dur(mel2ph, txt_tokens.shape[1]) * nonpadding
+    pdur = (dur_pred_log - torch.log(dur_gt + 1.0)) ** 2
+    losses["pdur"] = _masked_mean(pdur, nonpadding) * hp["lambda_ph_dur"]
+    dur_pred = torch.clamp_min(torch.exp(dur_pred_log) - 1.0, 0.0)
+    if hp["lambda_word_dur"] > 0:
+        word_id = (torch.cumsum(is_sil, dim=-1) * (1 - is_sil)).long()
+        n_words = hp.get("max_words", 128)
+        # bucket 0 collects the silences and is dropped
+        word_dur_p = segment_sum(dur_pred, word_id, n_words)[:, 1:]
+        word_dur_g = segment_sum(dur_gt, word_id, n_words)[:, 1:]
+        wdur = (torch.log(word_dur_p + 1.0) - torch.log(word_dur_g + 1.0)) ** 2
+        losses["wdur"] = _masked_mean(wdur, (word_dur_g > 0).float()) * hp["lambda_word_dur"]
+    if hp["lambda_sent_dur"] > 0:
+        sdur = ((torch.log(dur_pred.sum(-1) + 1.0) - torch.log(dur_gt.sum(-1) + 1.0)) ** 2).mean()
+        losses["sdur"] = sdur * hp["lambda_sent_dur"]

@@ -1,0 +1,219 @@
+"""The two acoustic training tasks (counterpart of
+`bisinger_tpu/training/tasks.py:42-306`):
+
+  - `AuxDecoderMIDITask`: the FFT-Singer stage, FastSpeech2MIDI alone;
+    losses mel (l1 + SSIM) and phone/word/sentence duration; rsqrt
+    schedule.
+  - `DiffSingerMIDITask`: the shallow-diffusion stage over the MIDI fs2
+    conditioner; losses the diffusion loss (`mel`) and the durations; step
+    decay schedule; `warm_start_fs2` loads the FFT-Singer stage's
+    parameters; `step_flags` is the `switch_midi2f0_step` curriculum.
+
+A task owns the model (on its device, initialised as flax initialises it),
+the optimizer (`training/optim.AdamW`) and the losses. `train_step` runs
+the model in train mode under autograd: dropout from the generator it is
+handed, the diffusion stage's t and noise from it too, or pinned by the
+caller. No step reaches K1 or K2, as no step in the JAX package reaches a
+Pallas kernel. The pitch and energy losses, `PitchExtractionTask`,
+`DiffSpeechTask` and the offline task are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Mapping
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from bisinger_tpu_torch import resolve_device
+from bisinger_tpu_torch.models.common import Embedding, set_dropout_generator
+from bisinger_tpu_torch.models.diffnet import DiffNet
+from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+from bisinger_tpu_torch.models.fs2 import FastSpeech2MIDI
+from bisinger_tpu_torch.training import losses as L
+from bisinger_tpu_torch.training.checkpoints import load_params_into
+from bisinger_tpu_torch.training.optim import AdamW
+from bisinger_tpu_torch.weights import export_flax_params, load_flax_params
+
+
+def model_kwargs(batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    return dict(txt_tokens=batch["txt_tokens"], mel2ph=batch["mel2ph"],
+                spk_id=batch["spk_ids"], pitch_midi=batch.get("pitch_midi"),
+                midi_dur=batch.get("midi_dur"), is_slur=batch.get("is_slur"),
+                lang=batch.get("lang"), speechsing=batch.get("speechsing"))
+
+
+def _lecun_normal_(w, gen):
+    """flax's default kernel init: a normal truncated at 2 std, scaled to
+    variance 1/fan_in."""
+    std = math.sqrt(1.0 / (w[0].numel())) / 0.87962566103423978
+    with torch.no_grad():
+        w.copy_(torch.nn.init.trunc_normal_(torch.empty(w.shape), std=std, a=-2 * std,
+                                            b=2 * std, generator=gen))
+
+
+def flax_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Initialise `model` as its flax counterpart initialises its
+    parameters: Dense and Conv kernels lecun-normal; the attention and
+    FFN projections xavier-uniform; the DiffNet's convs He-normal and its
+    output projection zero; embeddings normal(dim^-0.5); biases zero,
+    norms one."""
+    gen = torch.Generator().manual_seed(int(seed))
+    xavier = ("q_proj", "k_proj", "v_proj", "out_proj", "Dense_0", "ffn1", "ffn2")
+    he = ("input_projection", "skip_projection", "dilated_conv", "conditioner_projection",
+          "output_projection")
+    diffnets = [m for m in model.modules() if isinstance(m, DiffNet)]
+    in_diffnets = {id(sub) for d in diffnets for sub in d.modules()}
+    zero = {id(d.output_projection) for d in diffnets}
+    for name, m in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        in_diffnet = id(m) in in_diffnets
+        if isinstance(m, Embedding):
+            with torch.no_grad():
+                m.embed.weight.copy_(torch.randn(m.embed.weight.shape, generator=gen)
+                                     * m.embed.weight.shape[1] ** -0.5)
+        elif isinstance(m, (nn.Linear, nn.Conv1d)):
+            w = m.weight
+            if id(m) in zero:
+                nn.init.zeros_(w)
+            elif in_diffnet and leaf in he:
+                with torch.no_grad():
+                    w.copy_(torch.randn(w.shape, generator=gen)
+                            * math.sqrt(2.0 / w[0].numel()))
+            elif leaf in xavier and not in_diffnet:
+                fan_in, fan_out = w[0].numel(), w.shape[0] * (w[0].numel() // w.shape[1])
+                bound = math.sqrt(6.0 / (fan_in + fan_out))
+                with torch.no_grad():
+                    w.copy_(torch.rand(w.shape, generator=gen) * 2 * bound - bound)
+            else:
+                _lecun_normal_(w, gen)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+    return model
+
+
+class AuxDecoderMIDITask:
+    """The FFT-Singer stage: FastSpeech2MIDI alone."""
+
+    schedule = "rsqrt"
+
+    def __init__(self, hp, vocab_size: int, device=None):
+        if hp.get("dur_loss", "mse") not in ("mse", "huber"):
+            raise NotImplementedError(f"dur_loss={hp['dur_loss']} is not ported")
+        self.hp = hp
+        self.vocab_size = vocab_size
+        self.device = resolve_device(device)
+        self.model = flax_init_(self.build_model(), hp.get("seed", 1234)).to(self.device)
+        self.opt = self.build_optimizer()
+
+    def build_model(self) -> nn.Module:
+        return FastSpeech2MIDI(self.hp, self.vocab_size)
+
+    def build_optimizer(self, steps_per_epoch: Optional[int] = None) -> AdamW:
+        return AdamW(dict(self.model.named_parameters()), self.hp, self.schedule,
+                     steps_per_epoch)
+
+    def configure_accumulation(self, steps_per_epoch: int):
+        """The per-epoch (dict) accumulation needs batches per epoch: rebuild
+        the optimizer once the trainer knows them."""
+        if isinstance(self.hp.get("accumulate_grad_batches", 1), Mapping):
+            self.opt = self.build_optimizer(steps_per_epoch)
+
+    # ---- state -----------------------------------------------------------
+    def state(self) -> Dict[str, Any]:
+        return {"params": export_flax_params(self.model), "opt_state": self.opt.state_dict()}
+
+    def load_state(self, params: Dict[str, np.ndarray], opt_state: Optional[Dict] = None):
+        load_flax_params(self.model, params)
+        if opt_state is not None:
+            self.opt.load_state_dict(opt_state)
+
+    # ---- forward and losses ----------------------------------------------
+    def forward(self, batch, generator=None, drop_f0: bool = False, t=None, noise=None):
+        # f0/uv feed only the pitch embedding, which the port does not
+        # build: drop_f0 changes nothing here
+        return self.model(**model_kwargs(batch), ref_mels=batch["mels"])
+
+    def _dur_losses(self, ret, batch, losses):
+        wdb = batch.get("word_boundary")
+        if wdb is None and "ph_is_sil" in batch:
+            L.add_dur_loss_sil(ret["dur"], batch["mel2ph"], batch["txt_tokens"],
+                               batch["ph_is_sil"].float(), losses, self.hp)
+        else:
+            L.add_dur_loss_midi(ret["dur"], batch["mel2ph"], batch["txt_tokens"], wdb, losses,
+                                self.hp)
+
+    def compute_losses(self, ret, batch) -> Dict[str, torch.Tensor]:
+        losses: Dict[str, torch.Tensor] = {}
+        L.add_mel_loss(ret["mel_out"], batch["mels"], losses, self.hp)
+        self._dur_losses(ret, batch, losses)
+        return losses
+
+    # ---- steps -----------------------------------------------------------
+    def train_step(self, batch, generator=None, drop_f0: bool = False, t=None, noise=None
+                   ) -> Dict[str, torch.Tensor]:
+        """One update (or accumulation mini-step) on `batch`; returns the
+        detached losses, their total and the gradients' global norm."""
+        self.model.train()
+        set_dropout_generator(self.model, generator)
+        ret = self.forward(batch, generator, drop_f0, t, noise)
+        losses = self.compute_losses(ret, batch)
+        total = sum(losses.values())
+        self.opt.zero_grad()
+        total.backward()
+        grad_norm = AdamW.global_norm(self.opt.grads())
+        self.opt.step()
+        out = {k: v.detach() for k, v in losses.items()}
+        out["total_loss"] = total.detach()
+        out["grad_norm"] = grad_norm
+        return out
+
+    @torch.no_grad()
+    def val_step(self, batch, generator=None, drop_f0: bool = False, t=None, noise=None
+                 ) -> Dict[str, torch.Tensor]:
+        self.model.eval()
+        losses = self.compute_losses(self.forward(batch, generator, drop_f0, t, noise), batch)
+        losses["total_loss"] = sum(losses.values())
+        return losses
+
+
+class DiffSingerMIDITask(AuxDecoderMIDITask):
+    """The shallow-diffusion stage over the MIDI fs2 conditioner."""
+
+    schedule = "step"
+
+    def build_model(self) -> nn.Module:
+        return GaussianDiffusion(self.hp, self.vocab_size, self.hp["audio_num_mel_bins"])
+
+    def step_flags(self, step: Optional[int]) -> Dict[str, Any]:
+        """switch_midi2f0_step: past N updates the model is fed no
+        ground-truth f0/uv (`usr/diffsinger_task.py:391-399`)."""
+        sw = self.hp.get("switch_midi2f0_step")
+        return {"drop_f0": bool(sw is not None and step is not None and step > sw)}
+
+    def forward(self, batch, generator=None, drop_f0: bool = False, t=None, noise=None):
+        return self.model.train_forward(**model_kwargs(batch), ref_mels=batch["mels"], t=t,
+                                        noise=noise, generator=generator)
+
+    def compute_losses(self, ret, batch) -> Dict[str, torch.Tensor]:
+        losses = {"mel": ret["diff_loss"]}
+        self._dur_losses(ret, batch, losses)
+        return losses
+
+    def warm_start_fs2(self, fs2_params: Dict[str, np.ndarray], subtree: str = ""):
+        """Load the FFT-Singer stage's parameters (flat flax keys; under
+        `subtree` of `fs2_params` if given) into the conditioner, where the
+        names and shapes agree (reference `usr/diffsinger_task.py:64-65`);
+        raises when none does."""
+        own = export_flax_params(self.model.fs2)
+        merged = load_params_into(own, fs2_params, subtree)
+        if all(merged[k] is own[k] for k in own):
+            raise ValueError("warm start: no parameter of the source matches the conditioner's "
+                             "names and shapes")
+        load_flax_params(self.model.fs2, merged)

@@ -19,6 +19,8 @@ entry by path: "fs2/encoder/layer_0/ffn/Conv_0/kernel" is
 
 Loading fails on a key that maps onto nothing, on a shape mismatch, and on
 any parameter or buffer of the module that no key filled.
+`export_flax_params` is the inverse: a module's parameters and buffers as
+that flat dict (a port `Linear` marked `conv1x1` gives a 1x1 Conv kernel).
 """
 
 from __future__ import annotations
@@ -89,3 +91,43 @@ def load_flax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> None:
 def unfilled(state_keys: Iterable[str], filled: Iterable[str]) -> list:
     filled = set(filled)
     return [k for k in state_keys if k not in filled and not k.endswith("num_batches_tracked")]
+
+
+_FLAX_WEIGHT = ((nn.Embedding, "embedding"),
+                ((nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d), "scale"),
+                ((nn.Linear, nn.Conv1d, nn.ConvTranspose1d), "kernel"))
+_FLAX_LEAF = {"bias": "bias", "running_mean": "mean", "running_var": "var"}
+
+
+def from_torch_layout(module: nn.Module, arr: np.ndarray) -> np.ndarray:
+    """The inverse of `to_torch_layout` for a weight."""
+    if isinstance(module, nn.ConvTranspose1d):
+        return arr.transpose(2, 0, 1)[::-1]
+    if isinstance(module, nn.Conv1d):
+        return arr.transpose(2, 1, 0)
+    if isinstance(module, nn.Linear):
+        return arr.T[None] if getattr(module, "conv1x1", False) else arr.T
+    return arr
+
+
+def export_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+    """Every parameter and buffer of `model` (but BatchNorm's step count and
+    non-persistent buffers) under its flat flax key, in flax's layout, as
+    fp32 numpy arrays: `load_flax_params(model, export_flax_params(model))`
+    changes nothing."""
+    modules = dict(model.named_modules())
+    out: Dict[str, np.ndarray] = {}
+    for tkey, value in model.state_dict().items():
+        if tkey.endswith("num_batches_tracked"):
+            continue
+        mpath, _, name = tkey.rpartition(".")
+        module = modules[mpath]
+        arr = value.detach().float().cpu().numpy()
+        if name == "weight":
+            leaf = next(flax for kinds, flax in _FLAX_WEIGHT if isinstance(module, kinds))
+            if leaf == "kernel":
+                arr = from_torch_layout(module, arr)
+        else:
+            leaf = _FLAX_LEAF.get(name, name)
+        out["/".join([*mpath.split("."), leaf]) if mpath else leaf] = np.ascontiguousarray(arr)
+    return out

@@ -37,10 +37,23 @@ seconds (a failed phase exits non-zero):
      and PLMS from the shallow start on one short request; each part's
      launch counts, and the two deterministic samplers in fp32 on the card
      against the CPU on a 32-frame input;
+  10. (run before 9) the acoustic training path in bf16 at the flagship's
+     widths and batch shape (B=48, 16 tokens, 512 frames): the synthetic
+     corpus (64 items) binarized by `run --binarize`; the FFT-Singer and
+     diffusion stages, 20 steps each, through run's trainer on the
+     device-resident corpus, the diffusion stage's fs2 warm-started from
+     diff_params.npz; `--validate` and a resume to step 22. Gates: finite
+     losses and gradients, non-zero encoder and DiffNet gradients, no K1
+     or K2 launch in any train step, a 0-step export equal to
+     diff_params.npz, one fp32 step of each task on the card against the
+     CPU; the trained weights served at B=4, T=512 through K1-bf16 and
+     K2-bf16 (`launches_by_path["trained"]`). Steps/s (the first step
+     apart), peak memory and the losses at steps 1 and 20 are reported;
+     the trainer's log goes to checkpoints/chip_smoke/training.log;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
-     buckets of phases 5 and 8.
+     buckets of phases 5, 8 and 10.
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
@@ -349,6 +362,260 @@ def score_entry_points(svs32, counters, by_path, n_calls, dev) -> bool:
             httpd.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
     return ok
+
+
+TRAIN_ITEMS = 64  # the train split (53 items) fills one batch of the flagship's 48
+TRAIN_STEPS = 20
+
+
+def _flax_grads(model):
+    """The parameters' .grad (zero where there is none) under their flax keys."""
+    from bisinger_tpu_torch.weights import export_flax_params
+
+    g = copy.deepcopy(model)
+    for p, q in zip(model.parameters(), g.parameters()):
+        q.data = torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+    return export_flax_params(g)
+
+
+def _grad_checks(model):
+    """(every gradient finite, the encoder's and the DiffNet's each non-zero)."""
+    finite, nonzero = True, True
+    for name, p in model.named_parameters():
+        g = p.grad
+        if g is not None and not bool(torch.isfinite(g).all()):
+            finite = False
+        if ".encoder." in f".{name}" or name.startswith("denoise_fn."):
+            nonzero &= g is not None and bool((g != 0).any())
+    return finite, nonzero
+
+
+def _step_parity(task_cls, hp, vocab, params, batch, pins, dev):
+    """One fp32 train step of `task_cls` on the card and on the CPU from the
+    same parameters and batch, with the CPU tests' bounds
+    (tests/test_torch_training.py): loss 1e-5 relative, every gradient within
+    1e-4 of the largest |gradient|, and every parameter after the update
+    within 1e-6 of the CPU's beyond what the two gradients' difference moves
+    through Adam's first step. Returns (ok, text)."""
+    import numpy as np
+
+    from bisinger_tpu_torch.data.dataset import batch_to_device
+    from bisinger_tpu_torch.weights import export_flax_params
+
+    res = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        task = task_cls(hp, vocab, device=device)
+        task.load_state(params)
+        out = task.train_step(batch_to_device(batch, device),
+                              **{k: v.to(device) for k, v in pins.items()})
+        res[where] = (float(out["total_loss"]), _flax_grads(task.model),
+                      export_flax_params(task.model), task.opt)
+    (lc, gc, pc, opt), (lp, gp, pp, _) = res["card"], res["cpu"]
+    loss_rel = abs(lc - lp) / abs(lp)
+    gmax = max(float(np.abs(v).max()) for v in gp.values())
+    grad_rel = max(float(np.abs(gc[k].astype(np.float64) - gp[k]).max()) for k in gp) / gmax
+
+    def clip(grads):
+        norm = np.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in grads.values()))
+        return min(1.0, opt.max_norm / norm)
+
+    lr, cc, cp = opt.lr_fn(0), clip(gc), clip(gp)
+    u = lambda x: x / (np.abs(x) + 1e-8)  # noqa: E731
+    param_excess = max(float((np.abs(pc[k].astype(np.float64) - pp[k])
+                              - lr * np.abs(u(cc * gc[k].astype(np.float64))
+                                            - u(cp * gp[k].astype(np.float64)))).max())
+                       for k in pp)
+    ok = loss_rel <= 1e-5 and grad_rel <= 1e-4 and param_excess <= 1e-6
+    return ok, (f"loss {lc:.6f} vs CPU {lp:.6f} (relative {loss_rel:.2e}, tol 1e-5), worst "
+                f"grad {grad_rel:.2e} of the largest (tol 1e-4), params {param_excess:.2e} "
+                "beyond Adam's carry (tol 1e-6)")
+
+
+def training_phase(svs, counters, by_path, dev):
+    """Phase 10: the acoustic training path on the card at the flagship's
+    widths in bf16 (20 x 256 DiffNet, hidden 256) and its batch shape
+    (16 tokens, 512 frames, 48 sentences): the port's synthetic corpus (64
+    items, seed 0) binarized by `run --binarize`; the FFT-Singer stage
+    (hparams_fs2.json) and the diffusion stage (hparams_diff.json, fs2
+    warm-started from diff_params.npz) for 20 steps each through run's
+    trainer on the device-resident corpus; `--validate` and a resume to step
+    22; the gates; the trained weights served through K1 and K2. Each part's
+    launch counts go into `by_path`. Returns (ok, lines)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from bisinger_tpu_torch import run
+    from bisinger_tpu_torch.config import load_hparams_json, make_hparams
+    from bisinger_tpu_torch.data.synthetic import make_synthetic_corpus
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
+    from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+    from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+    from bisinger_tpu_torch.training.tasks import AuxDecoderMIDITask, DiffSingerMIDITask
+    from bisinger_tpu_torch.weights import export_flax_params, load_flax_params, load_npz
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(repo, "checkpoints", "chip_smoke")  # gitignored
+    os.makedirs(out_dir, exist_ok=True)
+    log_fn = os.path.join(out_dir, "training.log")
+    lines, checks = [], {}
+
+    def reset():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+
+    def read(part):
+        torch.cuda.synchronize()
+        by_path[part] = {k: c.launches for k, c in counters.items()}
+        return by_path[part]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        # ---- 1. corpus, binarized by the CLI in a process of its own ----
+        make_synthetic_corpus(os.path.join(tmp, "raw"), n_items=TRAIN_ITEMS, seed=0)
+        data = dict(raw_data_dir=os.path.join(tmp, "raw"),
+                    binary_data_dir=os.path.join(tmp, "binary"), max_updates=TRAIN_STEPS,
+                    val_check_interval=1000, log_interval=1, num_ckpt_keep=2)
+        for stage, over in (("fs2", {}), ("diff", dict(
+                fs2_ckpt=os.path.join(FLAGSHIP_DIR, "diff_params.npz")))):
+            hp = load_hparams_json(os.path.join(FLAGSHIP_DIR, f"hparams_{stage}.json"),
+                                   dict(data, **over))
+            with open(os.path.join(tmp, f"{stage}.json"), "w") as f:
+                json.dump(hp, f)
+        env = dict(os.environ, N_PROC="8",
+                   PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "bisinger_tpu_torch.run", "--config",
+                               "fs2.json", "--binarize"], env=env, capture_output=True,
+                              text=True, timeout=300)
+        binarize_s = time.perf_counter() - t0
+        with open(log_fn, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        checks["binarize rc 0"] = proc.returncode == 0
+        if proc.returncode != 0:
+            return False, [f"binarize failed: {proc.stderr[-2000:]}"]
+        counts_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("| binarized")]
+        lines.append(f"binarize: {binarize_s:.1f} s with 8 processes ({'; '.join(counts_line)}"
+                     f"{'; Praat-AC fallback warned' if 'parselmouth not installed' in proc.stdout else ''})")
+
+        stats = {}
+        with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
+            for stage, label in (("fs2", "FFT-Singer"), ("diff", "diffusion")):
+                tr = run.trainer_from_args(run.parse_args(
+                    ["--config", f"{stage}.json", "--exp_name", stage]))
+                grads = {}
+
+                def on_step(step, metrics, tr=tr, grads=grads):
+                    if step <= 2:  # the DiffNet's zero-initialised output projection
+                        # (flax's init) passes no gradient into it at step 1
+                        grads[step] = _grad_checks(tr.task.model)
+
+                torch.cuda.reset_peak_memory_stats()
+                reset()
+                tr.fit(on_step=on_step)
+                counts = read(f"10 train {stage}")
+                mem = torch.cuda.max_memory_allocated() / 2 ** 30
+                log = tr.train_log
+                t1, tn = log[0][1], log[-1][1]
+                first_s = t1 - tr.loop_started
+                steady = (len(log) - 1) / (tn - t1)
+                losses = [m["total_loss"] for _, _, m in log]
+                stats[stage] = dict(first_s=first_s, steps_per_s=steady, mem=mem,
+                                    loss1=losses[0], loss20=losses[-1])
+                checks[f"{stage} losses finite"] = all(np.isfinite(x) for x in losses)
+                checks[f"{stage} grads finite"] = all(g[0] for g in grads.values())
+                checks[f"{stage} encoder/DiffNet grads non-zero"] = grads[2][1]
+                checks[f"{stage} no kernel launched in training"] = not any(counts.values())
+                checks[f"{stage} {TRAIN_STEPS} steps"] = tr.global_step == TRAIN_STEPS
+                batch_rows = tr.task.hp["max_sentences"]
+                lines.append(
+                    f"{label} stage (B={batch_rows}, 16 tokens, 512 frames, bf16): corpus "
+                    f"{tr.corpus_bytes / 1e6:.1f} MB on the card; first step {first_s:.2f} s, "
+                    f"then {steady:.2f} steps/s; peak memory {mem:.2f} GiB; loss step 1 "
+                    f"{losses[0]:.4f}, step {TRAIN_STEPS} {losses[-1]:.4f}; launches {counts}")
+            reset()
+            rc_val = run.main(["--config", "diff.json", "--exp_name", "diff", "--validate"])
+            rc_res = run.main(["--config", "diff.json", "--exp_name", "diff", "--max_updates",
+                               str(TRAIN_STEPS + 2)])
+            counts = read("10 validate and resume diff")
+        with open(log_fn) as f:
+            text = f.read()
+        val = [ln for ln in text.splitlines() if ln.startswith("| validate: total_loss=")]
+        ckpt = CheckpointManager(os.path.join(tmp, "checkpoints", "diff", "ckpt"))
+        checks["validate"] = rc_val == 0 and len(val) == 1 and np.isfinite(
+            float(val[0].split("=")[1]))
+        checks["resume to 22"] = (rc_res == 0 and f"| resumed from step {TRAIN_STEPS}" in text
+                                  and ckpt.latest_step() == TRAIN_STEPS + 2)
+        checks["no kernel launched in validate/resume"] = not any(counts.values())
+        lines.append(f"--validate: {val[0][2:] if val else 'missing'}; resume: latest "
+                     f"checkpoint {ckpt.latest_step()}")
+
+        # ---- a 0-step export reproduces diff_params.npz ----
+        ref = load_npz(os.path.join(FLAGSHIP_DIR, "diff_params.npz"))
+        vocab0 = int(ref["fs2/token_embed/embed/embedding"].shape[0])
+        task0 = DiffSingerMIDITask(svs.hp, vocab0, device=dev)
+        task0.load_state(ref)
+        got = export_flax_params(task0.model)
+        checks["0-step export bit-identical"] = set(got) == set(ref) and all(
+            np.array_equal(got[k], ref[k]) for k in ref)
+        del task0
+
+        # ---- fp32 card vs CPU: one train step of each task ----
+        hp32 = make_hparams(dict(svs.hp, compute_dtype="float32", dropout=0.0,
+                                 predictor_dropout=0.0))
+        b = make_batch(4, 16, 64, vocab0, seed=5)
+        r = np.random.RandomState(5)
+        b.update(mels=(r.randn(4, 64, 80) * 0.5 - 3).astype(np.float32),
+                 word_boundary=r.randint(0, 2, (4, 16)))
+        b["mels"][b["mel2ph"] == 0] = 0.0
+        g = torch.Generator().manual_seed(5)
+        pins = dict(t=torch.randint(0, svs.hp["K_step"], (4,), generator=g),
+                    noise=torch.randn((4, 64, 80), generator=g))
+        fs2_params = {k[4:]: v for k, v in ref.items() if k.startswith("fs2/")}
+        reset()
+        for label, cls, params, pin in (("FFT-Singer", AuxDecoderMIDITask, fs2_params, {}),
+                                        ("diffusion", DiffSingerMIDITask, ref, pins)):
+            ok, text = _step_parity(cls, hp32, vocab0, params, b, pin, dev)
+            checks[f"{label} fp32 card vs CPU"] = ok
+            lines.append(f"{label} fp32 step card vs CPU (4 x 16 tokens x 64 frames): {text}")
+        checks["no kernel launched in the parity steps"] = not any(read("10 parity").values())
+
+        # ---- serve what was trained: the latest checkpoint's params.npz ----
+        trained = os.path.join(ckpt.directory, str(ckpt.latest_step()), "params.npz")
+        flat = load_npz(trained)
+        vocab = int(flat["fs2/token_embed/embed/embedding"].shape[0])
+        model = GaussianDiffusion(svs.hp, vocab, svs.hp["audio_num_mel_bins"])
+        load_flax_params(model, flat)
+        served = SVSInferTorch(svs.hp, model, svs.pe, svs.vocoder, dev)
+        batch = make_batch(4, 16, 512, vocab, seed=9)
+        reset()
+        t0 = time.perf_counter()
+        out = served.synthesize(batch, generator=torch.Generator(device=dev).manual_seed(9))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read("trained")
+        wav = out["wav"]
+        checks["trained weights served: audio finite"] = bool(torch.isfinite(wav).all()) and \
+            tuple(wav.shape) == (4, 512 * 128)
+        checks["trained weights served: K1-bf16 and K2-bf16 launched"] = (
+            counts["fused_residual_stack_bf16"] > 0 and counts["fused_mrf_stage_bf16"] > 0)
+        lines.append(f"trained diffusion weights ({os.path.relpath(trained, tmp)}, vocab "
+                     f"{vocab}) served at B=4, T=512 with the flagship PE and vocoder: wav "
+                     f"{tuple(wav.shape)}, |wav| max {float(wav.abs().max()):.3f}, {secs:.2f} s, "
+                     f"launches {counts}")
+        lines.append("steps/s (first step apart) and peak GiB: " + json.dumps(
+            {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in stats.items()}))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
 
 
 def main() -> int:
@@ -708,6 +975,12 @@ def main() -> int:
     with Phase("8 score entry points") as ph:
         ok = score_entry_points(svs32, counters, by_path, n_calls, dev)
         ph.done("ok" if ok else "FAILED")
+        if not ok:
+            return 1
+
+    with Phase("10 training") as ph:
+        ok, lines = training_phase(svs, counters, by_path, dev)
+        ph.done(" | ".join(lines))
         if not ok:
             return 1
 

@@ -235,3 +235,37 @@ def test_infer_batch_on_a_worker_thread(cuda):
     assert out["grad"] and np.isfinite(out["wav"]).all() and len(out["wav"]) % 128 == 0
     assert diffnet_stack.counter_bf16.launches == 20 // 5 + 1
     assert np.array_equal(out["wav"], svs.infer_once(score))
+
+
+@pytest.mark.parametrize("route", ["fp32", "bf16"])
+def test_kernels_refuse_autograd_on_the_card(cuda, route):
+    """K1 and K2 on CUDA tensors: an input that requires grad under grad mode
+    raises before any launch; under no_grad the kernel launches."""
+    b16 = route == "bf16"
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, T, C, L = 1, 64, 256, 2
+    args = [torch.randn(s, generator=g, device=cuda) * 0.1
+            for s in ((B, T, C), (L, B, T, 2 * C), (L, B, C), (L, 3, C, 2 * C), (L, 2 * C),
+                      (L, C, 2 * C), (L, 2 * C))]
+    k1 = diffnet_stack.residual_stack_bf16 if b16 else diffnet_stack.residual_stack
+    counter = diffnet_stack.counter_bf16 if b16 else diffnet_stack.counter
+    if b16:
+        args = list(_k1_bf16_args(args))
+    args[3] = args[3].clone().requires_grad_(True)
+    counter.launches = 0
+    with pytest.raises(RuntimeError, match="requires grad"):
+        k1(*args, [1, 2])
+    assert counter.launches == 0
+    with torch.no_grad():
+        assert k1(*args, [1, 2]).shape == (B, T, C)
+    assert counter.launches == 1
+    F = 64
+    x = torch.randn((1, 256, F), generator=g, device=cuda).requires_grad_(True)
+    w = torch.randn((2 * F * F * 63,), generator=g, device=cuda) * 0.01
+    b = torch.zeros((18, F), device=cuda)
+    k2 = mrf_stage.mrf_stage_bf16 if b16 else mrf_stage.mrf_stage
+    w = w.to(torch.bfloat16) if b16 else w
+    with pytest.raises(RuntimeError, match="requires grad"):
+        k2(x, w, b, RK, RD)
+    with torch.no_grad():
+        assert k2(x, w, b, RK, RD).shape == x.shape

@@ -314,13 +314,15 @@ def test_score_to_wav_matches_jax(tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """In a fresh interpreter that refuses jax, flax, yaml, pypinyin, jieba,
-    the JAX package and __graft_entry__, every module of the port (the
-    score front end, the server and the CLI among them) and chip_smoke
-    (without running it) import."""
+    """In a fresh interpreter that refuses jax, flax, optax, orbax, yaml,
+    pypinyin, jieba, parselmouth, resemblyzer, tensorboard, matplotlib, the
+    JAX package and __graft_entry__, every module of the port (the score
+    front end, the server, the CLI, the data pipeline and the training
+    modules among them) and chip_smoke (without running it) import."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
-        BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "pypinyin", "jieba",
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pypinyin", "jieba",
+                   "parselmouth", "resemblyzer", "tensorboard", "matplotlib",
                    "bisinger_tpu", "__graft_entry__")
 
         class Refuse(importlib.abc.MetaPathFinder):
@@ -350,4 +352,10 @@ def test_port_imports_nothing_of_jax():
     assert {"bisinger_tpu_torch.data.text.frontend", "bisinger_tpu_torch.data.text.english",
             "bisinger_tpu_torch.data.text.pinyin", "bisinger_tpu_torch.utils.text_encoder",
             "bisinger_tpu_torch.utils.audio", "bisinger_tpu_torch.inference.server",
-            "bisinger_tpu_torch.run"} <= names
+            "bisinger_tpu_torch.run", "bisinger_tpu_torch.data.binarizer",
+            "bisinger_tpu_torch.data.dataset", "bisinger_tpu_torch.data.device_corpus",
+            "bisinger_tpu_torch.data.records", "bisinger_tpu_torch.data.synthetic",
+            "bisinger_tpu_torch.utils.praat_pitch", "bisinger_tpu_torch.training.tasks",
+            "bisinger_tpu_torch.training.trainer", "bisinger_tpu_torch.training.optim",
+            "bisinger_tpu_torch.training.checkpoints", "bisinger_tpu_torch.training.losses"
+            } <= names

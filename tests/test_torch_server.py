@@ -287,7 +287,7 @@ def test_cli_without_input_exits_2(capsys):
 
     assert run.main(["--infer", "--device", "cpu"]) == 2
     assert "--infer requires --input" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="binary_data_dir is not set"):
         run.main([])
 
 
