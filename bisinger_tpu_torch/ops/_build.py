@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers) and is
 compiled on its own into `bisinger_tpu_torch/_build/lib<name>_<hash>.so`
-(the bf16 sources include `csrc/mma_bf16.cuh`):
+(the bf16 sources include `csrc/mma_bf16.cuh`, the fp32 ones
+`csrc/mma_tf32.cuh`):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o ... csrc/<name>.cu

@@ -2,7 +2,8 @@
 `bisinger_tpu/ops/diffnet_pallas.py:fused_residual_stack`, line 174).
 
 Two routes, chosen by the model's `compute_dtype`:
-- fp32: `residual_stack` runs `csrc/diffnet_stack.cu` (fp32 CUDA cores);
+- fp32: `residual_stack` runs `csrc/diffnet_stack.cu` (TF32 tensor cores
+  in 3xTF32, to fp32 accuracy; `_tf32.py` models the arithmetic);
 - bf16: `residual_stack_bf16` runs `csrc/diffnet_stack_bf16.cu` (tensor
   cores), rounding where the TPU kernel rounds.
 Each runs its kernel (one cooperative launch for all layers) on CUDA
@@ -43,20 +44,22 @@ MEAN_TOLERANCE_BF16 = 4e-3
 RSQRT2 = 1.0 / math.sqrt(2.0)
 
 
-def residual_stack_plain(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[int]):
+def residual_stack_plain(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[int],
+                         mm=torch.matmul):
     """The stack as plain tensor ops, the TPU kernel's arithmetic: three
     shifted products for the dilated taps, the gate, the 1x1 output
-    product. Same arguments and result as `residual_stack`."""
+    product. Same arguments and result as `residual_stack`; `mm` takes the
+    products (`_tf32.residual_stack_plain_tf32` passes TF32 ones)."""
     B, T, C = x0.shape
     x = x0
     skip = torch.zeros_like(x0)
     for l, d in enumerate(dilations):
         a = x + step_proj[l][:, None, :]
         ap = torch.nn.functional.pad(a, (0, 0, d, d))  # zeros outside [0, T)
-        y = (ap[:, :T] @ wd[l, 0] + ap[:, d:d + T] @ wd[l, 1] + ap[:, 2 * d:] @ wd[l, 2]
+        y = (mm(ap[:, :T], wd[l, 0]) + mm(ap[:, d:d + T], wd[l, 1]) + mm(ap[:, 2 * d:], wd[l, 2])
              + bd[l] + cond_proj[l])
         g = torch.sigmoid(y[..., :C]) * torch.tanh(y[..., C:])
-        z = g @ wo[l] + bo[l]
+        z = mm(g, wo[l]) + bo[l]
         x = (x + z[..., :C]) / math.sqrt(2.0)
         skip = skip + z[..., C:]
     return skip
@@ -114,9 +117,9 @@ def residual_stack(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence
     _check("bd", bd, (L, 2 * C), dev)
     _check("wo", wo, (L, C, 2 * C), dev)
     _check("bo", bo, (L, 2 * C), dev)
-    if C % 32 or not 32 <= C <= 512 or not 1 <= L <= 64 or min(dilations) < 1:
-        raise ValueError(f"residual_stack kernel takes 32 <= C <= 512 with C % 32 == 0 and "
-                         f"1 <= L <= 64, got C={C}, L={L}")
+    if C != 256 or not 1 <= L <= 64 or min(dilations) < 1:
+        raise ValueError(f"residual_stack kernel takes C = 256 and 1 <= L <= 64, "
+                         f"got C={C}, L={L}")
     xbuf = torch.empty((2, B, T, C), device=dev, dtype=torch.float32)
     skip = torch.empty((B, T, C), device=dev, dtype=torch.float32)
     lib = _build.load("diffnet_stack")

@@ -2,7 +2,8 @@
 `bisinger_tpu/ops/mrf_pallas.py:fused_mrf_stage`, line 322).
 
 Two routes, chosen by the vocoder's `compute_dtype`:
-- fp32: `mrf_stage` runs `csrc/mrf_stage.cu` (fp32 CUDA cores);
+- fp32: `mrf_stage` runs `csrc/mrf_stage.cu` (TF32 tensor cores in
+  3xTF32, to fp32 accuracy; `_tf32.py` models the arithmetic);
 - bf16: `mrf_stage_bf16` runs `csrc/mrf_stage_bf16.cu` (tensor cores,
   wgmma), rounding where the TPU kernel rounds with compute_dtype=bfloat16.
 Each runs its kernel (one launch per stage) on CUDA tensors and its plain
@@ -59,20 +60,23 @@ def pack_stage_weights(blocks, kernel_sizes: Sequence[int], dilations: Sequence[
     return torch.cat(ws).to(dtype).contiguous(), torch.stack(bs).contiguous()
 
 
-def _tap_conv(x, w, b, k: int, d: int):
+def _tap_conv(x, w, b, k: int, d: int, mm=torch.matmul):
     """y[u] = sum_q lrelu(x[u + (q - (k-1)/2) * d]) @ w[q] + b, zero padding."""
     U = x.shape[1]
     r = d * (k - 1) // 2
     xp = F.pad(F.leaky_relu(x, LRELU_SLOPE), (0, 0, r, r))
     y = b
     for q in range(k):
-        y = y + xp[:, q * d:q * d + U] @ w[q]
+        y = y + mm(xp[:, q * d:q * d + U], w[q])
     return y
 
 
-def mrf_stage_plain(x, w, b, kernel_sizes: Sequence[int], dilations: Sequence[Sequence[int]]):
+def mrf_stage_plain(x, w, b, kernel_sizes: Sequence[int], dilations: Sequence[Sequence[int]],
+                    mm=torch.matmul):
     """The stage as plain tensor ops, the kernel's arithmetic: per-tap
-    products over the [B, U, F] layout. Same arguments as `mrf_stage`."""
+    products over the [B, U, F] layout. Same arguments as `mrf_stage`;
+    `mm` takes the products (`_tf32.mrf_stage_plain_tf32` passes TF32
+    ones)."""
     Fch = x.shape[-1]
     out, off, slot = 0.0, 0, 0
     for k, dils in zip(kernel_sizes, dilations):
@@ -80,10 +84,10 @@ def mrf_stage_plain(x, w, b, kernel_sizes: Sequence[int], dilations: Sequence[Se
         for d in dils:
             w1 = w[off:off + k * Fch * Fch].view(k, Fch, Fch)
             off += k * Fch * Fch
-            t = _tap_conv(y, w1, b[slot], k, d)
+            t = _tap_conv(y, w1, b[slot], k, d, mm)
             w2 = w[off:off + k * Fch * Fch].view(k, Fch, Fch)
             off += k * Fch * Fch
-            y = y + _tap_conv(t, w2, b[slot + 1], k, 1)
+            y = y + _tap_conv(t, w2, b[slot + 1], k, 1, mm)
             slot += 2
         out = out + y
     return out / len(kernel_sizes)

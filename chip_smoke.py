@@ -5,10 +5,15 @@ Run from the repository root, with one card:
     python3 chip_smoke.py
 
 Each kernel has two routes, chosen by the hyperparameter compute_dtype:
-fp32 (csrc/diffnet_stack.cu, csrc/mrf_stage.cu) and bf16 on the tensor
-cores (csrc/diffnet_stack_bf16.cu, csrc/mrf_stage_bf16.cu), the
-flagship's default. Phases, each printing one line with its results and
-seconds (a failed phase exits non-zero):
+fp32 (csrc/diffnet_stack.cu, csrc/mrf_stage.cu: the TF32 tensor cores
+in 3xTF32, fp32's accuracy) and bf16 on the tensor cores
+(csrc/diffnet_stack_bf16.cu, csrc/mrf_stage_bf16.cu), the flagship's
+default. Every check of a route against its plain version also reads a
+control against the plain version: for fp32, the plain version with
+single-pass TF32 products (ops/_tf32.py), at least 10x the kernel's
+relative max; for bf16, the plain version with one rounding point moved,
+above the mean bound. Phases, each printing one line with its results
+and seconds (a failed phase exits non-zero):
   1. device: name, count, nvidia-smi's name and power limit;
   2. build the four kernels with nvcc (csrc/*.cu, one process per source);
   3. K1 (DiffNet residual stack), both routes, against their plain
@@ -23,9 +28,12 @@ seconds (a failed phase exits non-zero):
      waveforms of frames x 128 samples, and the small input against the
      fp32 path on the card within the JAX package's bf16 contract;
   6. the four kernels against their plain versions at the timed shapes
-     (B=4, T=256 and the bench's B=32, T=1024), with CUDA-event times of both, of the same work as a chain
-     of library calls (fp32 and bf16: cuDNN conv1d and cuBLAS products for
-     K1, conv1d for K2), and each kernel's bound;
+     (B=4, T=256 and the bench's B=32, T=1024), with CUDA-event times of
+     both, of the same work as a chain of library calls (fp32 with TF32
+     off, and bf16: cuDNN conv1d and cuBLAS products for K1, conv1d for
+     K2), and each kernel's bound (the fp32 routes' at 495 / 3 TFLOP/s,
+     3xTF32 on the TF32 tensor cores, with the factor against the fp32
+     CUDA cores' 67 TFLOP/s beside it);
   7. warm synthesize() wall times at B=4, T=256 and at the bench's
      B=32, T=1024 under bf16 (and fp32 beside it), as audio seconds made
      per second;
@@ -76,6 +84,9 @@ import torch
 BUDGET_S = 600.0  # the run fails past 10 minutes, builds included
 T_START = time.perf_counter()
 FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
+# fp32 accuracy on the TF32 tensor cores (495 TFLOP/s dense, data sheet) takes
+# three products per product (3xTF32): the fp32 routes' bound
+FP32_TC_PEAK = 495e12 / 3
 BF16_PEAK = 989e12  # H100 SXM bf16 dense tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 
@@ -623,7 +634,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
-    from bisinger_tpu_torch.ops import _build, diffnet_stack, mrf_stage
+    from bisinger_tpu_torch.ops import _build, _tf32, diffnet_stack, mrf_stage
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -653,7 +664,7 @@ def main() -> int:
     k1_routes = {
         "fused_residual_stack": (
             diffnet_stack.residual_stack, diffnet_stack.residual_stack_plain,
-            (diffnet_stack.TOLERANCE, None), lambda a: a, "diffnet_stack.cu", FP32_PEAK),
+            (diffnet_stack.TOLERANCE, None), lambda a: a, "diffnet_stack.cu", FP32_TC_PEAK),
         "fused_residual_stack_bf16": (
             diffnet_stack.residual_stack_bf16, diffnet_stack.residual_stack_plain_bf16,
             (diffnet_stack.TOLERANCE_BF16, diffnet_stack.MEAN_TOLERANCE_BF16), k1_bf16,
@@ -662,16 +673,36 @@ def main() -> int:
     k2_routes = {
         "fused_mrf_stage": (
             mrf_stage.mrf_stage, mrf_stage.mrf_stage_plain, (mrf_stage.TOLERANCE, None),
-            torch.float32, "mrf_stage.cu", FP32_PEAK),
+            torch.float32, "mrf_stage.cu", FP32_TC_PEAK),
         "fused_mrf_stage_bf16": (
             mrf_stage.mrf_stage_bf16, mrf_stage.mrf_stage_plain_bf16,
             (mrf_stage.TOLERANCE_BF16, mrf_stage.MEAN_TOLERANCE_BF16), torch.bfloat16,
             "mrf_stage_bf16.cu", BF16_PEAK),
     }
-    # a control per bf16 route: its plain version with one rounding point moved,
-    # read against the plain version; the mean bound must lie below its reading
-    controls = {"fused_residual_stack_bf16": dict(skip_dtype=torch.bfloat16),
-                "fused_mrf_stage_bf16": dict(conv1_dtype=torch.float32)}
+    # a control per route, read against the plain version. bf16: the plain
+    # version with one rounding point moved; the mean bound must lie below its
+    # reading. fp32: the plain version with single-pass TF32 products
+    # (ops/_tf32.py); the kernel's relative max must lie at least 10x below
+    # its reading, which shows that the kernel splits every operand (3xTF32)
+    controls = {
+        "fused_residual_stack": lambda *a: _tf32.residual_stack_plain_tf32(*a, passes=1),
+        "fused_residual_stack_bf16": lambda *a: diffnet_stack.residual_stack_plain_bf16(
+            *a, skip_dtype=torch.bfloat16),
+        "fused_mrf_stage": lambda *a: _tf32.mrf_stage_plain_tf32(*a, passes=1),
+        "fused_mrf_stage_bf16": lambda *a: mrf_stage.mrf_stage_plain_bf16(
+            *a, conv1_dtype=torch.float32),
+    }
+    CONTROL_RATIO = 10.0
+
+    def control_holds(name, rel, crel, cmean):
+        if name.endswith("_bf16"):
+            tol = (k1_routes.get(name) or k2_routes[name])[2]
+            return cmean > tol[1]
+        return rel * CONTROL_RATIO <= crel
+
+    def control_text(name):
+        return ("mean above the mean bound" if name.endswith("_bf16")
+                else f"relative max {CONTROL_RATIO:g}x the kernel's")
 
     def outside(rel, mean, tol):
         return rel > tol[0] or (tol[1] is not None and mean > tol[1])
@@ -697,12 +728,11 @@ def main() -> int:
                          f"(tolerance {tol_text(tol)})")
             if outside(rel, mean, tol):
                 bad.append(name)
-            if name in controls:
-                _, crel, cmean = rel_err(plain(*a, dils, **controls[name]), ref)
-                lines.append(f"control {controls[name]}: relative max {crel:.3e} mean "
-                             f"{cmean:.3e} (must exceed {tol[1]:g})")
-                if cmean <= tol[1]:
-                    bad.append(f"{name} control")
+            _, crel, cmean = rel_err(controls[name](*a, dils), ref)
+            lines.append(f"control: relative max {crel:.3e} mean {cmean:.3e} (must hold "
+                         f"{control_text(name)})")
+            if not control_holds(name, rel, crel, cmean):
+                bad.append(f"{name} control")
         ph.done(f"B=4 T=256 C={C} L={L}: " + "; ".join(lines)
                 + (f" MISMATCH {bad}" if bad else " ok"))
         if bad:
@@ -725,16 +755,15 @@ def main() -> int:
                 lines.append(f"{name} F={F} {err:.3e}/{rel:.3e}/{mean:.3e}")
                 if outside(rel, mean, tol):
                     bad.append(f"{name} F={F}")
-                if name in controls:
-                    _, crel, cmean = rel_err(plain(x, wc, b, rk, rd, **controls[name]), ref)
-                    lines.append(f"control {crel:.3e}/{cmean:.3e}")
-                    if cmean <= tol[1]:
-                        bad.append(f"{name} F={F} control")
+                _, crel, cmean = rel_err(controls[name](x, wc, b, rk, rd), ref)
+                lines.append(f"control {crel:.3e}/{cmean:.3e}")
+                if not control_holds(name, rel, crel, cmean):
+                    bad.append(f"{name} F={F} control")
         ph.done(f"B=2 U=2048 max_abs_err/relative max/relative mean (tolerances "
                 f"{tol_text(k2_routes['fused_mrf_stage'][2])} fp32, "
-                f"{tol_text(k2_routes['fused_mrf_stage_bf16'][2])} bf16; the control, the plain "
-                f"version with {controls['fused_mrf_stage_bf16']}, must exceed the mean "
-                "bound): " + "; ".join(lines)
+                f"{tol_text(k2_routes['fused_mrf_stage_bf16'][2])} bf16; each route's control "
+                f"must hold: fp32 {control_text('fused_mrf_stage')} (single-pass TF32), bf16 "
+                f"{control_text('fused_mrf_stage_bf16')} (conv1 unrounded)): " + "; ".join(lines)
                 + (f" MISMATCH at {bad}" if bad else " ok"))
         if bad:
             return 1
@@ -850,6 +879,12 @@ def main() -> int:
         if not (small_ok and all(contract)):
             return 1
 
+    def cores_text(ms, flops, bytes_s):
+        """An fp32 route's factor against the fp32 CUDA cores' bound too
+        (67 TFLOP/s; the bound of the routes' first designs)."""
+        bound = 1e3 * max(flops / FP32_PEAK, bytes_s)
+        return f"; against the fp32 CUDA cores' bound {bound:.3f} ms, {ms / bound:.1f}x"
+
     kernels = []
     with Phase("6 kernels at the path's shapes") as ph:
         # the bench's shapes (phases 5 and 7): outputs held against the plain
@@ -862,11 +897,15 @@ def main() -> int:
                 a = cast(k1_inputs(B, T, C, L, gen, dev))
                 checked["K1"].add((B, T, C))
                 got = fn(*a, dils)
-                err, rel, mean = rel_err(got, plain(*a, dils))
+                ref = plain(*a, dils)
+                err, rel, mean = rel_err(got, ref)
                 errs[name] = max(errs[name], err)
                 if outside(rel, mean, tol):
                     bad.append(f"{name} B={B} T={T}")
-                del got
+                _, crel, cmean = rel_err(controls[name](*a, dils), ref)
+                if not control_holds(name, rel, crel, cmean):
+                    bad.append(f"{name} B={B} T={T} control")
+                del got, ref
                 ms = cuda_ms(lambda: fn(*a, dils), reps=reps)
                 plain_ms = cuda_ms(lambda: plain(*a, dils), reps=reps)
                 # the same stack as cuDNN conv1d and cuBLAS products, in the route's dtype
@@ -875,14 +914,16 @@ def main() -> int:
                                   plain(*a, dils))[1]
                 lib = cuda_ms(lambda: diffnet_stack.residual_stack_library(*a, dils, dtype=ldt),
                               reps=reps)
-                fl = diffnet_stack.stack_flops(B, T, C, L) / peak
+                flops = diffnet_stack.stack_flops(B, T, C, L)
+                fl = flops / peak
                 by = diffnet_stack.stack_bytes(B, T, C, L, bf16=peak == BF16_PEAK) / HBM_RATE
                 bound = 1e3 * max(fl, by)
                 del a
                 lines.append(f"{name} B={B} T={T}: {ms:.3f} ms (plain {plain_ms:.3f}, library "
                              f"chain {lib:.3f} (relative max err {lib_err:.2e}), bound "
                              f"{bound:.3f} by {'operations' if fl >= by else 'bytes'}, "
-                             f"{ms / bound:.1f}x), err {err:.3e}/{rel:.3e}/{mean:.3e}")
+                             f"{ms / bound:.1f}x{cores_text(ms, flops, by) if peak == FP32_TC_PEAK else ''}), err "
+                             f"{err:.3e}/{rel:.3e}/{mean:.3e}, control {crel:.3e}/{cmean:.3e}")
                 if B == 4:
                     row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, library_ms=lib,
                                bound_by="operations" if fl >= by else "bytes")
@@ -897,7 +938,8 @@ def main() -> int:
         for name, (fn, plain, tol, wdt, src, peak) in k2_routes.items():
             row = {}
             for B, T, reps in ((4, 256, 5), (32, 1024, 1)):
-                tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, fl=0.0, by=0.0)
+                tot = dict(ms=0.0, plain=0.0, lib=0.0, bound=0.0, fl=0.0, by=0.0, flops=0,
+                           bytes_s=0.0)
                 stages = []
                 F, U = hp["upsample_initial_channel"], T
                 for u in hp["upsample_rates"]:
@@ -906,30 +948,39 @@ def main() -> int:
                     checked["K2"].add((B, U, F))
                     w = w.to(wdt)
                     got = fn(x, w, b, rk, rd)
-                    err, rel, mean = rel_err(got, plain(x, w, b, rk, rd))
+                    ref = plain(x, w, b, rk, rd)
+                    err, rel, mean = rel_err(got, ref)
                     errs[name] = max(errs[name], err)
                     if outside(rel, mean, tol):
                         bad.append(f"{name} B={B} U={U} F={F}")
-                    del got
+                    _, crel, cmean = rel_err(controls[name](x, w, b, rk, rd), ref)
+                    if not control_holds(name, rel, crel, cmean):
+                        bad.append(f"{name} B={B} U={U} F={F} control")
+                    del got, ref
                     ms = cuda_ms(lambda: fn(x, w, b, rk, rd), reps=reps)
                     plain_ms = cuda_ms(lambda: plain(x, w, b, rk, rd), reps=reps)
                     # the same chain of conv1d calls in the route's dtype (cuDNN)
                     lib = cuda_ms(lambda: mrf_stage.mrf_stage_conv1d(x, w, b, rk, rd, dtype=wdt),
                                   reps=reps)
                     del x, w, b
-                    fl = mrf_stage.stage_flops(B, U, F, rk, rd) / peak
+                    flops = mrf_stage.stage_flops(B, U, F, rk, rd)
+                    fl = flops / peak
                     by = mrf_stage.stage_bytes(B, U, F, rk, rd, bf16=wdt == torch.bfloat16) \
                         / HBM_RATE
                     bound = 1e3 * max(fl, by)
                     for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib),
-                                   ("bound", bound), ("fl", fl), ("by", by)):
+                                   ("bound", bound), ("fl", fl), ("by", by), ("flops", flops),
+                                   ("bytes_s", by)):
                         tot[key] += v
                     stages.append(f"F={F} U={U} {ms:.3f} ms (plain {plain_ms:.3f}, conv1d "
                                   f"{lib:.3f}, bound {bound:.3f}), "
-                                  f"err {err:.3e}/{rel:.3e}/{mean:.3e}")
+                                  f"err {err:.3e}/{rel:.3e}/{mean:.3e}, control "
+                                  f"{crel:.3e}/{cmean:.3e}")
+                cores = cores_text(tot["ms"], tot["flops"], tot["bytes_s"]) \
+                    if peak == FP32_TC_PEAK else ""
                 lines.append(f"{name} B={B} T={T}, one vocoder pass {tot['ms']:.3f} ms (plain "
                              f"{tot['plain']:.3f}, conv1d {tot['lib']:.3f}, bound "
-                             f"{tot['bound']:.3f}, {tot['ms'] / tot['bound']:.1f}x): "
+                             f"{tot['bound']:.3f}, {tot['ms'] / tot['bound']:.1f}x{cores}): "
                              + "; ".join(stages))
                 if B == 4:
                     row = dict(ms=tot["ms"], plain_ms=tot["plain"], bound_ms=tot["bound"],
@@ -988,7 +1039,7 @@ def main() -> int:
         # the input shapes any phase launched a kernel on (phases 5 and 8 at
         # their batch and frame buckets) that phases 3, 4 and 6 did not check:
         # both routes of each kernel against their plain versions there, with
-        # the bf16 routes' controls
+        # every route's control
         shapes = {"K1": set().union(counters["fused_residual_stack"].shapes,
                                     counters["fused_residual_stack_bf16"].shapes),
                   "K2": set().union(counters["fused_mrf_stage"].shapes,
@@ -1006,11 +1057,10 @@ def main() -> int:
                 text = f"{name} B={B} T={T} {err:.3e}/{rel:.3e}/{mean:.3e}"
                 if outside(rel, mean, tol):
                     bad.append(f"{name} B={B} T={T}")
-                if name in controls:
-                    _, crel, cmean = rel_err(plain(*a, dils, **controls[name]), ref)
-                    text += f" (control {crel:.3e}/{cmean:.3e})"
-                    if cmean <= tol[1]:
-                        bad.append(f"{name} B={B} T={T} control")
+                _, crel, cmean = rel_err(controls[name](*a, dils), ref)
+                text += f" (control {crel:.3e}/{cmean:.3e})"
+                if not control_holds(name, rel, crel, cmean):
+                    bad.append(f"{name} B={B} T={T} control")
                 lines.append(text)
         for B, U, F in sorted(shapes["K2"] - checked["K2"]):
             gen.manual_seed(11 + B + U + F)
@@ -1023,11 +1073,10 @@ def main() -> int:
                 text = f"{name} B={B} U={U} F={F} {err:.3e}/{rel:.3e}/{mean:.3e}"
                 if outside(rel, mean, tol):
                     bad.append(f"{name} B={B} U={U} F={F}")
-                if name in controls:
-                    _, crel, cmean = rel_err(plain(x, wc, b, rk, rd, **controls[name]), ref)
-                    text += f" (control {crel:.3e}/{cmean:.3e})"
-                    if cmean <= tol[1]:
-                        bad.append(f"{name} B={B} U={U} F={F} control")
+                _, crel, cmean = rel_err(controls[name](x, wc, b, rk, rd), ref)
+                text += f" (control {crel:.3e}/{cmean:.3e})"
+                if not control_holds(name, rel, crel, cmean):
+                    bad.append(f"{name} B={B} U={U} F={F} control")
                 lines.append(text)
             del x, w, b
         ph.done(f"{len(shapes['K1'] - checked['K1'])} K1 and "

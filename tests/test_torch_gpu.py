@@ -7,13 +7,15 @@ Elsewhere every test skips: the `cuda` fixture decides, at run time.
 Tolerances are the ones the kernels state (`diffnet_stack.TOLERANCE`,
 `mrf_stage.TOLERANCE`, and `TOLERANCE_BF16` of each for the bf16 routes),
 as max |difference| over the largest |value|; the bf16 routes also hold
-`MEAN_TOLERANCE_BF16`, mean |difference| over mean |value|.
+`MEAN_TOLERANCE_BF16`, mean |difference| over mean |value|. The fp32
+routes run on the TF32 tensor cores in 3xTF32 and must also sit at least
+10x under their single-pass TF32 control (`ops/_tf32.py`).
 """
 
 import pytest
 import torch
 
-from bisinger_tpu_torch.ops import diffnet_stack, mrf_stage
+from bisinger_tpu_torch.ops import _tf32, diffnet_stack, mrf_stage
 
 pytestmark = pytest.mark.gpu
 
@@ -37,9 +39,9 @@ def _mean_rel(got, ref):
     return ((got - ref).abs().mean() / ref.abs().mean()).item()
 
 
-# (4, 256) and (2, 100) take K1's 8-frame tiles; (32, 1024), the bench's
-# shape, and (4, 1100), with a ragged last tile, take its 16-frame tiles
-# (B * ceil(T / 16) >= 2 * the H100's 132 SMs)
+# (4, 256), (2, 100) and (4, 1100), with a ragged last tile, take K1's
+# 16-frame tiles over clusters of two; (32, 1024), the bench's shape, its
+# 64-frame tiles (B * ceil(T / 64) >= the H100's 132 SMs)
 @pytest.mark.parametrize("B,T", [(4, 256), (2, 100), (32, 1024), (4, 1100)])
 def test_residual_stack_kernel_matches_plain(cuda, B, T):
     C, L = 256, 20
@@ -269,3 +271,85 @@ def test_kernels_refuse_autograd_on_the_card(cuda, route):
         k2(x, w, b, RK, RD)
     with torch.no_grad():
         assert k2(x, w, b, RK, RD).shape == x.shape
+
+
+def _k1_fp32_args(g, B, T, L, C=256):
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=g, device=g.device)  # noqa: E731
+    return (torch.relu(r(B, T, C)), r(L, B, T, 2 * C), r(L, B, C, sc=0.5),
+            r(L, 3, C, 2 * C, sc=(3 * C) ** -0.5), r(L, 2 * C, sc=0.1),
+            r(L, C, 2 * C, sc=C ** -0.5), r(L, 2 * C, sc=0.1))
+
+
+def _k2_fp32_args(g, B, U, F, rk=RK, rd=RD):
+    x = torch.randn((B, U, F), generator=g, device=g.device)
+    n_w = 2 * F * F * sum(k * len(d) for k, d in zip(rk, rd))
+    w = torch.randn((n_w,), generator=g, device=g.device) * (7 * F) ** -0.5
+    b = 0.1 * torch.randn((2 * sum(len(d) for d in rd), F), generator=g, device=g.device)
+    return x, w, b
+
+
+# The fp32 routes where their tiles do not divide the input: K1 with B=1 and
+# T ragged on its 16-frame tiles, T ragged on its 64-frame tiles (B=32), and
+# a dilation list other than the flagship's (dmax 9, L=10); K2 with B=1 at
+# every stage width, U not a multiple of any chunk at F=256, and kernels and
+# dilations other than the flagship's
+@pytest.mark.parametrize("B,T,dils", [(1, 77, None), (32, 1000, None),
+                                      (3, 300, [1, 3, 5, 7, 9] * 2)])
+def test_fp32_residual_stack_at_ragged_shapes(cuda, B, T, dils):
+    dils = dils or [2 ** (i % 4) for i in range(20)]
+    g = torch.Generator(device=cuda).manual_seed(B + T)
+    args = _k1_fp32_args(g, B, T, len(dils))
+    got = diffnet_stack.residual_stack(*args, dils)
+    torch.cuda.synchronize()
+    assert _rel(got, diffnet_stack.residual_stack_plain(*args, dils)) <= diffnet_stack.TOLERANCE
+
+
+@pytest.mark.parametrize("B,U,F,rk,rd", [
+    (1, 1013, 32, RK, RD), (1, 1013, 64, RK, RD), (1, 1013, 128, RK, RD), (1, 1013, 256, RK, RD),
+    (3, 4099, 256, RK, RD), (2, 1500, 128, [3, 5], [[1, 2], [2, 4]]),
+    (2, 1500, 256, [5, 9], [[2, 1, 3], [1, 4, 2]])])
+def test_fp32_mrf_stage_at_ragged_shapes(cuda, B, U, F, rk, rd):
+    g = torch.Generator(device=cuda).manual_seed(B + U + F)
+    x, w, b = _k2_fp32_args(g, B, U, F, rk, rd)
+    got = mrf_stage.mrf_stage(x, w, b, rk, rd)
+    torch.cuda.synchronize()
+    assert _rel(got, mrf_stage.mrf_stage_plain(x, w, b, rk, rd)) <= mrf_stage.TOLERANCE
+
+
+# The fp32 routes at least 10x under their plain versions with single-pass
+# TF32 products: a kernel that skipped the split of an operand would read
+# near the control.
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+def test_fp32_kernels_sit_under_the_single_pass_control(cuda, kernel):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    if kernel == "k1":
+        dils = [2 ** (i % 4) for i in range(20)]
+        args = _k1_fp32_args(g, 4, 256, 20)
+        got = diffnet_stack.residual_stack(*args, dils)
+        ref = diffnet_stack.residual_stack_plain(*args, dils)
+        control = _tf32.residual_stack_plain_tf32(*args, dils, passes=1)
+    else:
+        x, w, b = _k2_fp32_args(g, 2, 2048 + 37, 256)
+        got = mrf_stage.mrf_stage(x, w, b, RK, RD)
+        ref = mrf_stage.mrf_stage_plain(x, w, b, RK, RD)
+        control = _tf32.mrf_stage_plain_tf32(x, w, b, RK, RD, passes=1)
+    torch.cuda.synchronize()
+    assert 10 * _rel(got, ref) <= _rel(control, ref)
+
+
+# The fp32 routes' cp.async rings, like the bf16 routes': back-to-back
+# launches on the same inputs give the same bits.
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+def test_fp32_kernels_repeat_bit_identically(cuda, kernel):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    if kernel == "k1":
+        dils = [2 ** (i % 4) for i in range(20)]
+        args = _k1_fp32_args(g, 4, 256, 20)
+        run = lambda: diffnet_stack.residual_stack(*args, dils)  # noqa: E731
+    else:
+        x, w, b = _k2_fp32_args(g, 2, 2048 + 37, 256)
+        run = lambda: mrf_stage.mrf_stage(x, w, b, RK, RD)  # noqa: E731
+    first = run()
+    outs = [run() for _ in range(200)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
