@@ -26,3 +26,13 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device found")
     return device
+
+
+def full_fp32() -> None:
+    """Run fp32 convolutions and matrix products in full fp32 on the card.
+    PyTorch's default lets cuDNN take fp32 convolutions in TF32 (a 10-bit
+    mantissa); the port's fp32 parts (the GAN's discriminators among them)
+    are held against the JAX package and the CPU in fp32, and its times are
+    measured so. Every entry point calls this first."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -50,6 +50,9 @@ DEFAULTS: Dict[str, Any] = {
     "pitch_type": "frame",
     "use_uv": True,
     "pitch_norm": "log",
+    "pitch_loss": "l1",
+    "lambda_f0": 1.0,
+    "lambda_uv": 1.0,
     "use_energy_embed": False,
     "use_spk_id": True,
     "use_split_spk_id": False,

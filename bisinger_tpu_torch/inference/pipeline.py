@@ -12,14 +12,15 @@ carry a frame map `mel2ph`. `items_to_batch` pads items into one batch at
 the configured buckets, and `synthesize` runs
 
     FastSpeech2MIDI -> diffusion sampler (DiffNet through K1) -> mel
-    -> PitchExtractor f0 -> NSF HiFi-GAN (MRF stages through K2) -> wav.
+    -> PitchExtractor f0 -> NSF HiFi-GAN (MRF stages through K2) -> wav,
+
+through PQMF synthesis when the vocoder is multiband (`vocoder_multiband`).
 
 The score entry points trim each waveform to its filled frames.
 """
 
 from __future__ import annotations
 
-import glob
 import json
 import os
 import time
@@ -35,8 +36,10 @@ from bisinger_tpu_torch.data.text.frontend import BilingualFrontend
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
 from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
 from bisinger_tpu_torch.models.pe import PitchExtractor
+from bisinger_tpu_torch.models.pqmf import pqmf_from_hparams
 from bisinger_tpu_torch.utils.audio import save_wav
 from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder, build_phone_encoder
+from bisinger_tpu_torch.vocoders.hifigan import latest_generator
 from bisinger_tpu_torch.weights import load_flax_params, load_npz
 
 FLAGSHIP_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -76,8 +79,10 @@ def pick_bucket(n: int, buckets) -> int:
 
 
 def _pe_and_vocoder(ckpt_dir: str, hp: dict):
-    """The PitchExtractor (pe_params.npz + pe_batch_stats.npz) and the newest
-    vocoder/**/generator_*.npz of a trained run's directory."""
+    """The PitchExtractor (pe_params.npz + pe_batch_stats.npz) and the
+    generator of the highest step among vocoder/**/generator_*.npz of a
+    trained run's directory (vocoder_mb<n>/** for an n-band vocoder, as
+    bench.py reads them)."""
     stats_fn = os.path.join(ckpt_dir, "pe_batch_stats.npz")
     if not os.path.exists(stats_fn):
         raise FileNotFoundError(f"{stats_fn} is missing: the PE's BatchNorm needs its "
@@ -85,12 +90,13 @@ def _pe_and_vocoder(ckpt_dir: str, hp: dict):
     pe = PitchExtractor(hp)
     load_flax_params(pe, {**load_npz(os.path.join(ckpt_dir, "pe_params.npz")),
                           **load_npz(stats_fn)})
-    cands = sorted(glob.glob(os.path.join(ckpt_dir, "vocoder", "**", "generator_*.npz"),
-                             recursive=True))
-    if not cands:
-        raise FileNotFoundError(f"no vocoder/**/generator_*.npz under {ckpt_dir}")
+    n = int(hp.get("vocoder_multiband", 1) or 1)
+    sub = f"vocoder_mb{n}" if n > 1 else "vocoder"
+    path = latest_generator(os.path.join(ckpt_dir, sub), recursive=True)
+    if path is None:
+        raise FileNotFoundError(f"no {sub}/**/generator_*.npz under {ckpt_dir}")
     vocoder = HifiGanGenerator(hp)
-    load_flax_params(vocoder, load_npz(cands[-1]))
+    load_flax_params(vocoder, load_npz(path))
     return pe, vocoder
 
 
@@ -108,6 +114,7 @@ class SVSInferTorch:
         self.model = model.to(self.device).eval()
         self.pe = pe.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
+        self.pqmf = pqmf_from_hparams(hp)  # a multiband vocoder's synthesis
         self.spk_map = dict(spk_map or {})
         self.frontend = None if encoder is None else BilingualFrontend(
             encoder, phone_subst=hp.get("en_phone_subst"))
@@ -117,8 +124,8 @@ class SVSInferTorch:
                         hp_overrides=None) -> "SVSInferTorch":
         """hparams_diff.json, phone_set.json and spk_map.json (the
         binarizer's vocabulary and speakers), diff_params.npz (fs2 +
-        DiffNet), pe_params.npz + pe_batch_stats.npz, and the newest
-        vocoder/**/generator_*.npz of a trained run. `hp_overrides` is a
+        DiffNet), pe_params.npz + pe_batch_stats.npz, and the highest
+        step's vocoder/**/generator_*.npz of a trained run. `hp_overrides` is a
         dict or a "k=v,..." string, as the CLI's --hparams."""
         device = resolve_device(device)
         hp = load_hparams_json(os.path.join(ckpt_dir, "hparams_diff.json"), hp_overrides)
@@ -244,6 +251,8 @@ class SVSInferTorch:
         mel = ret["mel_out"]
         f0 = self.pe(mel)["f0_denorm_pred"]
         wav = self.vocoder(mel, f0, phase=nsf_phase, noise=nsf_noise, generator=generator)
+        if self.pqmf is not None:
+            wav = self.pqmf.synthesis(wav)
         return {"wav": wav, "mel": mel, "f0": f0, "mel2ph": ret["mel2ph"]}
 
     # ---- score entry points ------------------------------------------------

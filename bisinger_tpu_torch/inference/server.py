@@ -481,8 +481,10 @@ def main(argv: Optional[List[str]] = None):
     card, or on the CPU with --device cpu."""
     import argparse
 
+    from bisinger_tpu_torch import full_fp32
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
 
+    full_fp32()
     parser = argparse.ArgumentParser()
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=7860)

@@ -17,7 +17,10 @@ as flax promotes a bf16 input against fp32 params. In bf16, the
 activations that JAX builds from several ops (GELU, softplus) run one
 op at a time, each result rounded, as XLA runs them; the norms
 (`layer_norm`, `group_norm`, `batch_norm`) compute flax's formula in fp32,
-so that a bf16 cast after them rounds the values JAX rounds.
+so that a bf16 cast after them rounds the values JAX rounds; BatchNorm
+also in training, with flax's batch statistics. "fp32" is the parameters'
+dtype: a model cast to float64 computes those parts in fp64, the
+reference that `tools/step_parity` holds an fp32 train step against.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ def compute_dtype(hp) -> torch.dtype:
 def scale(x, s: float):
     """x * s as JAX multiplies an array by a Python scalar: s is first
     rounded to x's dtype."""
-    if x.dtype == torch.float32:
+    if x.dtype != torch.bfloat16:
         return x * s
     return x * bf16_const(s)
 
@@ -61,7 +64,7 @@ _GELU_C3 = bf16_const(0.044715)
 def div(x, s: float):
     """x / s as JAX divides an array by a Python scalar: s is first rounded
     to x's dtype."""
-    return x / (s if x.dtype == torch.float32 else bf16_const(s))
+    return x / (s if x.dtype != torch.bfloat16 else bf16_const(s))
 
 
 def grad_scale(x, s: float):
@@ -100,7 +103,7 @@ def gelu_tanh(x):
     """jax.nn.gelu (tanh form) in x's dtype, one op at a time as XLA runs
     it: 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3))) * x, every
     intermediate rounded."""
-    if x.dtype == torch.float32:
+    if x.dtype != torch.bfloat16:
         return F.gelu(x, approximate="tanh")
     inner = (x + (x * x * x) * _GELU_C3) * _GELU_C1
     return x * ((torch.tanh(inner) + 1.0) * 0.5)
@@ -115,7 +118,7 @@ def layer_norm(ln: nn.LayerNorm, x):
     """flax's LayerNorm of x over the last axis, in fp32 whatever x's dtype:
     fast variance E[x^2] - E[x]^2 and (x - mean) * (rsqrt(var + eps) *
     scale) + bias, the order of `flax.linen.normalization`."""
-    x = x.float()
+    x = x.to(ln.weight.dtype)
     mean = x.mean(-1, keepdim=True)
     var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mean * mean, 0.0)
     return (x - mean) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias
@@ -126,18 +129,33 @@ def group_norm(gn: nn.GroupNorm, x):
     channels), in fp32, as `layer_norm`."""
     b, t, c = x.shape
     g = gn.num_groups
-    xg = x.float().reshape(b, t, g, c // g)
+    xg = x.to(gn.weight.dtype).reshape(b, t, g, c // g)
     mean = xg.mean((1, 3), keepdim=True)
     var = torch.clamp_min((xg * xg).mean((1, 3), keepdim=True) - mean * mean, 0.0)
     mul = torch.rsqrt(var + gn.eps) * gn.weight.reshape(g, c // g)
     return ((xg - mean) * mul).reshape(b, t, c) + gn.bias
 
 
-def batch_norm(bn: nn.BatchNorm1d, x):
-    """flax's BatchNorm of x [B, T, C] with the running statistics, in fp32:
-    (x - mean) * (rsqrt(var + eps) * scale) + bias."""
-    return (x.float() - bn.running_mean) * (torch.rsqrt(bn.running_var + bn.eps) * bn.weight) \
-        + bn.bias
+BN_MOMENTUM = 0.9  # flax's convention for torch's momentum 0.1 (`predictors.py:270-278`)
+
+
+def batch_norm(bn: nn.BatchNorm1d, x, use_running_average: bool = True):
+    """flax's BatchNorm of x [B, T, C], in fp32: (x - mean) * (rsqrt(var +
+    eps) * scale) + bias. With the running statistics, or, in training
+    (`use_running_average=False`), with the batch's over every B x T frame
+    in fp32: the mean and the biased variance E[x^2] - E[x]^2 (clamped at
+    0), which also update the running ones as running = 0.9 * running +
+    0.1 * batch (torch's BatchNorm1d would store the unbiased variance)."""
+    x = x.to(bn.weight.dtype)
+    if use_running_average:
+        mean, var = bn.running_mean, bn.running_var
+    else:
+        mean = x.mean((0, 1))
+        var = torch.clamp_min((x * x).mean((0, 1)) - mean * mean, 0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    return (x - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
 class Linear(nn.Linear):
@@ -159,8 +177,8 @@ class Linear(nn.Linear):
 
     def forward(self, x, params=None):
         dt = self.compute_dtype or torch.float32
-        if dt == torch.float32:
-            return F.linear(x.float(), self.weight, self.bias)
+        if dt == torch.float32:  # the parameters' dtype: fp64 in a float64 reference run
+            return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
         w, b = params if params is not None else self.cast()
         y = F.linear(x.to(dt), w)
         return y if b is None else y + b
@@ -181,8 +199,8 @@ class Conv(nn.Conv1d):
     def forward(self, x):
         dt = self.compute_dtype or torch.float32
         x = x.transpose(1, 2)
-        if dt == torch.float32:
-            return super().forward(x.float()).transpose(1, 2)
+        if dt == torch.float32:  # the parameters' dtype: fp64 in a float64 reference run
+            return super().forward(x.to(self.weight.dtype)).transpose(1, 2)
         y = F.conv1d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
                      self.dilation)
         return (y + self.bias.to(dt)[:, None]).transpose(1, 2)

@@ -1,11 +1,15 @@
 """PitchExtractor: mel -> f0 (counterpart of `bisinger_tpu/models/pe.py:21-69`).
 
-Prenet (eval-mode BatchNorm) -> ConvStacks -> 5-layer PitchPredictor ->
-[f0_norm, uv_logit]; `f0_denorm_pred` is 2^f0, zero where unvoiced or
-padded. The BatchNorm running statistics come from `pe_batch_stats.npz`;
-loading raises if they are missing (weights.load_flax_params leaves
-nothing unfilled). The convs run in `compute_dtype` (`pe.py:38`); the
-norms, the heads and the outputs are fp32.
+Prenet (BatchNorm) -> ConvStacks -> 5-layer PitchPredictor (dropout 0.5)
+-> [f0_norm, uv_logit]; `f0_denorm_pred` is 2^f0, zero where unvoiced or
+padded. `deterministic=False` (training) runs the predictor's dropout
+(masks from the generator `common.set_dropout_generator` hands it) and
+normalises with the batch's statistics, updating the running ones; by
+default both are off, as flax's `deterministic=True`. The BatchNorm
+running statistics come from `pe_batch_stats.npz`; loading raises if they
+are missing (weights.load_flax_params leaves nothing unfilled). The convs
+run in `compute_dtype` (`pe.py:38`); the norms (their statistics too), the
+heads and the outputs are fp32.
 """
 
 from __future__ import annotations
@@ -30,10 +34,11 @@ class PitchExtractor(nn.Module):
         self.mel_encoder = ConvStacks(hidden, n_layers=2, n_chans=hidden, odim=hidden, dtype=dtype)
         self.pitch_predictor = PitchPredictor(hidden, n_layers=5, n_chans=predictor_hidden,
                                               odim=2, kernel_size=hp["predictor_kernel"],
-                                              dtype=dtype)
+                                              dtype=dtype, dropout=0.5)
 
-    def forward(self, mel):
-        pitch_pred = self.pitch_predictor(self.mel_encoder(self.mel_prenet(mel)))
+    def forward(self, mel, deterministic: bool = True):
+        x = self.mel_encoder(self.mel_prenet(mel, deterministic))
+        pitch_pred = self.pitch_predictor(x, deterministic)
         f0 = 2.0 ** pitch_pred[:, :, 0]
         if self.use_uv:
             f0 = torch.where(pitch_pred[:, :, 1] > 0, torch.zeros_like(f0), f0)

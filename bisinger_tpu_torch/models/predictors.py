@@ -6,10 +6,12 @@ ConvStacks). The duration predictor's layers end in dropout
 (`predictor_dropout`), which runs only when a caller passes
 `deterministic=False`: FastSpeech2 calls its predictors without that
 argument (`bisinger_tpu/models/fs2.py:203,211`), so flax runs them
-deterministically in training too, and so does the port. BatchNorm uses
-its running statistics. The convs (and ConvStacks' input projection) run
-in `dtype`; the norms compute in fp32 and return fp32, and the output
-heads are fp32, as in the JAX package.
+deterministically in training too, and so does the port. The
+PitchExtractor's modules take `deterministic` as flax's do: its pitch
+predictor's dropout and its Prenet's batch statistics run in training.
+The convs (and ConvStacks' input projection) run in `dtype`; the norms
+compute in fp32 and return fp32, and the output heads are fp32, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -76,29 +78,32 @@ class DurationPredictor(nn.Module):
 
 
 class PitchPredictor(nn.Module):
-    """Sinusoidal positions + conv stack -> linear (`predictors.py:213-237`)."""
+    """Sinusoidal positions + conv stack -> linear (`predictors.py:213-237`);
+    each layer's dropout runs when `deterministic` is False."""
 
     def __init__(self, cin: int, n_layers: int = 5, n_chans: int = 384, odim: int = 2,
-                 kernel_size: int = 5, dtype=torch.float32):
+                 kernel_size: int = 5, dtype=torch.float32, dropout: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
         self.pos_embed_alpha = nn.Parameter(torch.ones(1))
         for i in range(n_layers):
             self.add_module(f"conv_{i}", ConvReluLN(cin if i == 0 else n_chans, n_chans,
-                                                    kernel_size, dtype))
+                                                    kernel_size, dtype, dropout))
         self.linear = nn.Linear(n_chans, odim)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True):
         nonpad = (x.abs().sum(-1) != 0).long()
         x = x + self.pos_embed_alpha * sinusoidal_positions(nonpad, x.shape[-1])
         for i in range(self.n_layers):
-            x = getattr(self, f"conv_{i}")(x)
+            x = getattr(self, f"conv_{i}")(x, deterministic)
         return self.linear(x)
 
 
 class Prenet(nn.Module):
     """3 x (conv k=5 -> ReLU -> BatchNorm, masked) -> Dense, masked
-    (`predictors.py:247-284`); BatchNorm in eval mode."""
+    (`predictors.py:247-284`). BatchNorm with the running statistics, or with
+    the batch's (padding frames included: the mask comes after the norm),
+    updating the running ones, when `deterministic` is False."""
 
     def __init__(self, cin: int = 80, out_dim: int = 256, kernel: int = 5, n_layers: int = 3,
                  dtype=torch.float32):
@@ -110,11 +115,11 @@ class Prenet(nn.Module):
             self.add_module(f"norm_{i}", nn.BatchNorm1d(out_dim, eps=1e-5))
         self.out_proj = nn.Linear(out_dim, out_dim)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True):
         nonpad = 1.0 - (x.abs().sum(-1) == 0).to(x.dtype)[:, :, None]
         for i in range(self.n_layers):
             x = F.relu(getattr(self, f"conv_{i}")(x))
-            x = batch_norm(getattr(self, f"norm_{i}"), x)
+            x = batch_norm(getattr(self, f"norm_{i}"), x, use_running_average=deterministic)
             x = x * nonpad
         return self.out_proj(x) * nonpad
 
@@ -139,4 +144,4 @@ class ConvStacks(nn.Module):
             y = getattr(self, f"conv_{i}")(x)
             y = group_norm(getattr(self, f"norm_{i}"), y)
             x = x + F.relu(y)  # fp32 from here: the norm's output promotes x
-        return self.out_proj(x.float())
+        return self.out_proj(x.to(self.out_proj.weight.dtype))

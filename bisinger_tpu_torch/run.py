@@ -6,6 +6,10 @@
     # larger --max_updates resumes from the latest checkpoint
     python -m bisinger_tpu_torch.run --config exp.json --exp_name fs2 \\
         --hparams "task_cls=usr.diffsinger_task.AuxDecoderMIDITask" --max_updates 100
+    # the PitchExtractor (its work dir also gets pe_params.npz and
+    # pe_batch_stats.npz at each checkpoint)
+    python -m bisinger_tpu_torch.run --config exp.json --exp_name pe \\
+        --hparams "task_cls=tasks.tts.pe.PitchExtractionTask,pitch_type=frame,use_uv=true"
     # validate the latest checkpoint
     python -m bisinger_tpu_torch.run --exp_name fs2 --validate
     # scores -> wavs: the flagship's files, or a work dir's latest checkpoint
@@ -30,12 +34,13 @@ import sys
 # worker processes would otherwise oversubscribe the host
 os.environ.setdefault("OMP_NUM_THREADS", "1")
 
-TASKS = ("AuxDecoderMIDITask", "DiffSingerMIDITask")
+TASKS = ("AuxDecoderMIDITask", "DiffSingerMIDITask", "PitchExtractionTask")
 
 
 def task_class(name: str):
-    """`task_cls` (a dotted path of the reference or of the JAX package, or
-    empty for the diffusion stage) -> the port's task class."""
+    """`task_cls` (a dotted path of the reference, e.g.
+    tasks.tts.pe.PitchExtractionTask, or of the JAX package, or empty for
+    the diffusion stage) -> the port's task class."""
     from bisinger_tpu_torch.training import tasks
 
     short = (name or "DiffSingerMIDITask").rsplit(".", 1)[-1]
@@ -88,6 +93,7 @@ def work_dir_of(args) -> str:
 def trainer_from_args(args):
     """The task of `task_cls` and its Trainer in the work dir, as the train
     and --validate actions build them."""
+    from bisinger_tpu_torch.training.tasks import PitchExtractionTask
     from bisinger_tpu_torch.training.trainer import Trainer
     from bisinger_tpu_torch.utils.text_encoder import build_phone_encoder
 
@@ -95,12 +101,19 @@ def trainer_from_args(args):
     if not hp["binary_data_dir"]:
         raise ValueError("binary_data_dir is not set: name a config (--config) or set it "
                          "(--hparams binary_data_dir=...)")
-    encoder = build_phone_encoder(hp["binary_data_dir"])
-    task = task_class(hp.get("task_cls", ""))(hp, encoder.vocab_size, device=args.device)
+    cls = task_class(hp.get("task_cls", ""))
+    if cls is PitchExtractionTask:  # mel -> f0: no vocabulary
+        task = cls(hp, device=args.device)
+    else:
+        task = cls(hp, build_phone_encoder(hp["binary_data_dir"]).vocab_size,
+                   device=args.device)
     return Trainer(task, hp, work_dir_of(args))
 
 
 def main(argv=None) -> int:
+    from bisinger_tpu_torch import full_fp32
+
+    full_fp32()
     args = parse_args(argv)
     work_dir = work_dir_of(args)
     if args.infer:

@@ -20,6 +20,8 @@ import time
 
 import torch
 
+from bisinger_tpu_torch import full_fp32
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -35,8 +37,7 @@ def main(argv=None) -> int:
 
     from bisinger_tpu_torch.inference.pipeline import SVSInferTorch, make_batch
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_fp32()
     over = {"compute_dtype": args.compute_dtype} if args.compute_dtype else None
     svs = SVSInferTorch.from_checkpoint(device="cuda", hp_overrides=over)
     batch = make_batch(args.batch, 64, args.frames, svs.vocab_size, seed=0)

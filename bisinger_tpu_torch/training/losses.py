@@ -1,9 +1,10 @@
-"""Training losses of the two acoustic stages (counterpart of
-`bisinger_tpu/training/losses.py:26-215`): the mel l1 and SSIM losses and
-the MIDI tasks' phone, word and sentence duration losses. Every reduction
-is masked over static shapes; the word-duration loss sums into a fixed
-`max_words` segments. The pitch and energy losses wait with the pitch and
-energy embeddings, which the port does not build.
+"""Training losses (counterpart of `bisinger_tpu/training/losses.py:26-240`):
+the mel l1 and SSIM losses, the MIDI tasks' phone, word and sentence
+duration losses, and the PitchExtractor's frame-level f0 loss (L1 or L2 on
+the voiced frames plus the uv logits' BCE). Every reduction is masked over
+static shapes; the word-duration loss sums into a fixed `max_words`
+segments. The acoustic model's pitch and energy losses wait with the pitch
+and energy embeddings, which the port does not build.
 """
 
 from __future__ import annotations
@@ -146,3 +147,26 @@ def add_dur_loss_sil(dur_pred_log, mel2ph, txt_tokens, is_sil, losses: Dict, hp)
     if hp["lambda_sent_dur"] > 0:
         sdur = ((torch.log(dur_pred.sum(-1) + 1.0) - torch.log(dur_gt.sum(-1) + 1.0)) ** 2).mean()
         losses["sdur"] = sdur * hp["lambda_sent_dur"]
+
+
+def binary_cross_entropy_with_logits(logits, labels):
+    """max(x, 0) - x * y + log1p(exp(-|x|)), elementwise."""
+    return torch.clamp_min(logits, 0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
+
+
+def add_f0_loss(pitch_pred, f0, uv, nonpadding, losses: Dict, hp):
+    """Frame-level f0 loss (`losses.py:220-240`): with `use_uv`, the uv
+    logits' BCE over the non-padding frames (x lambda_uv) and the f0 error on
+    the voiced ones only; `pitch_loss` l1 or l2 (x lambda_f0)."""
+    if hp["use_uv"]:
+        uv_loss = binary_cross_entropy_with_logits(pitch_pred[:, :, 1], uv)
+        losses["uv"] = _masked_mean(uv_loss, nonpadding) * hp["lambda_uv"]
+        nonpadding = nonpadding * (uv == 0).float()
+    f0_pred = pitch_pred[:, :, 0]
+    if hp["pitch_loss"] == "l1":
+        err = torch.abs(f0_pred - f0)
+    elif hp["pitch_loss"] == "l2":
+        err = (f0_pred - f0) ** 2
+    else:
+        raise NotImplementedError(hp["pitch_loss"])
+    losses["f0"] = _masked_mean(err, nonpadding) * hp["lambda_f0"]

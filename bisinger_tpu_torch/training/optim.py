@@ -1,6 +1,6 @@
-"""The optimizer and learning-rate schedules of the two acoustic stages
-(counterpart of `bisinger_tpu/training/optim.py:26-156`), written for the
-port and held to optax's numbers:
+"""The optimizer and learning-rate schedules of the training tasks
+(counterpart of `bisinger_tpu/training/optim.py:26-156` and of the GAN
+vocoder's `optax.adamw`), written for the port and held to optax's numbers:
 
   - `rsqrt_schedule`: warmup * rsqrt decay * hidden^-0.5, floored at 1e-7
     (the FFT-Singer stage); `step_decay_schedule`: halved every
@@ -16,6 +16,11 @@ port and held to optax's numbers:
   - `accumulate_grad_batches` (an int, or a dict of epoch -> factor):
     optax.MultiSteps: the mean of k mini-step gradients goes through the
     chain once every k mini-steps; every mini-step counts as a step.
+  - schedule "vocoder": `optax.adamw(vocoder_lr, vocoder_adam_b1,
+    vocoder_adam_b2)` of the GAN task (`bisinger_tpu/training/
+    vocoder_task.py:86-88`): a constant rate (default 2e-4), betas 0.8 and
+    0.99 by default, optax's own weight decay 1e-4 on every leaf (biases and
+    weight-norm g's too), no clipping and no accumulation.
 """
 
 from __future__ import annotations
@@ -102,12 +107,22 @@ class AdamW:
     def __init__(self, params: Dict[str, torch.nn.Parameter], hp, schedule: str = "rsqrt",
                  steps_per_epoch: Optional[int] = None):
         self.params = dict(params)
-        self.lr_fn = rsqrt_schedule(hp) if schedule == "rsqrt" else step_decay_schedule(hp)
-        self.max_norm = float(hp.get("clip_grad_norm", 0) or 0)
-        self.b1, self.b2 = float(hp["optimizer_adam_beta1"]), float(hp["optimizer_adam_beta2"])
         self.eps = 1e-8
-        self.weight_decay = float(hp.get("weight_decay", 0.0) or 0.0)
-        accum = hp.get("accumulate_grad_batches", 1)
+        if schedule == "vocoder":
+            lr = float(hp.get("vocoder_lr", 2e-4))
+            self.lr_fn = lambda _: lr
+            self.max_norm = 0.0
+            self.b1 = float(hp.get("vocoder_adam_b1", 0.8))
+            self.b2 = float(hp.get("vocoder_adam_b2", 0.99))
+            self.weight_decay = 1e-4  # optax.adamw's default
+            accum = 1
+        else:
+            self.lr_fn = rsqrt_schedule(hp) if schedule == "rsqrt" else step_decay_schedule(hp)
+            self.max_norm = float(hp.get("clip_grad_norm", 0) or 0)
+            self.b1 = float(hp["optimizer_adam_beta1"])
+            self.b2 = float(hp["optimizer_adam_beta2"])
+            self.weight_decay = float(hp.get("weight_decay", 0.0) or 0.0)
+            accum = hp.get("accumulate_grad_batches", 1)
         if isinstance(accum, Mapping):
             # the per-epoch form needs batches per epoch; without them (a task
             # outside a trainer) it does not accumulate, as in the JAX package

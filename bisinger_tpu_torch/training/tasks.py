@@ -1,5 +1,5 @@
-"""The two acoustic training tasks (counterpart of
-`bisinger_tpu/training/tasks.py:42-306`):
+"""The training tasks of the acoustic stages and the PitchExtractor
+(counterpart of `bisinger_tpu/training/tasks.py:42-387`):
 
   - `AuxDecoderMIDITask`: the FFT-Singer stage, FastSpeech2MIDI alone;
     losses mel (l1 + SSIM) and phone/word/sentence duration; rsqrt
@@ -8,19 +8,26 @@
     conditioner; losses the diffusion loss (`mel`) and the durations; step
     decay schedule; `warm_start_fs2` loads the FFT-Singer stage's
     parameters; `step_flags` is the `switch_midi2f0_step` curriculum.
+  - `PitchExtractionTask`: the PitchExtractor, mel -> f0 and uv; losses
+    the f0 loss and the uv BCE; rsqrt schedule; its Prenet's BatchNorm
+    statistics are part of its state, and `export` writes them beside the
+    parameters (pe_params.npz, pe_batch_stats.npz); it takes no
+    vocabulary.
 
 A task owns the model (on its device, initialised as flax initialises it),
 the optimizer (`training/optim.AdamW`) and the losses. `train_step` runs
 the model in train mode under autograd: dropout from the generator it is
 handed, the diffusion stage's t and noise from it too, or pinned by the
 caller. No step reaches K1 or K2, as no step in the JAX package reaches a
-Pallas kernel. The pitch and energy losses, `PitchExtractionTask`,
-`DiffSpeechTask` and the offline task are not ported.
+Pallas kernel. The acoustic model's pitch and energy losses,
+`DiffSpeechTask` and the offline task are not ported; the GAN vocoder
+task is `training/vocoder_task.py`.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from collections.abc import Mapping
 from typing import Any, Dict, Optional
 
@@ -33,6 +40,7 @@ from bisinger_tpu_torch.models.common import Embedding, set_dropout_generator
 from bisinger_tpu_torch.models.diffnet import DiffNet
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
 from bisinger_tpu_torch.models.fs2 import FastSpeech2MIDI
+from bisinger_tpu_torch.models.pe import PitchExtractor
 from bisinger_tpu_torch.training import losses as L
 from bisinger_tpu_torch.training.checkpoints import load_params_into
 from bisinger_tpu_torch.training.optim import AdamW
@@ -46,23 +54,29 @@ def model_kwargs(batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
                 lang=batch.get("lang"), speechsing=batch.get("speechsing"))
 
 
-def _lecun_normal_(w, gen):
+_CDF_2 = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))  # the standard normal's CDF at 2
+
+
+def lecun_normal_(w, gen):
     """flax's default kernel init: a normal truncated at 2 std, scaled to
-    variance 1/fan_in."""
+    variance 1/fan_in; drawn by the inverse CDF (one uniform draw a value)."""
     std = math.sqrt(1.0 / (w[0].numel())) / 0.87962566103423978
+    u = torch.rand(w.shape, generator=gen) * (2 * _CDF_2 - 1) + (1 - _CDF_2)
     with torch.no_grad():
-        w.copy_(torch.nn.init.trunc_normal_(torch.empty(w.shape), std=std, a=-2 * std,
-                                            b=2 * std, generator=gen))
+        w.copy_(torch.erfinv(2 * u - 1) * (math.sqrt(2.0) * std))
 
 
-def flax_init_(model: nn.Module, seed: int) -> nn.Module:
+XAVIER = ("q_proj", "k_proj", "v_proj", "out_proj", "Dense_0", "ffn1", "ffn2")
+
+
+def flax_init_(model: nn.Module, seed: int, xavier=XAVIER) -> nn.Module:
     """Initialise `model` as its flax counterpart initialises its
-    parameters: Dense and Conv kernels lecun-normal; the attention and
-    FFN projections xavier-uniform; the DiffNet's convs He-normal and its
-    output projection zero; embeddings normal(dim^-0.5); biases zero,
-    norms one."""
+    parameters: Dense and Conv kernels lecun-normal; the projections
+    named in `xavier` (a module's name or its path; by default the
+    attention and FFN projections) xavier-uniform; the DiffNet's convs
+    He-normal and its output projection zero; embeddings normal(dim^-0.5);
+    biases zero, norms one."""
     gen = torch.Generator().manual_seed(int(seed))
-    xavier = ("q_proj", "k_proj", "v_proj", "out_proj", "Dense_0", "ffn1", "ffn2")
     he = ("input_projection", "skip_projection", "dilated_conv", "conditioner_projection",
           "output_projection")
     diffnets = [m for m in model.modules() if isinstance(m, DiffNet)]
@@ -83,13 +97,13 @@ def flax_init_(model: nn.Module, seed: int) -> nn.Module:
                 with torch.no_grad():
                     w.copy_(torch.randn(w.shape, generator=gen)
                             * math.sqrt(2.0 / w[0].numel()))
-            elif leaf in xavier and not in_diffnet:
+            elif (leaf in xavier or name in xavier) and not in_diffnet:
                 fan_in, fan_out = w[0].numel(), w.shape[0] * (w[0].numel() // w.shape[1])
                 bound = math.sqrt(6.0 / (fan_in + fan_out))
                 with torch.no_grad():
                     w.copy_(torch.rand(w.shape, generator=gen) * 2 * bound - bound)
             else:
-                _lecun_normal_(w, gen)
+                lecun_normal_(w, gen)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, nn.LayerNorm):
@@ -217,3 +231,46 @@ class DiffSingerMIDITask(AuxDecoderMIDITask):
             raise ValueError("warm start: no parameter of the source matches the conditioner's "
                              "names and shapes")
         load_flax_params(self.model.fs2, merged)
+
+
+class PitchExtractionTask(AuxDecoderMIDITask):
+    """PitchExtractor training: mel -> (f0, uv) (`tasks.py:309-387`). A
+    train step runs the predictor's dropout and the Prenet's batch
+    statistics, which update the running ones (saved with the parameters
+    under their flax names, `mel_prenet/norm_i/{mean,var}`)."""
+
+    schedule = "rsqrt"
+
+    def __init__(self, hp, device=None):
+        self.hp = hp
+        self.device = resolve_device(device)
+        # flax's initialisers: ConvStacks' projections xavier, the rest lecun
+        self.model = flax_init_(PitchExtractor(hp), hp.get("seed", 1234),
+                                xavier=("mel_encoder.in_proj", "mel_encoder.out_proj")
+                                ).to(self.device)
+        self.opt = self.build_optimizer()
+
+    def forward(self, batch, generator=None, drop_f0: bool = False, t=None, noise=None):
+        return self.model(batch["mels"], deterministic=not self.model.training)
+
+    def compute_losses(self, ret, batch) -> Dict[str, torch.Tensor]:
+        losses: Dict[str, torch.Tensor] = {}
+        nonpadding = (batch["mel2ph"] != 0).float()
+        L.add_f0_loss(ret["pitch_pred"], batch["f0"], batch["uv"], nonpadding, losses, self.hp)
+        return losses
+
+    @torch.no_grad()
+    def infer_step(self, mels) -> Dict[str, torch.Tensor]:
+        """Eval mode, the running statistics: {"pitch_pred", "f0_denorm_pred"}."""
+        self.model.eval()
+        return self.model(mels)
+
+    def export(self, out_dir: str) -> None:
+        """pe_params.npz (parameters) and pe_batch_stats.npz (the BatchNorm
+        running statistics) into `out_dir`, as the inference path reads them."""
+        flat = export_flax_params(self.model)
+        stats = {k: v for k, v in flat.items() if k.rsplit("/", 1)[-1] in ("mean", "var")}
+        os.makedirs(out_dir, exist_ok=True)
+        np.savez(os.path.join(out_dir, "pe_params.npz"),
+                 **{k: v for k, v in flat.items() if k not in stats})
+        np.savez(os.path.join(out_dir, "pe_batch_stats.npz"), **stats)

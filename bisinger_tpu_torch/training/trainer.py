@@ -6,7 +6,9 @@
     `Prefetcher` thread (`dataloader_prefetch`, default depth 2);
   - a sanity validation before the first step (`num_sanity_val_steps`),
     a validation and a checkpoint every `val_check_interval` updates and
-    at the end, the newest `num_ckpt_keep` checkpoints kept;
+    at the end, the newest `num_ckpt_keep` checkpoints kept; a task with
+    an `export` (the PitchExtractor's) also writes its serving files into
+    the work dir at each checkpoint;
   - resume from the latest checkpoint (`| resumed from step N`), else the
     diffusion stage's warm start from `fs2_ckpt`, which fails loudly when
     the path holds nothing;
@@ -121,6 +123,9 @@ class Trainer:
         st = self.task.state()
         self.ckpt.save(self.global_step, st["params"], st["opt_state"],
                        self.generator.get_state())
+        export = getattr(self.task, "export", None)
+        if export is not None:  # the PitchExtractor's files for serving
+            export(self.work_dir)
 
     def restore(self) -> bool:
         restored = self.ckpt.restore()

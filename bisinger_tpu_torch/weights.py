@@ -8,7 +8,9 @@ The port's modules carry the flax names, so a key maps to a state_dict
 entry by path: "fs2/encoder/layer_0/ffn/Conv_0/kernel" is
 "fs2.encoder.layer_0.ffn.Conv_0.weight". Layouts:
 
-- Conv kernel (k, in, out) -> Conv1d weight (out, in, k);
+- Conv kernel (k, in, out) -> Conv1d weight (out, in, k), grouped too
+  (flax (k, in / groups, out), torch (out, in / groups, k));
+- 2-D Conv kernel (kh, kw, in, out) -> Conv2d weight (out, in, kh, kw);
 - Dense kernel (in, out), or a 1x1 Conv kernel (1, in, out) held by an
   nn.Linear, -> Linear weight (out, in);
 - ConvTranspose kernel (k, in, out) (flax, no kernel flip) -> torch
@@ -59,6 +61,8 @@ def to_torch_layout(module: nn.Module, flax_leaf: str, arr: np.ndarray) -> np.nd
         return arr[::-1].transpose(1, 2, 0)
     if isinstance(module, nn.Conv1d):
         return arr.transpose(2, 1, 0)
+    if isinstance(module, nn.Conv2d):
+        return arr.transpose(3, 2, 0, 1)
     if isinstance(module, nn.Linear):
         return (arr[0] if arr.ndim == 3 else arr).T
     raise TypeError(f"no kernel layout for {type(module).__name__}")
@@ -95,7 +99,7 @@ def unfilled(state_keys: Iterable[str], filled: Iterable[str]) -> list:
 
 _FLAX_WEIGHT = ((nn.Embedding, "embedding"),
                 ((nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d), "scale"),
-                ((nn.Linear, nn.Conv1d, nn.ConvTranspose1d), "kernel"))
+                ((nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d), "kernel"))
 _FLAX_LEAF = {"bias": "bias", "running_mean": "mean", "running_var": "var"}
 
 
@@ -105,19 +109,23 @@ def from_torch_layout(module: nn.Module, arr: np.ndarray) -> np.ndarray:
         return arr.transpose(2, 0, 1)[::-1]
     if isinstance(module, nn.Conv1d):
         return arr.transpose(2, 1, 0)
+    if isinstance(module, nn.Conv2d):
+        return arr.transpose(2, 3, 1, 0)
     if isinstance(module, nn.Linear):
         return arr.T[None] if getattr(module, "conv1x1", False) else arr.T
     return arr
 
 
-def export_flax_params(model: nn.Module) -> Dict[str, np.ndarray]:
+def export_flax_params(model: nn.Module, tensors=None) -> Dict[str, np.ndarray]:
     """Every parameter and buffer of `model` (but BatchNorm's step count and
     non-persistent buffers) under its flat flax key, in flax's layout, as
     fp32 numpy arrays: `load_flax_params(model, export_flax_params(model))`
-    changes nothing."""
+    changes nothing. `tensors` (state_dict names -> tensors, default the
+    state_dict) exports other values of the same entries, such as weights
+    composed from a weight-norm pair."""
     modules = dict(model.named_modules())
     out: Dict[str, np.ndarray] = {}
-    for tkey, value in model.state_dict().items():
+    for tkey, value in (model.state_dict() if tensors is None else tensors).items():
         if tkey.endswith("num_batches_tracked"):
             continue
         mpath, _, name = tkey.rpartition(".")

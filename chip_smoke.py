@@ -58,14 +58,34 @@ and seconds (a failed phase exits non-zero):
      K2-bf16 (`launches_by_path["trained"]`). Steps/s (the first step
      apart), peak memory and the losses at steps 1 and 20 are reported;
      the trainer's log goes to checkpoints/chip_smoke/training.log;
+  11. (run before 9) the rest of the flagship cascade trained in bf16 at
+     full width, only the steps cut: the PitchExtractor through run's
+     trainer on phase 10's corpus (hparams_diff.json with the keys of
+     configs/tts/pe.yaml, B=48, 512 frames), 20 steps, `--validate`, a
+     resume to 22; the NSF HiFi-GAN through tools/train_vocoder at the
+     flagship recipe's setting (512 channels, B=8, 64 frames), 20 steps in
+     full band and 20 in mb4 (PQMF, 4 subbands). Gates: finite losses, a
+     non-zero gradient on every PE parameter, the PE's running statistics
+     moved, no K1 or K2 launch in any train step, one fp32 step of the PE
+     (from its initialisation and from the PE trained here) and one GAN
+     step of each vocoder (voiced f0) on the card against the CPU, each
+     also read against the step in float64 (tools/step_parity). The
+     trained PE and full-band generator with diff_params.npz through
+     SVSInferTorch.from_checkpoint at B=4, T=512 (K1-bf16 and K2-bf16,
+     `launches_by_path["trained_cascade"]`); the mb4 generator on the same
+     mel through K2 and PQMF in both routes (`launches_by_path["mb4"]`),
+     bf16 against fp32 within the JAX package's bf16 contract. Steps/s,
+     peak memory, f0 MAE (PE), gen_mel and disc_loss at steps 1 and 20
+     (vocoder) are reported; the log goes to
+     checkpoints/chip_smoke/cascade.log;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
-     buckets of phases 5, 8 and 10.
+     buckets of phases 5, 8, 10 and 11 (the mb4 stages among them).
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5 and 8. Without a CUDA device it exits 1 and prints
+path of phases 5, 8, 10 and 11. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -379,16 +399,6 @@ TRAIN_ITEMS = 64  # the train split (53 items) fills one batch of the flagship's
 TRAIN_STEPS = 20
 
 
-def _flax_grads(model):
-    """The parameters' .grad (zero where there is none) under their flax keys."""
-    from bisinger_tpu_torch.weights import export_flax_params
-
-    g = copy.deepcopy(model)
-    for p, q in zip(model.parameters(), g.parameters()):
-        q.data = torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
-    return export_flax_params(g)
-
-
 def _grad_checks(model):
     """(every gradient finite, the encoder's and the DiffNet's each non-zero)."""
     finite, nonzero = True, True
@@ -401,48 +411,7 @@ def _grad_checks(model):
     return finite, nonzero
 
 
-def _step_parity(task_cls, hp, vocab, params, batch, pins, dev):
-    """One fp32 train step of `task_cls` on the card and on the CPU from the
-    same parameters and batch, with the CPU tests' bounds
-    (tests/test_torch_training.py): loss 1e-5 relative, every gradient within
-    1e-4 of the largest |gradient|, and every parameter after the update
-    within 1e-6 of the CPU's beyond what the two gradients' difference moves
-    through Adam's first step. Returns (ok, text)."""
-    import numpy as np
-
-    from bisinger_tpu_torch.data.dataset import batch_to_device
-    from bisinger_tpu_torch.weights import export_flax_params
-
-    res = {}
-    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        task = task_cls(hp, vocab, device=device)
-        task.load_state(params)
-        out = task.train_step(batch_to_device(batch, device),
-                              **{k: v.to(device) for k, v in pins.items()})
-        res[where] = (float(out["total_loss"]), _flax_grads(task.model),
-                      export_flax_params(task.model), task.opt)
-    (lc, gc, pc, opt), (lp, gp, pp, _) = res["card"], res["cpu"]
-    loss_rel = abs(lc - lp) / abs(lp)
-    gmax = max(float(np.abs(v).max()) for v in gp.values())
-    grad_rel = max(float(np.abs(gc[k].astype(np.float64) - gp[k]).max()) for k in gp) / gmax
-
-    def clip(grads):
-        norm = np.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in grads.values()))
-        return min(1.0, opt.max_norm / norm)
-
-    lr, cc, cp = opt.lr_fn(0), clip(gc), clip(gp)
-    u = lambda x: x / (np.abs(x) + 1e-8)  # noqa: E731
-    param_excess = max(float((np.abs(pc[k].astype(np.float64) - pp[k])
-                              - lr * np.abs(u(cc * gc[k].astype(np.float64))
-                                            - u(cp * gp[k].astype(np.float64)))).max())
-                       for k in pp)
-    ok = loss_rel <= 1e-5 and grad_rel <= 1e-4 and param_excess <= 1e-6
-    return ok, (f"loss {lc:.6f} vs CPU {lp:.6f} (relative {loss_rel:.2e}, tol 1e-5), worst "
-                f"grad {grad_rel:.2e} of the largest (tol 1e-4), params {param_excess:.2e} "
-                "beyond Adam's carry (tol 1e-6)")
-
-
-def training_phase(svs, counters, by_path, dev):
+def training_phase(svs, counters, by_path, dev, tmp):
     """Phase 10: the acoustic training path on the card at the flagship's
     widths in bf16 (20 x 256 DiffNet, hidden 256) and its batch shape
     (16 tokens, 512 frames, 48 sentences): the port's synthetic corpus (64
@@ -451,10 +420,9 @@ def training_phase(svs, counters, by_path, dev):
     warm-started from diff_params.npz) for 20 steps each through run's
     trainer on the device-resident corpus; `--validate` and a resume to step
     22; the gates; the trained weights served through K1 and K2. Each part's
-    launch counts go into `by_path`. Returns (ok, lines)."""
+    launch counts go into `by_path`. The corpus stays in `tmp` for phase 11.
+    Returns (ok, lines)."""
     import contextlib
-    import shutil
-    import tempfile
 
     import numpy as np
 
@@ -463,6 +431,7 @@ def training_phase(svs, counters, by_path, dev):
     from bisinger_tpu_torch.data.synthetic import make_synthetic_corpus
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
     from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+    from bisinger_tpu_torch.tools.step_parity import step_parity
     from bisinger_tpu_torch.training.checkpoints import CheckpointManager
     from bisinger_tpu_torch.training.tasks import AuxDecoderMIDITask, DiffSingerMIDITask
     from bisinger_tpu_torch.weights import export_flax_params, load_flax_params, load_npz
@@ -483,7 +452,6 @@ def training_phase(svs, counters, by_path, dev):
         by_path[part] = {k: c.launches for k, c in counters.items()}
         return by_path[part]
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     cwd = os.getcwd()
     try:
         os.chdir(tmp)
@@ -591,7 +559,8 @@ def training_phase(svs, counters, by_path, dev):
         reset()
         for label, cls, params, pin in (("FFT-Singer", AuxDecoderMIDITask, fs2_params, {}),
                                         ("diffusion", DiffSingerMIDITask, ref, pins)):
-            ok, text = _step_parity(cls, hp32, vocab0, params, b, pin, dev)
+            ok, text = step_parity(lambda d, cls=cls: cls(hp32, vocab0, device=d), params, b,
+                                   pin, dev)
             checks[f"{label} fp32 card vs CPU"] = ok
             lines.append(f"{label} fp32 step card vs CPU (4 x 16 tokens x 64 frames): {text}")
         checks["no kernel launched in the parity steps"] = not any(read("10 parity").values())
@@ -623,7 +592,264 @@ def training_phase(svs, counters, by_path, dev):
             {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in stats.items()}))
     finally:
         os.chdir(cwd)
-        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
+def _pe_f0_mae(task, batch):
+    """Mean |f0 predicted - f0| in Hz over the voiced, non-padding frames of
+    a validation batch (log-normalised f0, as the flagship's)."""
+    with torch.no_grad():
+        pred = task.infer_step(batch["mels"])["f0_denorm_pred"]
+        voiced = (batch["uv"] == 0) & (batch["mel2ph"] > 0)
+        return float((pred - 2.0 ** batch["f0"]).abs()[voiced].mean())
+
+
+MB4 = dict(vocoder_multiband=4, upsample_rates=[8, 4], upsample_kernel_sizes=[16, 8])
+
+
+def cascade_phase(svs, counters, by_path, dev, tmp):
+    """Phase 11: the rest of the flagship cascade trained on the card in bf16
+    at full width, only the step counts cut. The PitchExtractor through
+    run's trainer on phase 10's corpus (hparams_diff.json with the keys of
+    configs/tts/pe.yaml; B=48, 16 tokens, 512 frames, device-resident), 20
+    steps, --validate, a resume to 22; the NSF HiFi-GAN through
+    tools/train_vocoder at the flagship recipe's setting (512 channels, B=8,
+    64 frames), 20 steps in full band and 20 in mb4. Gates: finite losses, a
+    non-zero gradient on every PE parameter, the running statistics moved,
+    no K1 or K2 launch in any train step, one fp32 step of each task on the
+    card against the CPU, each read against the step in float64 (the PE from
+    its initialisation and from the PE trained here, the GAN on a voiced
+    f0). Then the trained PE and full-band generator with diff_params.npz,
+    through SVSInferTorch.from_checkpoint at B=4, T=512 (K1-bf16 and
+    K2-bf16, `launches_by_path["trained_cascade"]`), and the
+    mb4 generator on the same mel through K2 and PQMF in both routes
+    (`launches_by_path["mb4"]`), bf16 against fp32 within the JAX package's
+    bf16 contract. Returns (ok, lines)."""
+    import contextlib
+    import shutil
+
+    import numpy as np
+
+    from bisinger_tpu_torch import run
+    from bisinger_tpu_torch.config import load_hparams_json, make_hparams
+    from bisinger_tpu_torch.data.dataset import batch_to_device
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
+    from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
+    from bisinger_tpu_torch.models.pqmf import PQMF
+    from bisinger_tpu_torch.tools import train_vocoder
+    from bisinger_tpu_torch.tools.step_parity import gan_step_parity, step_parity
+    from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+    from bisinger_tpu_torch.training.tasks import PitchExtractionTask
+    from bisinger_tpu_torch.vocoders.hifigan import latest_generator
+    from bisinger_tpu_torch.weights import export_flax_params, load_flax_params, load_npz
+
+    log_fn = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints",
+                          "chip_smoke", "cascade.log")
+    lines, checks = [], {}
+
+    def reset():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+
+    def read(part):
+        torch.cuda.synchronize()
+        by_path[part] = {k: c.launches for k, c in counters.items()}
+        return by_path[part]
+
+    cwd = os.getcwd()
+    try:
+        os.chdir(tmp)
+        # ---- the PitchExtractor through run's trainer ----
+        hp_pe = load_hparams_json(os.path.join(FLAGSHIP_DIR, "hparams_diff.json"), dict(
+            raw_data_dir=os.path.join(tmp, "raw"), binary_data_dir=os.path.join(tmp, "binary"),
+            task_cls="tasks.tts.pe.PitchExtractionTask", pitch_type="frame", pitch_loss="l1",
+            use_uv=True, max_updates=TRAIN_STEPS, val_check_interval=1000, log_interval=1,
+            num_ckpt_keep=2))
+        with open("pe.json", "w") as f:
+            json.dump(hp_pe, f)
+        with open(log_fn, "w") as logf, contextlib.redirect_stdout(logf):
+            tr = run.trainer_from_args(run.parse_args(["--config", "pe.json", "--exp_name",
+                                                       "pe"]))
+            _, valid_dl = tr.build_dataloaders()
+            vbatch = batch_to_device(next(iter(valid_dl)), dev)
+            mae0 = _pe_f0_mae(tr.task, vbatch)
+            stats0 = {k: v.clone() for k, v in tr.task.model.named_buffers()
+                      if k.endswith(("running_mean", "running_var"))}
+            grads = {}
+
+            def on_step(step, metrics):
+                if step == 1:
+                    grads["all non-zero"] = all(
+                        p.grad is not None and bool((p.grad != 0).any())
+                        for p in tr.task.model.parameters())
+                    grads["finite"] = all(bool(torch.isfinite(p.grad).all())
+                                          for p in tr.task.model.parameters())
+
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            tr.fit(on_step=on_step)
+            counts = read("11 train pe")
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            mae20 = _pe_f0_mae(tr.task, vbatch)
+            moved = all(not torch.equal(v, dict(tr.task.model.named_buffers())[k])
+                        for k, v in stats0.items())
+            log = tr.train_log
+            t1, tn = log[0][1], log[-1][1]
+            first_s, steady = t1 - tr.loop_started, (len(log) - 1) / (tn - t1)
+            losses = [m["total_loss"] for _, _, m in log]
+            reset()
+            rc_val = run.main(["--config", "pe.json", "--exp_name", "pe", "--validate"])
+            rc_res = run.main(["--config", "pe.json", "--exp_name", "pe", "--max_updates",
+                               str(TRAIN_STEPS + 2)])
+            counts_vr = read("11 validate and resume pe")
+        with open(log_fn) as f:
+            text = f.read()
+        pe_dir = os.path.join(tmp, "checkpoints", "pe")
+        ckpt = CheckpointManager(os.path.join(pe_dir, "ckpt"))
+        checks["pe losses finite"] = all(np.isfinite(x) for x in losses)
+        checks["pe grads finite"] = grads.get("finite", False)
+        checks["pe every parameter's grad non-zero"] = grads.get("all non-zero", False)
+        checks["pe running statistics moved"] = moved
+        checks["pe no kernel launched in training"] = not any(counts.values())
+        checks["pe validate"] = rc_val == 0 and "| validate: total_loss=" in text
+        checks["pe resume to 22"] = (rc_res == 0 and f"| resumed from step {TRAIN_STEPS}" in text
+                                     and ckpt.latest_step() == TRAIN_STEPS + 2)
+        checks["pe no kernel launched in validate/resume"] = not any(counts_vr.values())
+        lines.append(
+            f"PitchExtractor (B={hp_pe['max_sentences']}, 512 frames, bf16): first step "
+            f"{first_s:.2f} s, then {steady:.2f} steps/s; peak memory {mem:.2f} GiB; loss step 1 "
+            f"{losses[0]:.4f}, step {TRAIN_STEPS} {losses[-1]:.4f}; validation f0 MAE "
+            f"{mae0:.2f} Hz at step 0, {mae20:.2f} Hz at step {TRAIN_STEPS}; launches {counts}; "
+            f"resume: latest checkpoint {ckpt.latest_step()}")
+        stats = {"pe": dict(first_s=first_s, steps_per_s=steady, mem=mem, mae0=mae0,
+                            mae20=mae20)}
+
+        # fp32 PE step, card vs CPU (dropout masks pinned), from the
+        # initialisation (the recipe's first step) and from the PE trained here
+        hp32 = make_hparams(dict(hp_pe, compute_dtype="float32"))
+        b = {k: v[:4, :128].cpu().numpy() for k, v in vbatch.items()
+             if k in ("mels", "mel2ph", "f0", "uv")}
+        init = export_flax_params(PitchExtractionTask(hp32, device="cpu").model)
+        reset()
+        for label, params in (("initialisation", init), ("PE trained here", load_npz(
+                os.path.join(ckpt.directory, str(ckpt.latest_step()), "params.npz")))):
+            ok, ptext = step_parity(lambda d: PitchExtractionTask(hp32, device=d), params, b,
+                                    {}, dev, reference=True)
+            checks[f"pe fp32 card vs CPU from the {label}"] = ok
+            lines.append(f"PitchExtractor fp32 step card vs CPU from the {label} (4 x 128 "
+                         f"frames): {ptext}")
+        checks["pe no kernel launched in the parity steps"] = not any(
+            read("11 parity pe").values())
+
+        # ---- the vocoder, full band and mb4, through tools/train_vocoder ----
+        gens = {}
+        for variant, mb in (("full band", 1), ("mb4", 4)):
+            per_step = []
+
+            def on_step(step, metrics, per_step=per_step):
+                per_step.append(({k: c.launches for k, c in counters.items()},
+                                 torch.cuda.max_memory_allocated()))
+
+            cfg = dict(train_vocoder.settings(), steps=TRAIN_STEPS, batch=8, frames=64,
+                       channels=512, multiband=mb, out_dir=os.path.join(tmp, f"voc_mb{mb}"))
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            with open(log_fn, "a") as logf, contextlib.redirect_stderr(logf):
+                summary = train_vocoder.run(cfg, device=dev, on_step=on_step)
+            if per_step:  # the counts after the last train step, before the round trip
+                by_path[f"11 train vocoder {variant}"] = per_step[-1][0]
+            mem = per_step[-1][1] / 2 ** 30 if per_step else float("nan")
+            key = variant.replace(" ", "_")
+            checks[f"{key} {TRAIN_STEPS} steps"] = len(per_step) == TRAIN_STEPS
+            checks[f"{key} D and G losses finite"] = bool(np.isfinite([
+                summary.get(k, np.nan) for k in ("gen_mel_first", "gen_mel_last",
+                                                 "disc_loss_first", "disc_loss_last")]).all())
+            checks[f"{key} no kernel launched in any train step"] = all(
+                not any(n.values()) for n, _ in per_step)
+            gens[mb] = latest_generator(os.path.join(cfg["out_dir"], "vocoder"))
+            lines.append(
+                f"vocoder {variant} (512 channels, B=8, 64 frames, bf16): "
+                f"{summary.get('steps_per_s', float('nan')):.2f} steps/s (first step apart); "
+                f"peak memory {mem:.2f} GiB; gen_mel {summary.get('gen_mel_first', np.nan):.4f} "
+                f"at step 1, {summary.get('gen_mel_last', np.nan):.4f} at {TRAIN_STEPS}; "
+                f"disc_loss {summary.get('disc_loss_first', np.nan):.4f} -> "
+                f"{summary.get('disc_loss_last', np.nan):.4f}; mel L1 of the round trip "
+                f"{summary.get('mel_l1_vocoded_init', np.nan):.3f} (init) -> "
+                f"{summary.get('mel_l1_vocoded_trained', np.nan):.3f}; the script's ok "
+                f"{summary.get('ok')}")
+            stats[key] = dict(steps_per_s=summary.get("steps_per_s", float("nan")), mem=mem)
+            # fp32 GAN step, card vs CPU, voiced
+            reset()
+            ok, gtext = gan_step_parity(make_hparams(dict(
+                compute_dtype="float32", **(MB4 if mb == 4 else {}))), dev)
+            checks[f"{key} fp32 GAN step card vs CPU"] = ok
+            lines.append(f"{variant} fp32 GAN step card vs CPU (512 channels, B=2, 32 frames, "
+                         f"voiced): {gtext}")
+            checks[f"{key} no kernel launched in the parity steps"] = not any(
+                read(f"11 parity {key}").values())
+
+        # ---- serve what was trained ----
+        cascade = os.path.join(tmp, "cascade")
+        os.makedirs(os.path.join(cascade, "vocoder"))
+        for fn in ("hparams_diff.json", "phone_set.json", "spk_map.json", "diff_params.npz"):
+            os.symlink(os.path.join(FLAGSHIP_DIR, fn), os.path.join(cascade, fn))
+        for fn in ("pe_params.npz", "pe_batch_stats.npz"):
+            shutil.copy(os.path.join(pe_dir, fn), cascade)
+        shutil.copy(gens[1], os.path.join(cascade, "vocoder"))
+        served = SVSInferTorch.from_checkpoint(cascade, device=dev)
+        vocab = served.vocab_size
+        batch = make_batch(4, 16, 512, vocab, seed=9)
+        reset()
+        t0 = time.perf_counter()
+        out = served.synthesize(batch, generator=torch.Generator(device=dev).manual_seed(9))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read("trained_cascade")
+        wav = out["wav"]
+        checks["trained cascade served: audio finite"] = bool(torch.isfinite(wav).all()) and \
+            tuple(wav.shape) == (4, 512 * 128)
+        checks["trained cascade served: K1-bf16 and K2-bf16 launched"] = (
+            counts["fused_residual_stack_bf16"] > 0 and counts["fused_mrf_stage_bf16"] > 0)
+        lines.append(f"trained PE and full-band vocoder with diff_params.npz through "
+                     f"from_checkpoint at B=4, T=512: wav {tuple(wav.shape)}, |wav| max "
+                     f"{float(wav.abs().max()):.3f}, {secs:.2f} s, launches {counts}")
+
+        # the mb4 generator on the same mel, both routes
+        flat = load_npz(gens[4])
+        g = torch.Generator().manual_seed(4)
+        pins = dict(phase=torch.rand(4, 9, generator=g).to(dev),
+                    noise=torch.randn(4, 512 * 128, 9, generator=g).to(dev))
+        wavs = {}
+        reset()
+        for dt in ("bfloat16", "float32"):
+            voc = HifiGanGenerator(make_hparams(dict(
+                served.hp, compute_dtype=dt, **MB4)))
+            load_flax_params(voc, flat)
+            voc.to(dev).eval()
+            with torch.no_grad():
+                wavs[dt] = PQMF(4).synthesis(voc(out["mel"], out["f0"], **pins)).float()
+        counts = read("mb4")
+        w16, w32 = wavs["bfloat16"], wavs["float32"]
+        scale = float(w32.abs().mean())
+        mean_gap = float((w16 - w32).abs().mean()) / max(scale, 1e-30)
+        max_gap = float((w16 - w32).abs().max()) / max(scale, 1e-30)
+        checks["mb4 served: finite, non-silent, T x 128 samples"] = (
+            bool(torch.isfinite(w16).all()) and tuple(w16.shape) == (4, 512 * 128)
+            and float(w16.abs().max()) > 1e-3)
+        checks["mb4 served: K2 in both routes"] = (counts["fused_mrf_stage_bf16"] == 2
+                                                   and counts["fused_mrf_stage"] == 2)
+        checks["mb4 bf16 within the bf16 contract"] = mean_gap < 0.02 and max_gap < 0.2
+        lines.append(f"mb4 generator (trained above) on the cascade's mel through K2 and PQMF: "
+                     f"wav {tuple(w16.shape)}, |wav| max {float(w16.abs().max()):.3f}; bf16 "
+                     f"against fp32 mean {mean_gap:.2e} / max {max_gap:.2e} of mean |fp32| "
+                     f"(contract 2e-2 / 2e-1); launches {counts}")
+        lines.append("steps/s (first step apart), peak GiB, f0 MAE: " + json.dumps(
+            {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in stats.items()}))
+    finally:
+        os.chdir(cwd)
     bad = [k for k, v in checks.items() if not v]
     lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
     return not bad, lines
@@ -634,10 +860,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
+    from bisinger_tpu_torch import full_fp32
     from bisinger_tpu_torch.ops import _build, _tf32, diffnet_stack, mrf_stage
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_fp32()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
 
@@ -1029,11 +1255,23 @@ def main() -> int:
         if not ok:
             return 1
 
-    with Phase("10 training") as ph:
-        ok, lines = training_phase(svs, counters, by_path, dev)
-        ph.done(" | ".join(lines))
-        if not ok:
-            return 1
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        with Phase("10 training") as ph:
+            ok, lines = training_phase(svs, counters, by_path, dev, tmp)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+        with Phase("11 cascade training") as ph:
+            ok, lines = cascade_phase(svs, counters, by_path, dev, tmp)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     with Phase("9 kernels at every shape launched") as ph:
         # the input shapes any phase launched a kernel on (phases 5 and 8 at

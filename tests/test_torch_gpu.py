@@ -242,7 +242,8 @@ def test_infer_batch_on_a_worker_thread(cuda):
 @pytest.mark.parametrize("route", ["fp32", "bf16"])
 def test_kernels_refuse_autograd_on_the_card(cuda, route):
     """K1 and K2 on CUDA tensors: an input that requires grad under grad mode
-    raises before any launch; under no_grad the kernel launches."""
+    raises before any launch; under no_grad the kernel launches. No train
+    step of the PitchExtractor or the GAN vocoder launches either."""
     b16 = route == "bf16"
     g = torch.Generator(device=cuda).manual_seed(0)
     B, T, C, L = 1, 64, 256, 2
@@ -271,6 +272,31 @@ def test_kernels_refuse_autograd_on_the_card(cuda, route):
         k2(x, w, b, RK, RD)
     with torch.no_grad():
         assert k2(x, w, b, RK, RD).shape == x.shape
+    # a train step of the PitchExtractor and of the GAN vocoder (full band and
+    # mb4) in this route's compute_dtype launches neither kernel
+    from bisinger_tpu_torch.config import make_hparams
+    from bisinger_tpu_torch.training.tasks import PitchExtractionTask
+    from bisinger_tpu_torch.training.vocoder_task import HifiGanTask
+
+    dt = "bfloat16" if b16 else "float32"
+    counters = (diffnet_stack.counter, diffnet_stack.counter_bf16, mrf_stage.counter,
+                mrf_stage.counter_bf16)
+    for c in counters:
+        c.launches = 0
+    pe = PitchExtractionTask(make_hparams(dict(compute_dtype=dt)), device=cuda)
+    pe.train_step({"mels": torch.randn(2, 64, 80, device=cuda) - 3,
+                   "mel2ph": torch.ones(2, 64, dtype=torch.long, device=cuda),
+                   "f0": torch.full((2, 64), 7.5, device=cuda),
+                   "uv": torch.zeros(2, 64, device=cuda)}, torch.Generator(device=cuda))
+    for over in ({}, dict(vocoder_multiband=4, upsample_rates=[8, 4],
+                          upsample_kernel_sizes=[16, 8])):
+        voc = HifiGanTask(make_hparams(dict(compute_dtype=dt, **over)), device=cuda)
+        voc.train_step({"mels": torch.randn(2, 32, 80, device=cuda),
+                        "f0": torch.full((2, 32), 220.0, device=cuda),
+                        "wav": 0.1 * torch.randn(2, 32 * 128, device=cuda)},
+                       torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert all(c.launches == 0 for c in counters)
 
 
 def _k1_fp32_args(g, B, T, L, C=256):
@@ -353,3 +379,43 @@ def test_fp32_kernels_repeat_bit_identically(cuda, kernel):
     outs = [run() for _ in range(200)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, first) for o in outs)
+
+
+# The multiband (mb4) vocoder's stages: F=256 over 8T and F=128 over 32T
+# samples (upsample rates [8, 4]), at the serving batch of chip_smoke.py
+# phase 11 (B=4, T=512) and ragged
+@pytest.mark.parametrize("B,U,F", [(4, 8 * 512, 256), (4, 32 * 512, 128), (1, 8 * 37, 256),
+                                   (1, 32 * 37, 128)])
+@pytest.mark.parametrize("route", ["fp32", "bf16"])
+def test_mrf_stage_at_the_mb4_stage_shapes(cuda, route, B, U, F):
+    g = torch.Generator(device=cuda).manual_seed(B + U + F)
+    x, w, b = _k2_fp32_args(g, B, U, F)
+    if route == "fp32":
+        got = mrf_stage.mrf_stage(x, w, b, RK, RD)
+        torch.cuda.synchronize()
+        assert _rel(got, mrf_stage.mrf_stage_plain(x, w, b, RK, RD)) <= mrf_stage.TOLERANCE
+    else:
+        w = w.to(torch.bfloat16)
+        got = mrf_stage.mrf_stage_bf16(x, w, b, RK, RD)
+        torch.cuda.synchronize()
+        ref = mrf_stage.mrf_stage_plain_bf16(x, w, b, RK, RD)
+        assert _rel(got, ref) <= mrf_stage.TOLERANCE_BF16
+        assert _mean_rel(got, ref) <= mrf_stage.MEAN_TOLERANCE_BF16
+
+
+@pytest.mark.parametrize("variant", ["full_band", "mb4"])
+def test_fp32_gan_step_on_the_card_matches_the_cpu(cuda, variant):
+    """One fp32 GAN step (64 channels, B=2, 32 frames, voiced f0) from the
+    same initialisation and NSF draw on the card and on the CPU, with the
+    CPU test's bounds (tools/step_parity: every loss 1e-5 of its own value,
+    every gradient of both updates within 1e-4 of its update's largest,
+    every parameter within 1e-6 beyond what the gradients' difference moves
+    through Adam's first step)."""
+    from bisinger_tpu_torch.config import make_hparams
+    from bisinger_tpu_torch.tools.step_parity import gan_step_parity
+
+    over = dict(compute_dtype="float32", upsample_initial_channel=64)
+    if variant == "mb4":
+        over.update(vocoder_multiband=4, upsample_rates=[8, 4], upsample_kernel_sizes=[16, 8])
+    ok, text = gan_step_parity(make_hparams(over), cuda)
+    assert ok, text

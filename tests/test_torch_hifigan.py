@@ -25,7 +25,7 @@ import torch
 
 import bisinger_tpu.models.hifigan as jhifigan
 from bisinger_tpu.ops.mrf_pallas import fused_mrf_stage
-from bisinger_tpu_torch.models.hifigan import HifiGanGenerator, ResBlock1, sine_gen
+from bisinger_tpu_torch.models.hifigan import HifiGanGenerator, ResBlock1, phase_steps, sine_gen
 from bisinger_tpu_torch.ops.mrf_stage import (
     mrf_stage,
     mrf_stage_bf16,
@@ -149,6 +149,18 @@ def test_sine_gen_matches(monkeypatch):
     got, uv = sine_gen(t(f0), sr, phase=t(phase), noise=t(noise))
     np.testing.assert_array_equal(uv.numpy(), np.asarray(ref_uv))
     assert max_err(got.numpy(), ref) <= 1e-4
+
+
+def test_nsf_phase_steps_round_as_xla():
+    """The NSF phase's per-sample steps (f0 * k / sample_rate mod 1, 9
+    harmonics of f0 from 40 Hz to 1.1 kHz) equal XLA's compiled division by
+    the constant bit for bit; PyTorch's true division on the CPU rounds some
+    of them the other way (its CUDA one multiplies by the reciprocal)."""
+    r = np.random.default_rng(0)
+    f0_k = (r.uniform(40.0, 1100.0, (4096, 1)) * np.arange(1, 10)).astype(np.float32)
+    ref = np.asarray(jax.jit(lambda v: (v / 24000) % 1.0)(jnp.asarray(f0_k)))
+    np.testing.assert_array_equal(phase_steps(t(f0_k), 24000).numpy(), ref)
+    assert (torch.remainder(t(f0_k) / 24000, 1.0).numpy() != ref).any()
 
 
 def test_generator_matches(tmp_path, monkeypatch):

@@ -317,8 +317,10 @@ def test_port_imports_nothing_of_jax():
     """In a fresh interpreter that refuses jax, flax, optax, orbax, yaml,
     pypinyin, jieba, parselmouth, resemblyzer, tensorboard, matplotlib, the
     JAX package and __graft_entry__, every module of the port (the score
-    front end, the server, the CLI, the data pipeline and the training
-    modules among them) and chip_smoke (without running it) import."""
+    front end, the server, the CLI, the data pipeline, the training
+    modules, the GAN vocoder's task, weight norm, PQMF, STFT, wrapper and
+    trainer tool, and the card-vs-CPU step check among them) and chip_smoke
+    (without running it) import."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pypinyin", "jieba",
@@ -357,5 +359,8 @@ def test_port_imports_nothing_of_jax():
             "bisinger_tpu_torch.data.records", "bisinger_tpu_torch.data.synthetic",
             "bisinger_tpu_torch.utils.praat_pitch", "bisinger_tpu_torch.training.tasks",
             "bisinger_tpu_torch.training.trainer", "bisinger_tpu_torch.training.optim",
-            "bisinger_tpu_torch.training.checkpoints", "bisinger_tpu_torch.training.losses"
-            } <= names
+            "bisinger_tpu_torch.training.checkpoints", "bisinger_tpu_torch.training.losses",
+            "bisinger_tpu_torch.training.vocoder_task", "bisinger_tpu_torch.training.weight_norm",
+            "bisinger_tpu_torch.models.pqmf", "bisinger_tpu_torch.ops.stft",
+            "bisinger_tpu_torch.vocoders.hifigan", "bisinger_tpu_torch.tools.train_vocoder",
+            "bisinger_tpu_torch.tools.step_parity"} <= names

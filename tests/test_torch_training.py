@@ -491,9 +491,12 @@ def test_duration_predictor_runs_deterministically_in_training(env):
     assert max_err(pdur[0], jdur[0]) <= 1e-5
 
 
-def test_kernel_wrappers_refuse_autograd():
+def test_kernel_wrappers_refuse_autograd(monkeypatch):
     """K1 and K2, both routes: an input that requires grad under grad mode
-    raises (it would cut the graph); under no_grad the same call runs."""
+    raises (it would cut the graph); under no_grad the same call runs. A
+    train step of the PitchExtractor task and of the GAN vocoder task (full
+    band and mb4) calls neither kernel's wrapper, which the generator's eval
+    mode does."""
     B, T, C, L = 1, 8, 32, 2
     g = torch.Generator().manual_seed(0)
     args = [torch.randn(s, generator=g) for s in ((B, T, C), (L, B, T, 2 * C), (L, B, C),
@@ -518,6 +521,33 @@ def test_kernel_wrappers_refuse_autograd():
             fn(xx, w.to(wd), b, rk, rd)
         with torch.no_grad():
             assert fn(xx, w.to(wd), b, rk, rd).shape == x.shape
+
+    from bisinger_tpu_torch.models import diffnet, hifigan
+    from bisinger_tpu_torch.training.tasks import PitchExtractionTask
+    from bisinger_tpu_torch.training.vocoder_task import HifiGanTask
+
+    def refuse(*a, **kw):
+        raise AssertionError("a kernel wrapper was called")
+
+    for mod, names in ((hifigan, ("mrf_stage", "mrf_stage_bf16")),
+                       (diffnet, ("residual_stack", "residual_stack_bf16"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    r = np.random.RandomState(0)
+    pe = PitchExtractionTask(make_hparams(dict(TRAIN, compute_dtype="bfloat16")), device="cpu")
+    mel2ph = np.ones((1, 16), np.int64)
+    out = pe.train_step(batch_to_device(dict(
+        mels=r.randn(1, 16, 80).astype(np.float32) - 3, mel2ph=mel2ph,
+        f0=np.full((1, 16), 7.5, np.float32), uv=np.zeros((1, 16), np.float32)), "cpu"))
+    assert np.isfinite(float(out["total_loss"]))
+    for over in ({}, dict(vocoder_multiband=4, upsample_rates=[8, 4],
+                          upsample_kernel_sizes=[16, 8])):
+        voc = HifiGanTask(make_hparams(dict(upsample_initial_channel=16, **over)), device="cpu")
+        b = {"mels": torch.randn(1, 8, 80), "f0": torch.full((1, 8), 220.0),
+             "wav": 0.1 * torch.randn(1, 8 * 128)}
+        assert np.isfinite(float(voc.train_step(b, torch.Generator().manual_seed(0))["gen_loss"]))
+        with pytest.raises(AssertionError, match="kernel wrapper"), torch.no_grad():
+            voc.generator.eval()(b["mels"], b["f0"], generator=torch.Generator())
 
 
 def _cli(tmp_path, monkeypatch, *argv):
