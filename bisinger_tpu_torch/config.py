@@ -1,26 +1,35 @@
 """Hyperparameters of the port: a plain dict.
 
 Counterpart of `bisinger_tpu/config/defaults.py` and
-`bisinger_tpu/config/hparams.py`, cut to the keys the port reads and
-without YAML: a run's settings are read from a JSON file, a JAX work dir's
+`bisinger_tpu/config/hparams.py`, cut to the keys the port reads. A run's
+settings are read from one of the repo's YAML configs (`load_hparams`,
+through `yaml_subset`, with no PyYAML), from a JSON file, a JAX work dir's
 `config.json` or a trained run's dump (`artifacts/flagship/hparams_*.json`).
-Precedence, lowest to highest: `DEFAULTS` < JSON file < overrides.
+Precedence, lowest to highest: `DEFAULTS` < the config < overrides.
 Overrides are a dict or, as the CLI's `--hparams`, a "k=v,k2=[1,2]" string
 (`parse_overrides`, with values typed as
 `bisinger_tpu/config/hparams.py:204-250` types them).
 
+A YAML config names its bases under `base_config` (a path or a list of
+them), each resolved against the including file, then against the repo's
+`configs/`, then against the current directory, and merged depth first,
+a child's keys over its bases' (nested mappings merged key by key); a base
+reached twice through two parents is read twice, a cycle raises
+(`bisinger_tpu/config/hparams.py:146-190`).
+
 `_explicit_keys` records which keys a file or an override set, as the JAX
-package records them: a dump carries its own list, any other JSON file
-counts every key it holds, and every override key is added. The step-decay
-schedule reads it (`training/optim.py`).
+package records them: a YAML config's own top-level keys (not its bases'),
+a dump's own list, every key of any other JSON file, and every override
+key. The step-decay schedule reads it (`training/optim.py`).
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import os
 import re
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 # Same values as the reference defaults (config/defaults.py) for every key
 # listed; keys the slice does not read are left out.
@@ -43,6 +52,7 @@ DEFAULTS: Dict[str, Any] = {
     "rel_pos": True,
     "predictor_hidden": -1,
     "predictor_kernel": 5,
+    "predictor_layers": 5,
     "dur_predictor_kernel": 3,
     "dur_predictor_layers": 5,
     "dur_loss": "mse",
@@ -54,6 +64,7 @@ DEFAULTS: Dict[str, Any] = {
     "lambda_f0": 1.0,
     "lambda_uv": 1.0,
     "use_energy_embed": False,
+    "lambda_energy": 0.1,
     "use_spk_id": True,
     "use_split_spk_id": False,
     "use_spk_embed": False,
@@ -100,8 +111,10 @@ DEFAULTS: Dict[str, Any] = {
     "test_prefixes": [],
     "test_num": 100,
     "sort_by_len": True,
-    "binarization_args": {"with_wav": False, "with_spk_embed": False, "with_f0": True,
+    "binarization_args": {"shuffle": False, "with_txt": True, "with_wav": False,
+                          "with_align": True, "with_spk_embed": False, "with_f0": True,
                           "with_f0cwt": False},
+    "processed_data_dir": "",
     "loud_norm": False,
     "reset_phone_dict": True,
     "win_size": 512,
@@ -147,6 +160,7 @@ DEFAULTS: Dict[str, Any] = {
     "device_resident_corpus": False,
     "dataloader_prefetch": 2,
     # inference entry points
+    "pe_enable": False,  # serve f0 from a PitchExtractor (else the model's own)
     "profile_infer": False,
     # activations of the heavy stacks: "bfloat16" (bf16 products with fp32
     # sums, on the bf16 kernels) or "float32"
@@ -254,4 +268,70 @@ def load_hparams_json(path: str, overrides=None) -> Dict[str, Any]:
     hp.update(saved)
     hp["_explicit_keys"] = sorted(saved["_explicit_keys"] if "_explicit_keys" in saved
                                   else saved)
+    return _apply(hp, overrides)
+
+
+CONFIGS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs")
+
+
+def _deep_merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
+    out = dict(base)
+    for k, v in override.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = _deep_merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def _resolve_path(path: str, relative_to: Optional[str], roots: List[str]) -> str:
+    if not os.path.isabs(path) and relative_to is not None:
+        cand = os.path.normpath(os.path.join(os.path.dirname(relative_to), path))
+        if os.path.exists(cand):
+            return cand
+    if os.path.isabs(path) and os.path.exists(path):
+        return path
+    for root in roots:
+        cand = os.path.join(root, path)
+        if os.path.exists(cand):
+            return cand
+    raise FileNotFoundError(f"config {path!r} not found under {roots}")
+
+
+def load_config_file(path: str, roots: Optional[List[str]] = None, seen=frozenset(),
+                     own_keys: Optional[list] = None) -> Dict[str, Any]:
+    """A YAML config with its `base_config` cascade merged in, depth first.
+    `own_keys`, when given, receives the top-level keys of this file itself.
+    `seen` holds this file's ancestors: a cycle raises, a diamond does not."""
+    from bisinger_tpu_torch import yaml_subset
+
+    roots = [CONFIGS_DIR, os.getcwd()] if roots is None else roots
+    path = os.path.abspath(path)
+    if path in seen:
+        raise ValueError(f"config cycle detected at {path}")
+    cfg = yaml_subset.load_file(path) or {}
+    if not isinstance(cfg, dict):
+        raise ValueError(f"config {path!r}: top level must be a mapping, got "
+                         f"{type(cfg).__name__}")
+    if own_keys is not None:
+        own_keys.extend(k for k in cfg if k != "base_config")
+    bases = cfg.pop("base_config", [])
+    merged: Dict[str, Any] = {}
+    for base in [bases] if isinstance(bases, str) else bases:
+        merged = _deep_merge(merged, load_config_file(_resolve_path(base, path, roots), roots,
+                                                      seen | {path}))
+    return _deep_merge(merged, cfg)
+
+
+def load_hparams(path: str, overrides=None) -> Dict[str, Any]:
+    """Defaults < a config (YAML with its bases, or JSON as
+    `load_hparams_json` reads it) < `overrides`. A relative path is looked
+    up in the repo's `configs/`, then in the current directory."""
+    if path.endswith(".json"):
+        return load_hparams_json(path, overrides)
+    own: list = []
+    cfg = load_config_file(_resolve_path(path, None, [CONFIGS_DIR, os.getcwd()]), own_keys=own)
+    hp = _deep_merge(copy.deepcopy(DEFAULTS), cfg)
+    hp["_explicit_keys"] = sorted(set(own) - {"_explicit_keys"})
     return _apply(hp, overrides)

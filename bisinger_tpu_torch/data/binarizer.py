@@ -1,12 +1,18 @@
 """Offline binarizer: raw corpus metadata -> feature record shards
-(counterpart of `bisinger_tpu/data/binarizer.py:1-531`, `M4SingerBinarizer`).
+(counterpart of `bisinger_tpu/data/binarizer.py:1-633`: `M4SingerBinarizer`,
+alias `SingingBinarizer`, and `MidiSingingBinarizer`).
 
   - metadata: the BiSinger `raw_json_fn` line-per-dict format: {item_name,
     txt, phs, ph_dur, notes, notes_dur, is_slur, word_boundary, lang,
-    speechsing};
+    speechsing}; or, for `MidiSingingBinarizer` (DiffSinger's PopCS), a JSON
+    list of such items with their `wav_fn` in `<dir>/meta.json` for each
+    dir of `processed_data_dir` (else `raw_data_dir`; a comma-separated
+    list prefixes names and speakers with `ds<i>_`), the speaker "pop-cs"
+    unless an item names one;
   - features per utterance: log-mel (`utils.audio.wav2spec`), f0 + coarse
     pitch, and mel2ph from the cumulative rounding of `ph_dur`;
-  - split: test items by `test_prefixes`, else the tail; valid == test;
+  - split: test items by `test_prefixes` (a name's start; for
+    `MidiSingingBinarizer`, anywhere in it), else the tail; valid == test;
   - output per split: `<prefix>.data/.idx` shards (`data/records.py`),
     `<prefix>_lengths.npy`, `<prefix>_f0s_mean_std.npy`, plus
     `phone_set.json` and `spk_map.json`.
@@ -15,8 +21,9 @@ f0: `pitch_extractor: parselmouth` (the flagship's) uses parselmouth when
 it imports and otherwise, with a warning, the in-repo Praat AC tracker
 (`utils/praat_pitch.py`); `autocorr` is the quick numpy tracker. Options
 not ported raise: speaker embeddings (`with_spk_embed`), CWT features,
-silence trimming and loudness normalisation. `N_PROC` worker processes
-(default 1; one spawned pool for all the splits) extract the items.
+silence trimming and loudness normalisation; so does `ZhBinarizer`, whose
+TextGrid alignment is not ported. `N_PROC` worker processes (default 1; one
+spawned pool for all the splits) extract the items.
 """
 
 from __future__ import annotations
@@ -228,9 +235,13 @@ class M4SingerBinarizer:
                 }
         self.item_names = sorted(self.items.keys())
 
+    @staticmethod
+    def _is_test_item(name: str, prefixes) -> bool:
+        return any(name.startswith(p) for p in prefixes)
+
     def split_train_test(self) -> Tuple[List[str], List[str]]:
         prefixes = self.hp["test_prefixes"]
-        test = [n for n in self.item_names if any(n.startswith(p) for p in prefixes)]
+        test = [n for n in self.item_names if self._is_test_item(n, prefixes)]
         if prefixes and not test and self.item_names:
             raise ValueError(
                 f"test_prefixes {list(prefixes)!r} match no items "
@@ -359,3 +370,64 @@ class M4SingerBinarizer:
             np.save(os.path.join(hp["binary_data_dir"], f"{prefix}_f0s_mean_std.npy"),
                     np.asarray([voiced.mean(), voiced.std()], dtype=np.float32))
         print(f"| binarized {prefix}: {len(lengths)} items")
+
+
+class MidiSingingBinarizer(M4SingerBinarizer):
+    """PopCS-style MIDI singing metadata (`binarizer.py:579-628`)."""
+
+    def load_meta_data(self):
+        root = str(self.hp.get("processed_data_dir") or self.hp["raw_data_dir"])
+        multi = "," in root
+        for ds_id, data_dir in enumerate(root.split(",")):
+            with open(os.path.join(data_dir, "meta.json"), encoding="utf-8") as f:
+                songs = json.load(f)
+            for song in songs:
+                name, spk = song["item_name"], song.get("spk", "pop-cs")
+                if multi:
+                    name, spk = f"ds{ds_id}_{name}", f"ds{ds_id}_{spk}"
+                lang = song.get("lang", 1)
+                self.items[name] = {
+                    "item_name": name,
+                    "wav_fn": song["wav_fn"],
+                    "txt": song["txt"],
+                    "ph": " ".join(song["phs"]),
+                    "ph_durs": song["ph_dur"],
+                    "pitch_midi": song["notes"],
+                    "midi_dur": song["notes_dur"],
+                    "is_slur": song["is_slur"],
+                    "word_boundary": song.get("word_boundary")
+                    or derive_word_boundary(song["phs"]),
+                    "lang": lang if isinstance(lang, list) else [lang] * len(song["phs"]),
+                    "speechsing": [song.get("speechsing", 1)],
+                    "spk": spk,
+                }
+        self.item_names = sorted(self.items.keys())
+
+    @staticmethod
+    def _is_test_item(name: str, prefixes) -> bool:
+        return any(p in name for p in prefixes)
+
+
+class ZhBinarizer(M4SingerBinarizer):
+    """The reference's name for the TextGrid binarizer, which is not ported."""
+
+    def __init__(self, hp):
+        raise NotImplementedError("ZhBinarizer (TextGridBinarizer: TextGrid alignments) is not "
+                                  "ported")
+
+
+# the reference's name of the BiSinger binarizer
+SingingBinarizer = M4SingerBinarizer
+# the classes `binarizer_cls` names, by the last part of a dotted name; the
+# reference's ZhSingingBinarizer is ZhBinarizer (`bisinger_tpu/run.py:54-63`)
+BINARIZERS = {c.__name__: c for c in (M4SingerBinarizer, MidiSingingBinarizer, ZhBinarizer)}
+BINARIZERS.update(SingingBinarizer=SingingBinarizer, ZhSingingBinarizer=ZhBinarizer)
+
+
+def binarizer_class(name: str):
+    """`binarizer_cls` (empty for the BiSinger binarizer) -> the port's class."""
+    short = (name or "M4SingerBinarizer").rsplit(".", 1)[-1]
+    if short not in BINARIZERS:
+        raise NotImplementedError(f"binarizer_cls={name!r} is not ported (the port has "
+                                  f"{', '.join(sorted(BINARIZERS))})")
+    return BINARIZERS[short]

@@ -10,12 +10,15 @@
   - each epoch's order comes from `RandomState(seed + epoch)`, so the
     port's batches are the JAX package's at the same seed.
 
-Everything is numpy on the host. The energy, CWT, speaker-embedding and
-offline-fs2-mel features are not ported.
+Everything is numpy on the host. Beside the binarized fields an item
+carries the frame energy (`use_energy_embed`) and the offline task's
+recorded fs2 mel (`fs2_mel_dir/<item_name>.npy`). The CWT and
+speaker-embedding features are not ported.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -55,8 +58,6 @@ class M4SingerDataset:
     `M4SingerDataset`, `usr/diffsinger_task.py:336-377`)."""
 
     def __init__(self, hp, prefix: str, shuffle: bool = False):
-        if hp.get("fs2_mel_dir"):
-            raise NotImplementedError("fs2_mel_dir (the offline task's features) is not ported")
         self.hp = hp
         self.prefix = prefix
         self.shuffle = shuffle
@@ -80,6 +81,13 @@ class M4SingerDataset:
             "mel2ph": np.asarray(item["mel2ph"], dtype=np.int64)[:t],
             "spk_id": int(item.get("spk_id", 0)),
         }
+        if hp.get("use_energy_embed"):
+            # the frame energy of the log-mel (`dataset.py:102-111`): e**mel, as
+            # the reference's energy ids were trained on
+            if hp.get("energy_convention", "ref") != "ref":
+                raise NotImplementedError(
+                    "energy_convention other than 'ref' is not ported")
+            sample["energy"] = np.sqrt((np.exp(mel) ** 2).sum(-1)).astype(np.float32)
         if hp["binarization_args"].get("with_f0", True) and "f0" in item:
             if hp["pitch_norm"] == "standard" and not hp.get("f0_mean"):
                 raise ValueError("pitch_norm: standard requires f0_mean/f0_std in the config")
@@ -93,6 +101,14 @@ class M4SingerDataset:
                 sample[key] = np.asarray(item[key])
         if "speechsing" in item:
             sample["speechsing"] = int(np.asarray(item["speechsing"]).reshape(-1)[0])
+        if hp.get("fs2_mel_dir"):
+            # offline shallow diffusion: the fs2 stage's mel of this item, cut
+            # or zero-padded to its frames (`dataset.py:117-130`)
+            fs2_mel = np.load(os.path.join(hp["fs2_mel_dir"], f"{sample['item_name']}.npy"))
+            fs2_mel = fs2_mel[:t].astype(np.float32)
+            if fs2_mel.shape[0] < t:
+                fs2_mel = np.pad(fs2_mel, ((0, t - fs2_mel.shape[0]), (0, 0)))
+            sample["fs2_mel"] = fs2_mel
         return sample
 
     def ordered_indices(self, rng: np.random.RandomState) -> np.ndarray:
@@ -167,6 +183,10 @@ def collate_batch(samples: List[Dict[str, Any]], hp, static_shapes: bool = True
         "mel2ph": mel2ph,
         "spk_ids": np.asarray([s["spk_id"] for s in samples], dtype=np.int64),
     }
+    if "fs2_mel" in samples[0]:
+        batch["fs2_mels"] = pad_2d([s["fs2_mel"] for s in samples], t_mel)
+    if "energy" in samples[0]:
+        batch["energy"] = pad_1d([s["energy"] for s in samples], t_mel).astype(np.float32)
     if "f0" in samples[0]:
         batch["f0"] = pad_1d([s["f0"] for s in samples], t_mel).astype(np.float32)
         batch["uv"] = pad_1d([s["uv"] for s in samples], t_mel).astype(np.float32)

@@ -11,10 +11,15 @@ arrays (`ph_token`, `pitch_midi`, `midi_dur`, `is_slur`, `lang`) plus
 carry a frame map `mel2ph`. `items_to_batch` pads items into one batch at
 the configured buckets, and `synthesize` runs
 
-    FastSpeech2MIDI -> diffusion sampler (DiffNet through K1) -> mel
-    -> PitchExtractor f0 -> NSF HiFi-GAN (MRF stages through K2) -> wav,
+    FastSpeech2MIDI or FastSpeech2 (`use_midi`) -> diffusion sampler
+    (DiffNet through K1) -> mel -> f0 -> NSF HiFi-GAN (MRF stages through
+    K2) -> wav,
 
 through PQMF synthesis when the vocoder is multiband (`vocoder_multiband`).
+The f0 is the PitchExtractor's when the pipeline has one (the flagship's;
+a work dir's with `pe_enable`), else the acoustic model's own `f0_denorm`
+(a pitch-conditioned FastSpeech2's), else zeros
+(`bisinger_tpu/inference/pipeline.py:253-259`).
 
 The score entry points trim each waveform to its filled frames.
 """
@@ -78,18 +83,20 @@ def pick_bucket(n: int, buckets) -> int:
     return buckets[-1]
 
 
-def _pe_and_vocoder(ckpt_dir: str, hp: dict):
-    """The PitchExtractor (pe_params.npz + pe_batch_stats.npz) and the
-    generator of the highest step among vocoder/**/generator_*.npz of a
-    trained run's directory (vocoder_mb<n>/** for an n-band vocoder, as
-    bench.py reads them)."""
-    stats_fn = os.path.join(ckpt_dir, "pe_batch_stats.npz")
-    if not os.path.exists(stats_fn):
-        raise FileNotFoundError(f"{stats_fn} is missing: the PE's BatchNorm needs its "
-                                "running statistics")
-    pe = PitchExtractor(hp)
-    load_flax_params(pe, {**load_npz(os.path.join(ckpt_dir, "pe_params.npz")),
-                          **load_npz(stats_fn)})
+def _pe_and_vocoder(ckpt_dir: str, hp: dict, with_pe: bool = True):
+    """The PitchExtractor (pe_params.npz + pe_batch_stats.npz; None unless
+    `with_pe`) and the generator of the highest step among
+    vocoder/**/generator_*.npz of a trained run's directory
+    (vocoder_mb<n>/** for an n-band vocoder, as bench.py reads them)."""
+    pe = None
+    if with_pe:
+        stats_fn = os.path.join(ckpt_dir, "pe_batch_stats.npz")
+        if not os.path.exists(stats_fn):
+            raise FileNotFoundError(f"{stats_fn} is missing: the PE's BatchNorm needs its "
+                                    "running statistics")
+        pe = PitchExtractor(hp)
+        load_flax_params(pe, {**load_npz(os.path.join(ckpt_dir, "pe_params.npz")),
+                              **load_npz(stats_fn)})
     n = int(hp.get("vocoder_multiband", 1) or 1)
     sub = f"vocoder_mb{n}" if n > 1 else "vocoder"
     path = latest_generator(os.path.join(ckpt_dir, sub), recursive=True)
@@ -105,14 +112,14 @@ class SVSInferTorch:
     `from_checkpoint` (the flagship's files) or from modules; the score
     entry points need a phone `encoder` (and take a speaker map)."""
 
-    def __init__(self, hp: dict, model: GaussianDiffusion, pe: PitchExtractor,
+    def __init__(self, hp: dict, model: GaussianDiffusion, pe: Optional[PitchExtractor],
                  vocoder: HifiGanGenerator, device=None,
                  encoder: Optional[TokenTextEncoder] = None,
                  spk_map: Optional[Dict[str, int]] = None):
         self.device = resolve_device(device)
         self.hp = hp
         self.model = model.to(self.device).eval()
-        self.pe = pe.to(self.device).eval()
+        self.pe = None if pe is None else pe.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
         self.pqmf = pqmf_from_hparams(hp)  # a multiband vocoder's synthesis
         self.spk_map = dict(spk_map or {})
@@ -149,15 +156,27 @@ class SVSInferTorch:
     @classmethod
     def from_work_dir(cls, work_dir: str, assets_dir: str = FLAGSHIP_DIR, device=None,
                       hp_overrides=None) -> "SVSInferTorch":
-        """The diffusion model of a port training run: `config.json` and the
-        latest `ckpt/<step>/params.npz` of `work_dir`, the phone set and
-        speakers its binarizer wrote (`binary_data_dir`); the PE and the
-        vocoder, and their hyperparameters, from `assets_dir` (laid out as
-        `from_checkpoint` reads it)."""
+        """The diffusion model of a port training run (a task that builds
+        `GaussianDiffusion`: the offline one needs recorded fs2 mels and is
+        refused): `config.json` and the latest `ckpt/<step>/params.npz` of
+        `work_dir`, the phone set and speakers its binarizer wrote
+        (`binary_data_dir`); the vocoder, and the PE when the run's
+        `pe_enable` is set, with their hyperparameters, from `assets_dir`
+        (laid out as `from_checkpoint` reads it). Without the PE, f0 is the
+        model's own."""
         from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+        from bisinger_tpu_torch.training.tasks import (
+            DiffSingerMIDITask,
+            DiffSingerOfflineTask,
+            task_class,
+        )
 
         device = resolve_device(device)
         hp = load_hparams_json(os.path.join(work_dir, "config.json"), hp_overrides)
+        task = task_class(hp.get("task_cls", ""))
+        if not issubclass(task, DiffSingerMIDITask) or issubclass(task, DiffSingerOfflineTask):
+            raise NotImplementedError(f"serving a {task.__name__} work dir is not ported (the "
+                                      "port serves the online diffusion tasks)")
         restored = CheckpointManager(os.path.join(work_dir, "ckpt")).restore()
         if restored is None:
             raise FileNotFoundError(f"no checkpoint under {work_dir!r}/ckpt")
@@ -167,8 +186,8 @@ class SVSInferTorch:
         model = GaussianDiffusion(hp, encoder.vocab_size, hp["audio_num_mel_bins"])
         load_flax_params(model, restored["params"])
         assets_hp = load_hparams_json(os.path.join(assets_dir, "hparams_diff.json"))
-        return cls(hp, model, *_pe_and_vocoder(assets_dir, assets_hp), device, encoder=encoder,
-                   spk_map=spk_map)
+        pe, vocoder = _pe_and_vocoder(assets_dir, assets_hp, with_pe=bool(hp.get("pe_enable")))
+        return cls(hp, model, pe, vocoder, device, encoder=encoder, spk_map=spk_map)
 
     @property
     def vocab_size(self) -> int:
@@ -240,16 +259,21 @@ class SVSInferTorch:
         dev = self.device
         as_t = lambda k: torch.as_tensor(batch[k], device=dev)  # noqa: E731
         mel2ph = batch.get("mel2ph")
+        cond = {k: as_t(k) for k in ("pitch_midi", "midi_dur", "is_slur", "lang", "speechsing")
+                } if self.hp.get("use_midi") else {}
         ret = self.model(
             as_t("txt_tokens"),
             mel2ph=None if mel2ph is None else torch.as_tensor(mel2ph, device=dev),
-            spk_id=as_t("spk_ids"), pitch_midi=as_t("pitch_midi"), midi_dur=as_t("midi_dur"),
-            is_slur=as_t("is_slur"), lang=as_t("lang"), speechsing=as_t("speechsing"),
-            max_frames=batch.get("n_frames") if mel2ph is None else None,
-            start_noise=start_noise, step_noise=step_noise, generator=generator,
+            spk_id=as_t("spk_ids"), max_frames=batch.get("n_frames") if mel2ph is None else None,
+            start_noise=start_noise, step_noise=step_noise, generator=generator, **cond,
         )
         mel = ret["mel_out"]
-        f0 = self.pe(mel)["f0_denorm_pred"]
+        if self.pe is not None:
+            f0 = self.pe(mel)["f0_denorm_pred"]
+        elif "f0_denorm" in ret:
+            f0 = ret["f0_denorm"]
+        else:  # the NSF source runs unvoiced
+            f0 = torch.zeros(mel.shape[:2], device=dev)
         wav = self.vocoder(mel, f0, phase=nsf_phase, noise=nsf_noise, generator=generator)
         if self.pqmf is not None:
             wav = self.pqmf.synthesis(wav)

@@ -1,5 +1,9 @@
 """Gaussian diffusion mel decoder (counterpart of
-`bisinger_tpu/models/diffusion.py:35-435`).
+`bisinger_tpu/models/diffusion.py:35-509`).
+
+The conditioner is `FastSpeech2MIDI` with `use_midi`, else the plain
+`FastSpeech2` (`diffusion.py:99-102`); its inputs beyond the tokens and
+mel2ph (speaker, f0, uv, energy, the MIDI ones) pass through as keywords.
 
 Training (`train_forward`, `diffusion.py:128-140, 356-401`): fs2 up to the
 decoder input (skip_decoder) -> cond; t ~ U[0, K_step); the target mel,
@@ -16,6 +20,13 @@ of three samplers, picked as `_dispatch_sampler` picks it:
   Adams-Bashforth 2/3/4; K/stride + 1 calls);
 - ancestral DDPM otherwise (K calls, fresh noise at each step).
 -> denormalised mel. Every denoiser call runs the residual layers in K1.
+
+`OfflineGaussianDiffusion` (`diffusion.py:436-501`) trains on the
+conditioner's decoder input alone and, at inference, starts from a recorded
+fs2 mel (`fs2_mels`) and runs the full K-step DDPM loop whatever
+`pndm_speedup` says, unless `offline_fast_sampler` is set.
+`PlainGaussianDiffusion` (`diffusion.py:502-509`) diffuses over every step:
+K_step is `timesteps`.
 """
 
 from __future__ import annotations
@@ -27,7 +38,7 @@ import torch
 from torch import nn
 
 from bisinger_tpu_torch.models.diffnet import DiffNet
-from bisinger_tpu_torch.models.fs2 import FastSpeech2MIDI
+from bisinger_tpu_torch.models.fs2 import FastSpeech2, FastSpeech2MIDI
 
 
 def linear_beta_schedule(timesteps: int, max_beta: float = 0.01) -> np.ndarray:
@@ -52,14 +63,16 @@ def make_betas(hp: dict) -> np.ndarray:
 class GaussianDiffusion(nn.Module):
     """Owns the fs2 conditioner and the DiffNet denoiser."""
 
+    fs2_decoder = True  # the conditioner runs its decoder (the fs2 mel) at inference
+
     def __init__(self, hp: dict, vocab_size: int, out_dims: int = 80):
         super().__init__()
-        if not hp.get("use_midi"):
-            raise NotImplementedError("the port runs the FastSpeech2MIDI conditioner only")
         if hp.get("diff_decoder_type", "wavenet") != "wavenet":
             raise NotImplementedError("the port's denoiser is the DiffNet (wavenet)")
         self.hp = hp
-        self.fs2 = FastSpeech2MIDI(hp, vocab_size)
+        self.K_step = int(hp["K_step"])
+        self.fs2 = (FastSpeech2MIDI if hp.get("use_midi") else FastSpeech2)(
+            hp, vocab_size, with_decoder=self.fs2_decoder)
         self.denoise_fn = DiffNet(hp, out_dims)
         # float32 as the reference's buffers (`DiffusionBuffers`, computed in
         # float64 and then rounded); alphas_cumprod is kept on the device so
@@ -156,19 +169,16 @@ class GaussianDiffusion(nn.Module):
             return ((noise - x_recon) ** 2).mean()
         raise NotImplementedError(f"diff_loss_type={loss_type}")
 
-    def train_forward(self, txt_tokens, mel2ph, ref_mels, spk_id=None, pitch_midi=None,
-                      midi_dur=None, is_slur=None, lang=None, speechsing=None, t=None,
-                      noise=None, generator: Optional[torch.Generator] = None):
-        """-> dict with diff_loss, dur, mel2ph, decoder_inp. `t` [B] and
-        `noise` [B, T, M] pin the draws, else they come from `generator`."""
-        ret = self.fs2(txt_tokens, mel2ph=mel2ph, spk_id=spk_id, pitch_midi=pitch_midi,
-                       midi_dur=midi_dur, is_slur=is_slur, lang=lang, speechsing=speechsing,
-                       ref_mels=ref_mels, skip_decoder=True)
+    def train_forward(self, txt_tokens, mel2ph, ref_mels, t=None, noise=None,
+                      generator: Optional[torch.Generator] = None, **cond):
+        """-> dict with diff_loss, dur, mel2ph, decoder_inp (and the
+        conditioner's pitch and energy outputs). `t` [B] and `noise`
+        [B, T, M] pin the draws, else they come from `generator`."""
+        ret = self.fs2(txt_tokens, mel2ph=mel2ph, ref_mels=ref_mels, skip_decoder=True, **cond)
         x = self.norm_spec(ref_mels)
-        dev = txt_tokens.device
+        dev = x.device
         if t is None:
-            t = torch.randint(0, self.hp["K_step"], (x.shape[0],), generator=generator,
-                              device=dev)
+            t = torch.randint(0, self.K_step, (x.shape[0],), generator=generator, device=dev)
         if noise is None:
             noise = torch.randn(x.shape, generator=generator, device=dev)
         nonpadding = (mel2ph != 0).to(x.dtype)
@@ -252,39 +262,75 @@ class GaussianDiffusion(nn.Module):
         """DPM-Solver++ when `diff_sampler` is "dpmpp", PLMS when
         `pndm_speedup` is set, ancestral DDPM otherwise
         (`diffusion.py:142-157`)."""
-        hp, k = self.hp, self.hp["K_step"]
+        hp, k = self.hp, self.K_step
         if hp.get("diff_sampler", "plms") == "dpmpp":
             return self.dpmpp_sample_loop(x, cond_proj, k, int(hp.get("dpm_steps", 40)), stack)
         if hp.get("pndm_speedup"):
             return self.plms_sample_loop(x, cond_proj, k, int(hp["pndm_speedup"]), stack)
         return self.ddpm_sample_loop(x, cond_proj, k, stack, generator, step_noise)
 
-    def forward(self, txt_tokens, mel2ph=None, spk_id=None, pitch_midi=None, midi_dur=None,
-                is_slur=None, lang=None, speechsing=None, max_frames: Optional[int] = None,
-                start_noise=None, step_noise=None, generator: Optional[torch.Generator] = None):
+    def forward(self, txt_tokens, mel2ph=None, max_frames: Optional[int] = None,
+                start_noise=None, step_noise=None, generator: Optional[torch.Generator] = None,
+                **cond):
         """Inference: -> dict with mel_out [B, T, 80], mel2ph, decoder_inp,
-        fs2_mel. `start_noise` [B, T, 80] pins the start's draw (the gaussian
-        start itself, or the noise `q_sample` adds to the fs2 mel), and
-        `step_noise` [K, B, T, 80] DDPM's per-step draws; else they are
-        drawn from `generator`."""
-        hp = self.hp
-        ret = self.fs2(txt_tokens, mel2ph=mel2ph, spk_id=spk_id, pitch_midi=pitch_midi,
-                       midi_dur=midi_dur, is_slur=is_slur, lang=lang, speechsing=speechsing,
-                       max_frames=max_frames)
+        fs2_mel (and the conditioner's f0_denorm when it predicts pitch).
+        `start_noise` [B, T, 80] pins the start's draw (the gaussian start
+        itself, or the noise `q_sample` adds to the fs2 mel), and
+        `step_noise` [K, B, T, 80] DDPM's per-step draws; else they are drawn
+        from `generator`."""
+        ret = self.fs2(txt_tokens, mel2ph=mel2ph, max_frames=max_frames, **cond)
         ret["fs2_mel"] = ret["mel_out"]
-        shape = ret["mel_out"].shape
-        if start_noise is None:
-            start_noise = torch.randn(shape, generator=generator, device=txt_tokens.device)
-        elif tuple(start_noise.shape) != tuple(shape):
-            raise ValueError(f"start_noise {tuple(start_noise.shape)} != {tuple(shape)}")
-        x = start_noise
-        if not hp.get("gaussian_start"):
-            x = self.q_sample(self.norm_spec(ret["mel_out"]), hp["K_step"] - 1, start_noise)
-        cond_proj = self.denoise_fn.cond_projections(ret["decoder_inp"]).contiguous()
-        stack = self.denoise_fn.stack_weights()
-        x = self._dispatch_sampler(x, cond_proj, stack, generator, step_noise)
-        x = self.denorm_spec(x)
+        x = self._sample(ret, ret["mel_out"], start_noise, step_noise, generator)
         if mel2ph is not None:
             x = x * (ret["mel2ph"] > 0).to(x.dtype)[:, :, None]
         ret["mel_out"] = x
         return ret
+
+    def _sample(self, ret, fs2_mels, start_noise, step_noise, generator, sampler=None):
+        """The start (gaussian, or `fs2_mels` noised to step K-1), the sampler
+        (`sampler`, else `_dispatch_sampler`) over the conditioner's
+        decoder input, the denormalised mel."""
+        shape = fs2_mels.shape
+        if start_noise is None:
+            start_noise = torch.randn(shape, generator=generator, device=fs2_mels.device)
+        elif tuple(start_noise.shape) != tuple(shape):
+            raise ValueError(f"start_noise {tuple(start_noise.shape)} != {tuple(shape)}")
+        x = start_noise
+        if not self.hp.get("gaussian_start"):
+            x = self.q_sample(self.norm_spec(fs2_mels), self.K_step - 1, start_noise)
+        cond_proj = self.denoise_fn.cond_projections(ret["decoder_inp"]).contiguous()
+        stack = self.denoise_fn.stack_weights()
+        x = (sampler or self._dispatch_sampler)(x, cond_proj, stack, generator, step_noise)
+        return self.denorm_spec(x)
+
+
+class OfflineGaussianDiffusion(GaussianDiffusion):
+    """Shallow diffusion from recorded fs2 mels (`diffusion.py:436-501`): the
+    conditioner stops at its decoder input; training is the online model's
+    (the recorded mels play no part in it); inference starts from `fs2_mels` [B, T, 80] (the frames of the
+    given mel2ph) and runs the K-step DDPM loop (the reference's offline
+    variant never dispatches a fast sampler) unless `offline_fast_sampler`.
+    The mel is not masked, as flax's is not. The conditioner has no decoder:
+    it never runs one, so its flax module has no parameters for it."""
+
+    fs2_decoder = False
+
+    def forward(self, txt_tokens, mel2ph=None, fs2_mels=None, start_noise=None,
+                step_noise=None, generator: Optional[torch.Generator] = None, **cond):
+        if mel2ph is None or fs2_mels is None:
+            raise ValueError("the offline model needs mel2ph and the recorded fs2_mels")
+        ret = self.fs2(txt_tokens, mel2ph=mel2ph, skip_decoder=True, **cond)
+        sampler = None if self.hp.get("offline_fast_sampler") else (
+            lambda x, cond_proj, stack, generator, step_noise: self.ddpm_sample_loop(
+                x, cond_proj, self.K_step, stack, generator, step_noise))
+        ret["mel_out"] = self._sample(ret, fs2_mels, start_noise, step_noise, generator, sampler)
+        return ret
+
+
+class PlainGaussianDiffusion(GaussianDiffusion):
+    """DiffSpeech's non-shallow diffusion (`diffusion.py:502-509`): K_step is
+    `timesteps`."""
+
+    def __init__(self, hp: dict, vocab_size: int, out_dims: int = 80):
+        super().__init__(hp, vocab_size, out_dims)
+        self.K_step = int(hp["timesteps"])

@@ -1,8 +1,8 @@
 """Duration predictor and the PitchExtractor's conv stacks, [B, T, C].
 
 Counterpart of `bisinger_tpu/models/predictors.py:20-115, 213-308`
-(ConvReluLN, DurationPredictor with the MSE head, PitchPredictor, Prenet,
-ConvStacks). The duration predictor's layers end in dropout
+(ConvReluLN, DurationPredictor with the MSE head, PitchPredictor,
+EnergyPredictor, Prenet, ConvStacks). The duration predictor's layers end in dropout
 (`predictor_dropout`), which runs only when a caller passes
 `deterministic=False`: FastSpeech2 calls its predictors without that
 argument (`bisinger_tpu/models/fs2.py:203,211`), so flax runs them
@@ -97,6 +97,10 @@ class PitchPredictor(nn.Module):
         for i in range(self.n_layers):
             x = getattr(self, f"conv_{i}")(x, deterministic)
         return self.linear(x)
+
+
+class EnergyPredictor(PitchPredictor):
+    """The energy head of FastSpeech2: a `PitchPredictor` (`predictors.py:243-246`)."""
 
 
 class Prenet(nn.Module):

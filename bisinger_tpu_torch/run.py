@@ -1,7 +1,9 @@
 """CLI entry point of the port (counterpart of `bisinger_tpu/run.py`).
 
     # binarize the corpus the config names (raw_data_dir -> binary_data_dir)
-    python -m bisinger_tpu_torch.run --config exp.json --binarize
+    # with its binarizer_cls
+    python -m bisinger_tpu_torch.run --config configs/usr/popcs_fs2.yaml --binarize \\
+        --hparams "raw_data_dir=raw,binary_data_dir=binary"
     # train (the default action) into checkpoints/<exp_name>; a rerun with a
     # larger --max_updates resumes from the latest checkpoint
     python -m bisinger_tpu_torch.run --config exp.json --exp_name fs2 \\
@@ -16,11 +18,15 @@
     python -m bisinger_tpu_torch.run --infer --input scores.json --out out/ \\
         [--ckpt_dir artifacts/flagship | --exp_name diff]
 
-`--config` is JSON: a config of its own, a JAX work dir's `config.json` or
-a trained run's dump (`artifacts/flagship/hparams_{fs2,diff}.json`).
-Precedence: defaults < --config < the work dir's saved config.json (unless
---reset) < --hparams. The task is `task_cls` (the reference's names or the
-JAX package's are accepted), the diffusion stage by default. Every action
+`--config` is one of the repo's YAML configs (with its `base_config`
+cascade; a path relative to `configs/` or to the current directory) or
+JSON: a config of its own, a JAX work dir's `config.json` or a trained
+run's dump (`artifacts/flagship/hparams_{fs2,diff}.json`). Precedence:
+defaults < --config < the work dir's saved config.json (unless --reset) <
+--hparams. The task is `task_cls` and the binarizer `binarizer_cls`: the
+reference's dotted names, the JAX package's or the port's
+(`training.tasks.task_class`, `data.binarizer.binarizer_class`); the
+diffusion stage and the BiSinger binarizer by default. Every action
 runs on the card unless `--device cpu` asks for the CPU.
 """
 
@@ -34,26 +40,16 @@ import sys
 # worker processes would otherwise oversubscribe the host
 os.environ.setdefault("OMP_NUM_THREADS", "1")
 
-TASKS = ("AuxDecoderMIDITask", "DiffSingerMIDITask", "PitchExtractionTask")
-
-
-def task_class(name: str):
-    """`task_cls` (a dotted path of the reference, e.g.
-    tasks.tts.pe.PitchExtractionTask, or of the JAX package, or empty for
-    the diffusion stage) -> the port's task class."""
-    from bisinger_tpu_torch.training import tasks
-
-    short = (name or "DiffSingerMIDITask").rsplit(".", 1)[-1]
-    if short not in TASKS:
-        raise NotImplementedError(f"task_cls={name!r} is not ported (the port trains "
-                                  f"{', '.join(TASKS)})")
-    return getattr(tasks, short)
-
 
 def load_config(args, work_dir: str):
-    from bisinger_tpu_torch.config import apply_overrides, load_hparams_json, make_hparams
+    from bisinger_tpu_torch.config import (
+        apply_overrides,
+        load_hparams,
+        load_hparams_json,
+        make_hparams,
+    )
 
-    hp = load_hparams_json(args.config) if args.config else make_hparams()
+    hp = load_hparams(args.config) if args.config else make_hparams()
     saved = os.path.join(work_dir, "config.json")
     if not args.reset and os.path.exists(saved):
         hp = load_hparams_json(saved)  # the run's own dump, its provenance included
@@ -64,7 +60,8 @@ def load_config(args, work_dir: str):
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--config", type=str, default="", help="a JSON config")
+    parser.add_argument("--config", type=str, default="",
+                        help="a YAML config (configs/...) or a JSON one")
     parser.add_argument("--exp_name", type=str, default="",
                         help="work dir checkpoints/<exp_name>")
     parser.add_argument("--hparams", type=str, default="", help="overrides, 'k=v,k2=[1,2]'")
@@ -93,7 +90,7 @@ def work_dir_of(args) -> str:
 def trainer_from_args(args):
     """The task of `task_cls` and its Trainer in the work dir, as the train
     and --validate actions build them."""
-    from bisinger_tpu_torch.training.tasks import PitchExtractionTask
+    from bisinger_tpu_torch.training.tasks import PitchExtractionTask, task_class
     from bisinger_tpu_torch.training.trainer import Trainer
     from bisinger_tpu_torch.utils.text_encoder import build_phone_encoder
 
@@ -134,13 +131,10 @@ def main(argv=None) -> int:
         return 0
 
     if args.binarize:
-        from bisinger_tpu_torch.data.binarizer import M4SingerBinarizer
+        from bisinger_tpu_torch.data.binarizer import binarizer_class
 
         hp = load_config(args, work_dir)
-        cls = (hp.get("binarizer_cls") or "M4SingerBinarizer").rsplit(".", 1)[-1]
-        if cls not in ("M4SingerBinarizer", "SingingBinarizer"):
-            raise NotImplementedError(f"binarizer_cls={hp['binarizer_cls']!r} is not ported")
-        M4SingerBinarizer(hp).process()
+        binarizer_class(hp.get("binarizer_cls", ""))(hp).process()
         return 0
     trainer = trainer_from_args(args)
     if args.validate:

@@ -1,10 +1,10 @@
-"""Training losses (counterpart of `bisinger_tpu/training/losses.py:26-240`):
+"""Training losses (counterpart of `bisinger_tpu/training/losses.py:26-288`):
 the mel l1 and SSIM losses, the MIDI tasks' phone, word and sentence
-duration losses, and the PitchExtractor's frame-level f0 loss (L1 or L2 on
-the voiced frames plus the uv logits' BCE). Every reduction is masked over
-static shapes; the word-duration loss sums into a fixed `max_words`
-segments. The acoustic model's pitch and energy losses wait with the pitch
-and energy embeddings, which the port does not build.
+duration losses, the frame-level f0 loss (L1 or L2 on the voiced frames
+plus the uv logits' BCE) of the PitchExtractor and of FastSpeech2's pitch
+predictor, its phone-level f0 loss, and the energy loss. Every reduction
+is masked over static shapes; the word-duration loss sums into a fixed
+`max_words` segments. The CWT pitch loss is not ported.
 """
 
 from __future__ import annotations
@@ -170,3 +170,25 @@ def add_f0_loss(pitch_pred, f0, uv, nonpadding, losses: Dict, hp):
     else:
         raise NotImplementedError(hp["pitch_loss"])
     losses["f0"] = _masked_mean(err, nonpadding) * hp["lambda_f0"]
+
+
+def add_pitch_loss(ret, batch, losses: Dict, hp):
+    """FastSpeech2's pitch loss (`losses.py:243-279`): `pitch_type` "frame"
+    as `add_f0_loss` over the frames of mel2ph; "ph", the L1 of the f0 head
+    against a phone-level f0 over the tokens."""
+    if hp["pitch_type"] == "ph":
+        nonpadding = (batch["txt_tokens"] != 0).float()
+        err = torch.abs(ret["pitch_pred"][:, :, 0] - batch["f0"])
+        losses["f0"] = _masked_mean(err, nonpadding) * hp["lambda_f0"]
+        return
+    if hp["pitch_type"] != "frame":
+        raise NotImplementedError(f"pitch_type={hp['pitch_type']} is not ported")
+    add_f0_loss(ret["pitch_pred"], batch["f0"], batch["uv"], (batch["mel2ph"] != 0).float(),
+                losses, hp)
+
+
+def add_energy_loss(energy_pred, energy, losses: Dict, hp):
+    """The MSE of the energy head over the frames of non-zero energy
+    (`losses.py:282-288`)."""
+    nonpadding = (energy != 0).float()
+    losses["e"] = _masked_mean((energy_pred - energy) ** 2, nonpadding) * hp["lambda_energy"]

@@ -16,6 +16,11 @@ vocoder's `optax.adamw`), written for the port and held to optax's numbers:
   - `accumulate_grad_batches` (an int, or a dict of epoch -> factor):
     optax.MultiSteps: the mean of k mini-step gradients goes through the
     chain once every k mini-steps; every mini-step counts as a step.
+  - `frozen` parameters (DiffSpeech's conditioner but its predictors,
+    `predictor_only_frozen`): `optax.masked(optax.set_to_zero())` on both
+    sides of the chain: their gradients count as zero (in the clip's norm
+    too), their Adam moments stay zero and they do not move, weight decay
+    included.
   - schedule "vocoder": `optax.adamw(vocoder_lr, vocoder_adam_b1,
     vocoder_adam_b2)` of the GAN task (`bisinger_tpu/training/
     vocoder_task.py:86-88`): a constant rate (default 2e-4), betas 0.8 and
@@ -27,7 +32,7 @@ from __future__ import annotations
 
 import bisect
 from collections.abc import Mapping
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, Optional, Set
 
 import numpy as np
 import torch
@@ -105,8 +110,12 @@ class AdamW:
     accumulating, over named parameters (their state_dict names)."""
 
     def __init__(self, params: Dict[str, torch.nn.Parameter], hp, schedule: str = "rsqrt",
-                 steps_per_epoch: Optional[int] = None):
+                 steps_per_epoch: Optional[int] = None, frozen: Iterable[str] = ()):
         self.params = dict(params)
+        self.frozen = set(frozen)
+        unknown = self.frozen - set(self.params)
+        if unknown:
+            raise KeyError(f"frozen names no parameter: {sorted(unknown)[:4]}")
         self.eps = 1e-8
         if schedule == "vocoder":
             lr = float(hp.get("vocoder_lr", 2e-4))
@@ -166,6 +175,9 @@ class AdamW:
         parameters changed. Multi-tensor (`torch._foreach_*`) ops, each the
         same elementwise expression as optax's."""
         grads = self.grads()
+        if self.frozen:
+            grads = [torch.zeros_like(g) if k in self.frozen else g
+                     for k, g in zip(self.params, grads)]
         if self.every_k is not None:
             k = self.every_k(self.gradient_step)
             acc = list(self.acc.values())
@@ -189,6 +201,9 @@ class AdamW:
         bc1 = float(F32(1.0) - F32(self.b1) ** F32(count_inc))
         bc2 = float(F32(1.0) - F32(self.b2) ** F32(count_inc))
         params, mu, nu = (list(d.values()) for d in (self.params, self.mu, self.nu))
+        if self.frozen:  # the frozen leaves' moments stay zero, the leaves unmoved
+            live = [i for i, k in enumerate(self.params) if k not in self.frozen]
+            grads, params, mu, nu = ([x[i] for i in live] for x in (grads, params, mu, nu))
         torch._foreach_mul_(mu, self.b1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - self.b1))
         g2 = torch._foreach_mul(grads, grads)
@@ -221,3 +236,14 @@ class AdamW:
         for part in ("mu", "nu", "acc"):
             for k, v in (getattr(self, part) or {}).items():
                 v.copy_(torch.as_tensor(state[f"{part}/{k}"]))
+
+
+def predictor_only_frozen(params: Dict[str, torch.nn.Parameter]) -> Set[str]:
+    """DiffSpeech's policy (`optim.py:159-170`): the names of the
+    conditioner's (`fs2.`) parameters outside its predictors
+    (`*predictor*`); the denoiser and the predictors train."""
+    def frozen(name: str) -> bool:
+        parts = name.split(".")
+        return "fs2" in parts and not any("predictor" in p for p in parts)
+
+    return {k for k in params if frozen(k)}

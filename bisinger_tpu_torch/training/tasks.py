@@ -1,13 +1,21 @@
 """The training tasks of the acoustic stages and the PitchExtractor
-(counterpart of `bisinger_tpu/training/tasks.py:42-387`):
+(counterpart of `bisinger_tpu/training/tasks.py:42-467`):
 
-  - `AuxDecoderMIDITask`: the FFT-Singer stage, FastSpeech2MIDI alone;
-    losses mel (l1 + SSIM) and phone/word/sentence duration; rsqrt
-    schedule.
-  - `DiffSingerMIDITask`: the shallow-diffusion stage over the MIDI fs2
-    conditioner; losses the diffusion loss (`mel`) and the durations; step
-    decay schedule; `warm_start_fs2` loads the FFT-Singer stage's
-    parameters; `step_flags` is the `switch_midi2f0_step` curriculum.
+  - `AuxDecoderMIDITask` (alias `FastSpeech2Task`): the fs2 stage alone,
+    FastSpeech2MIDI with `use_midi`, else the plain FastSpeech2; losses mel
+    (l1 + SSIM), phone/word/sentence duration, and the pitch (f0, uv) and
+    energy losses when their embeddings are on; rsqrt schedule.
+  - `DiffSingerMIDITask` (and `DiffSingerTask`, `DiffFsTask`, which differ
+    only in their configs): the diffusion stage over the fs2 conditioner
+    `use_midi` picks; losses the diffusion loss (`mel`), the durations,
+    pitch and energy; step decay schedule; `warm_start_fs2` loads the fs2
+    stage's parameters; `step_flags` is the `switch_midi2f0_step`
+    curriculum (past it the model is fed no f0/uv).
+  - `DiffSpeechTask`: the same with the conditioner frozen but for its
+    predictors (`optim.predictor_only_frozen`: zero updates, zero Adam
+    moments, as `optax.set_to_zero` under `optax.masked`).
+  - `DiffSingerOfflineTask`: `OfflineGaussianDiffusion` (no conditioner
+    decoder; its inference starts from recorded fs2 mels, `fs2_mel_dir`).
   - `PitchExtractionTask`: the PitchExtractor, mel -> f0 and uv; losses
     the f0 loss and the uv BCE; rsqrt schedule; its Prenet's BatchNorm
     statistics are part of its state, and `export` writes them beside the
@@ -19,9 +27,7 @@ the optimizer (`training/optim.AdamW`) and the losses. `train_step` runs
 the model in train mode under autograd: dropout from the generator it is
 handed, the diffusion stage's t and noise from it too, or pinned by the
 caller. No step reaches K1 or K2, as no step in the JAX package reaches a
-Pallas kernel. The acoustic model's pitch and energy losses,
-`DiffSpeechTask` and the offline task are not ported; the GAN vocoder
-task is `training/vocoder_task.py`.
+Pallas kernel. The GAN vocoder task is `training/vocoder_task.py`.
 """
 
 from __future__ import annotations
@@ -38,20 +44,28 @@ from torch import nn
 from bisinger_tpu_torch import resolve_device
 from bisinger_tpu_torch.models.common import Embedding, set_dropout_generator
 from bisinger_tpu_torch.models.diffnet import DiffNet
-from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
-from bisinger_tpu_torch.models.fs2 import FastSpeech2MIDI
+from bisinger_tpu_torch.models.diffusion import GaussianDiffusion, OfflineGaussianDiffusion
+from bisinger_tpu_torch.models.fs2 import FastSpeech2, FastSpeech2MIDI
 from bisinger_tpu_torch.models.pe import PitchExtractor
 from bisinger_tpu_torch.training import losses as L
 from bisinger_tpu_torch.training.checkpoints import load_params_into
-from bisinger_tpu_torch.training.optim import AdamW
+from bisinger_tpu_torch.training.optim import AdamW, predictor_only_frozen
 from bisinger_tpu_torch.weights import export_flax_params, load_flax_params
 
 
-def model_kwargs(batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    return dict(txt_tokens=batch["txt_tokens"], mel2ph=batch["mel2ph"],
-                spk_id=batch["spk_ids"], pitch_midi=batch.get("pitch_midi"),
-                midi_dur=batch.get("midi_dur"), is_slur=batch.get("is_slur"),
-                lang=batch.get("lang"), speechsing=batch.get("speechsing"))
+def model_kwargs(batch: Dict[str, torch.Tensor], hp, drop_f0: bool = False
+                 ) -> Dict[str, Any]:
+    """A batch as the model's keywords (`tasks.py:42-72`): f0, uv and energy
+    (f0 and uv left out with `drop_f0`), and the MIDI inputs with
+    `use_midi`."""
+    kw = dict(txt_tokens=batch["txt_tokens"], mel2ph=batch["mel2ph"],
+              spk_id=batch["spk_ids"], f0=None if drop_f0 else batch.get("f0"),
+              uv=None if drop_f0 else batch.get("uv"), energy=batch.get("energy"))
+    if hp.get("use_midi"):
+        kw.update(pitch_midi=batch.get("pitch_midi"), midi_dur=batch.get("midi_dur"),
+                  is_slur=batch.get("is_slur"), lang=batch.get("lang"),
+                  speechsing=batch.get("speechsing"))
+    return kw
 
 
 _CDF_2 = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))  # the standard normal's CDF at 2
@@ -113,9 +127,10 @@ def flax_init_(model: nn.Module, seed: int, xavier=XAVIER) -> nn.Module:
 
 
 class AuxDecoderMIDITask:
-    """The FFT-Singer stage: FastSpeech2MIDI alone."""
+    """The fs2 stage: FastSpeech2MIDI (`use_midi`) or FastSpeech2 alone."""
 
     schedule = "rsqrt"
+    freeze_fs2 = False
 
     def __init__(self, hp, vocab_size: int, device=None):
         if hp.get("dur_loss", "mse") not in ("mse", "huber"):
@@ -127,11 +142,13 @@ class AuxDecoderMIDITask:
         self.opt = self.build_optimizer()
 
     def build_model(self) -> nn.Module:
-        return FastSpeech2MIDI(self.hp, self.vocab_size)
+        return (FastSpeech2MIDI if self.hp.get("use_midi") else FastSpeech2)(self.hp,
+                                                                              self.vocab_size)
 
     def build_optimizer(self, steps_per_epoch: Optional[int] = None) -> AdamW:
-        return AdamW(dict(self.model.named_parameters()), self.hp, self.schedule,
-                     steps_per_epoch)
+        params = dict(self.model.named_parameters())
+        return AdamW(params, self.hp, self.schedule, steps_per_epoch,
+                     frozen=predictor_only_frozen(params) if self.freeze_fs2 else ())
 
     def configure_accumulation(self, steps_per_epoch: int):
         """The per-epoch (dict) accumulation needs batches per epoch: rebuild
@@ -150,9 +167,7 @@ class AuxDecoderMIDITask:
 
     # ---- forward and losses ----------------------------------------------
     def forward(self, batch, generator=None, drop_f0: bool = False, t=None, noise=None):
-        # f0/uv feed only the pitch embedding, which the port does not
-        # build: drop_f0 changes nothing here
-        return self.model(**model_kwargs(batch), ref_mels=batch["mels"])
+        return self.model(**model_kwargs(batch, self.hp, drop_f0), ref_mels=batch["mels"])
 
     def _dur_losses(self, ret, batch, losses):
         wdb = batch.get("word_boundary")
@@ -163,10 +178,17 @@ class AuxDecoderMIDITask:
             L.add_dur_loss_midi(ret["dur"], batch["mel2ph"], batch["txt_tokens"], wdb, losses,
                                 self.hp)
 
+    def _variance_losses(self, ret, batch, losses):
+        if self.hp.get("use_pitch_embed"):
+            L.add_pitch_loss(ret, batch, losses, self.hp)
+        if self.hp.get("use_energy_embed"):
+            L.add_energy_loss(ret["energy_pred"], batch["energy"], losses, self.hp)
+
     def compute_losses(self, ret, batch) -> Dict[str, torch.Tensor]:
         losses: Dict[str, torch.Tensor] = {}
         L.add_mel_loss(ret["mel_out"], batch["mels"], losses, self.hp)
         self._dur_losses(ret, batch, losses)
+        self._variance_losses(ret, batch, losses)
         return losses
 
     # ---- steps -----------------------------------------------------------
@@ -198,7 +220,7 @@ class AuxDecoderMIDITask:
 
 
 class DiffSingerMIDITask(AuxDecoderMIDITask):
-    """The shallow-diffusion stage over the MIDI fs2 conditioner."""
+    """The shallow-diffusion stage over the fs2 conditioner."""
 
     schedule = "step"
 
@@ -212,12 +234,14 @@ class DiffSingerMIDITask(AuxDecoderMIDITask):
         return {"drop_f0": bool(sw is not None and step is not None and step > sw)}
 
     def forward(self, batch, generator=None, drop_f0: bool = False, t=None, noise=None):
-        return self.model.train_forward(**model_kwargs(batch), ref_mels=batch["mels"], t=t,
-                                        noise=noise, generator=generator)
+        return self.model.train_forward(**model_kwargs(batch, self.hp, drop_f0),
+                                        ref_mels=batch["mels"], t=t, noise=noise,
+                                        generator=generator)
 
     def compute_losses(self, ret, batch) -> Dict[str, torch.Tensor]:
         losses = {"mel": ret["diff_loss"]}
         self._dur_losses(ret, batch, losses)
+        self._variance_losses(ret, batch, losses)
         return losses
 
     def warm_start_fs2(self, fs2_params: Dict[str, np.ndarray], subtree: str = ""):
@@ -231,6 +255,33 @@ class DiffSingerMIDITask(AuxDecoderMIDITask):
             raise ValueError("warm start: no parameter of the source matches the conditioner's "
                              "names and shapes")
         load_flax_params(self.model.fs2, merged)
+
+
+# the reference's names for the same loop (`tasks.py:429-437`): DiffSinger
+# without MIDI (its configs unset use_midi), and plain diffusion (run with
+# gaussian_start and K_step = timesteps)
+DiffSingerTask = DiffFsTask = DiffSingerMIDITask
+
+
+class DiffSpeechTask(DiffSingerMIDITask):
+    """Shallow-diffusion TTS (`tasks.py:420-426`): the conditioner frozen
+    but for its predictors."""
+
+    freeze_fs2 = True
+
+
+class DiffSingerOfflineTask(DiffSingerMIDITask):
+    """The offline variant (`tasks.py:440-490`): `OfflineGaussianDiffusion`,
+    whose inference starts from a batch's recorded fs2 mels (`fs2_mels`,
+    from `fs2_mel_dir`); its training step is the diffusion stage's, which
+    reads no fs2 mel, as JAX's does not."""
+
+    def build_model(self) -> nn.Module:
+        return OfflineGaussianDiffusion(self.hp, self.vocab_size, self.hp["audio_num_mel_bins"])
+
+
+# the reference's name: the fs2 stage's task covers the plain FastSpeech2
+FastSpeech2Task = AuxDecoderMIDITask
 
 
 class PitchExtractionTask(AuxDecoderMIDITask):
@@ -274,3 +325,20 @@ class PitchExtractionTask(AuxDecoderMIDITask):
         np.savez(os.path.join(out_dir, "pe_params.npz"),
                  **{k: v for k, v in flat.items() if k not in stats})
         np.savez(os.path.join(out_dir, "pe_batch_stats.npz"), **stats)
+
+
+# the classes `task_cls` names, by the last part of a dotted name (the
+# reference's, the JAX package's or the port's; `bisinger_tpu/run.py:41-51`)
+TASKS = {c.__name__: c for c in (AuxDecoderMIDITask, DiffSingerMIDITask, DiffSpeechTask,
+                                 DiffSingerOfflineTask, PitchExtractionTask)}
+TASKS.update(FastSpeech2Task=FastSpeech2Task, DiffSingerTask=DiffSingerTask,
+             DiffFsTask=DiffFsTask)
+
+
+def task_class(name: str):
+    """`task_cls` (empty for the diffusion stage) -> the port's task class."""
+    short = (name or "DiffSingerMIDITask").rsplit(".", 1)[-1]
+    if short not in TASKS:
+        raise NotImplementedError(f"task_cls={name!r} is not ported (the port has "
+                                  f"{', '.join(sorted(TASKS))})")
+    return TASKS[short]

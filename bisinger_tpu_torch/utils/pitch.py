@@ -1,9 +1,12 @@
-"""Host-side f0 utilities for the binarizer and the dataset (counterpart of
-`bisinger_tpu/utils/pitch.py:34-111`, the numpy functions)."""
+"""f0 utilities (counterpart of `bisinger_tpu/utils/pitch.py`): the
+host-side numpy functions of the binarizer and the dataset (`_np`), and
+the torch ones of the pitch-conditioned FastSpeech2 (`f0_to_coarse`,
+`denorm_f0`)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 F0_BIN = 256
 F0_MAX = 1100.0
@@ -22,6 +25,32 @@ def f0_to_coarse_np(f0: np.ndarray) -> np.ndarray:
     coarse = np.rint(f0_mel).astype(np.int64)
     assert coarse.max() <= 255 and coarse.min() >= 1, (coarse.max(), coarse.min())
     return coarse
+
+
+def f0_to_coarse(f0: torch.Tensor) -> torch.Tensor:
+    """f0 [Hz] -> coarse pitch bin in [1, 255] (int64), as `f0_to_coarse_np`
+    (`pitch.py:22-31`): floor(x + 0.5), in f0's dtype."""
+    f0_mel = 1127.0 * torch.log(1.0 + f0 / 700.0)
+    scaled = (f0_mel - F0_MEL_MIN) * (F0_BIN - 2) / (F0_MEL_MAX - F0_MEL_MIN) + 1.0
+    f0_mel = torch.where(f0_mel > 0, scaled, f0_mel)
+    f0_mel = torch.clamp(f0_mel, 1.0, F0_BIN - 1)
+    return torch.floor(f0_mel + 0.5).long()
+
+
+def denorm_f0(f0, uv, pitch_norm: str = "log", f0_mean: float = 0.0, f0_std: float = 1.0,
+              use_uv: bool = True, pitch_padding=None):
+    """The inverse of the normalisation (`pitch.py:55-80`): 2**f0 for "log",
+    f0 * std + mean for "standard"; 0 where `uv` (with `use_uv`) and where
+    `pitch_padding`."""
+    if pitch_norm == "standard":
+        f0 = f0 * f0_std + f0_mean
+    elif pitch_norm == "log":
+        f0 = 2.0 ** f0
+    if uv is not None and use_uv:
+        f0 = torch.where(uv > 0, torch.zeros_like(f0), f0)
+    if pitch_padding is not None:
+        f0 = torch.where(pitch_padding, torch.zeros_like(f0), f0)
+    return f0
 
 
 def norm_interp_f0_np(f0: np.ndarray, pitch_norm: str = "log", f0_mean: float = 0.0,

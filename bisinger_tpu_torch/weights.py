@@ -120,7 +120,8 @@ def export_flax_params(model: nn.Module, tensors=None) -> Dict[str, np.ndarray]:
     """Every parameter and buffer of `model` (but BatchNorm's step count and
     non-persistent buffers) under its flat flax key, in flax's layout, as
     fp32 numpy arrays: `load_flax_params(model, export_flax_params(model))`
-    changes nothing. `tensors` (state_dict names -> tensors, default the
+    changes nothing; the arrays are copies, which a later optimizer step
+    leaves as they were. `tensors` (state_dict names -> tensors, default the
     state_dict) exports other values of the same entries, such as weights
     composed from a weight-norm pair."""
     modules = dict(model.named_modules())
@@ -137,5 +138,6 @@ def export_flax_params(model: nn.Module, tensors=None) -> Dict[str, np.ndarray]:
                 arr = from_torch_layout(module, arr)
         else:
             leaf = _FLAX_LEAF.get(name, name)
-        out["/".join([*mpath.split("."), leaf]) if mpath else leaf] = np.ascontiguousarray(arr)
+        # a copy: a CPU tensor's .numpy() is a view of the live parameter
+        out["/".join([*mpath.split("."), leaf]) if mpath else leaf] = np.array(arr, order="C")
     return out

@@ -78,14 +78,30 @@ and seconds (a failed phase exits non-zero):
      peak memory, f0 MAE (PE), gen_mel and disc_loss at steps 1 and 20
      (vocoder) are reported; the log goes to
      checkpoints/chip_smoke/cascade.log;
+  12. (run before 9) DiffSinger's PopCS family from the repo's own YAML
+     configs (configs/usr/popcs_*.yaml, read without PyYAML) in bf16 at the
+     configs' widths and batching, only the steps cut: the synthetic corpus
+     (64 items, fmt "popcs") binarized by `run --binarize` with
+     MidiSingingBinarizer; popcs_fs2 (plain FastSpeech2, frame pitch with
+     uv) 20 steps, `--validate`, a resume to 22; popcs_ds_beta6 (T=100,
+     K=51) 20 steps warm-started from it; popcs_ds_beta6_offline 20 steps on
+     the fs2 mels the phase writes; popcs_ds_beta6 served through
+     `from_work_dir` with the flagship vocoder and no PE (f0 from the
+     model), shallow PLMS at pndm_speedup 1: K1-bf16 52 launches (K/speedup
+     + 1, as JAX's loop calls the denoiser), K2-bf16 4
+     (`launches_by_path["popcs served"]`); one fp32 step of FastSpeech2Task
+     (pitch, uv, energy) and of DiffSingerOfflineTask on the card against
+     the CPU at phase 10's bounds, every loss. Steps/s, peak memory, the
+     served request's seconds; the log goes to
+     checkpoints/chip_smoke/popcs.log;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
-     buckets of phases 5, 8, 10 and 11 (the mb4 stages among them).
+     buckets of phases 5, 8, 10, 11 and 12 (the mb4 stages among them).
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5, 8, 10 and 11. Without a CUDA device it exits 1 and prints
+path of phases 5, 8, 10, 11 and 12. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -200,6 +216,23 @@ LONG = dict(item_name="long", text=" ".join(["wo ai ni la"] * 6),
             notes_duration=" | ".join(["0.15 | 0.15 | 0.15 | 0.25"] * 6))
 
 
+def launch_counts(counters, by_path):
+    """(reset, read) for the paths of a phase: reset() sets every kernel's
+    count to 0 just before a path, read(part) records the counts just after
+    it as by_path[part] and returns them."""
+    def reset():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+
+    def read(part):
+        torch.cuda.synchronize()
+        by_path[part] = {k: c.launches for k, c in counters.items()}
+        return by_path[part]
+
+    return reset, read
+
+
 def with_hp(svs, **over):
     """A shallow copy of a pipeline whose hyperparameters (and diffusion
     model's) have `over` set; the weights are shared."""
@@ -229,15 +262,7 @@ def score_entry_points(svs32, counters, by_path, n_calls, dev) -> bool:
     from bisinger_tpu_torch.inference import server
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
 
-    def reset():
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-
-    def read(part):
-        torch.cuda.synchronize()
-        by_path[part] = {k: c.launches for k, c in counters.items()}
-        return by_path[part]
+    reset, read = launch_counts(counters, by_path)
 
     def bf16_only(k1, groups):
         return {k: (0 if not k.endswith("_bf16") else
@@ -442,15 +467,7 @@ def training_phase(svs, counters, by_path, dev, tmp):
     log_fn = os.path.join(out_dir, "training.log")
     lines, checks = [], {}
 
-    def reset():
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-
-    def read(part):
-        torch.cuda.synchronize()
-        by_path[part] = {k: c.launches for k, c in counters.items()}
-        return by_path[part]
+    reset, read = launch_counts(counters, by_path)
 
     cwd = os.getcwd()
     try:
@@ -649,15 +666,7 @@ def cascade_phase(svs, counters, by_path, dev, tmp):
                           "chip_smoke", "cascade.log")
     lines, checks = [], {}
 
-    def reset():
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-
-    def read(part):
-        torch.cuda.synchronize()
-        by_path[part] = {k: c.launches for k, c in counters.items()}
-        return by_path[part]
+    reset, read = launch_counts(counters, by_path)
 
     cwd = os.getcwd()
     try:
@@ -848,6 +857,236 @@ def cascade_phase(svs, counters, by_path, dev, tmp):
                      f"(contract 2e-2 / 2e-1); launches {counts}")
         lines.append("steps/s (first step apart), peak GiB, f0 MAE: " + json.dumps(
             {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in stats.items()}))
+    finally:
+        os.chdir(cwd)
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
+POPCS_ITEMS = 64
+POPCS_SCORE = dict(  # phoneme level: the synthetic PopCS corpus's phone set
+    item_name="popcs", input_type="phoneme", ph_seq="<SP> sh ang x in h ao m a l i <SP>",
+    note_seq="rest C4 C4 D4 D4 E4 E4 F4 F4 G4 G4 rest",
+    note_dur_seq="0.2 0.3 0.3 0.3 0.3 0.3 0.3 0.3 0.3 0.4 0.4 0.2",
+    is_slur_seq=" ".join(["0"] * 12), lang_seq=" ".join(["1"] * 12))
+
+
+def popcs_phase(counters, by_path, dev, tmp, card):
+    """Phase 12: DiffSinger's PopCS family from the repo's own YAML configs,
+    trained and served on the card in bf16 (the configs' compute_dtype) at
+    their own widths and batching; only the steps are cut. The synthetic
+    corpus (64 items, fmt "popcs") binarized by `run --binarize --config
+    configs/usr/popcs_fs2.yaml` (MidiSingingBinarizer, the Praat-AC tracker);
+    popcs_fs2 (FastSpeech2Task: hidden 256, 4 + 4 FFT layers, frame pitch
+    with uv; max_tokens 18000) for 20 steps, --validate, a resume to 22;
+    popcs_ds_beta6 (T=100, K=51, DiffNet 20 x 256) for 20 steps warm-started
+    from popcs_fs2's work dir; the mels popcs_fs2 predicts for every item
+    (given durations and f0) written to an fs2_mel_dir, and
+    popcs_ds_beta6_offline for 20 steps on them. Then popcs_ds_beta6's work
+    dir served through SVSInferTorch.from_work_dir with the flagship's
+    vocoder and no PE (f0 from the model's pitch predictor): shallow PLMS at
+    pndm_speedup 1 over K=51, K1-bf16 once a denoiser call (K/speedup + 1 =
+    52) and K2-bf16 once an MRF stage (4). Last, one fp32 step on the card
+    against the CPU (tools/step_parity) of FastSpeech2Task with frame pitch,
+    uv and energy on, and of DiffSingerOfflineTask. `card` (nvidia-smi's name
+    and power limit) goes beside the times. Returns (ok, lines)."""
+    import contextlib
+
+    import numpy as np
+
+    from bisinger_tpu_torch import run
+    from bisinger_tpu_torch.config import apply_overrides, load_hparams
+    from bisinger_tpu_torch.data.dataset import DataLoader, M4SingerDataset, batch_to_device
+    from bisinger_tpu_torch.data.synthetic import make_synthetic_corpus
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
+    from bisinger_tpu_torch.tools.step_parity import step_parity
+    from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+    from bisinger_tpu_torch.training.tasks import DiffSingerOfflineTask, FastSpeech2Task
+    from bisinger_tpu_torch.weights import load_flax_params, load_npz
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = {name: os.path.join(repo, "configs", "usr", f"{name}.yaml")
+           for name in ("popcs_fs2", "popcs_ds_beta6", "popcs_ds_beta6_offline")}
+    log_fn = os.path.join(repo, "checkpoints", "chip_smoke", "popcs.log")
+    root = os.path.join(tmp, "popcs")
+    os.makedirs(root)
+    lines, checks, stats = [], {}, {}
+
+    reset, read = launch_counts(counters, by_path)
+
+    # the synthetic items are named "<singer>#song<i % 3>#<i:04d>": the
+    # configs' PopCS song names match none; 4 items are held out
+    data = (f'raw_data_dir={root}/raw,binary_data_dir={root}/binary,'
+            f'test_prefixes=["song0#000"]')
+    common = f"{data},log_interval=1,val_check_interval=1000,num_ckpt_keep=2"
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        make_synthetic_corpus(os.path.join(root, "raw"), n_items=POPCS_ITEMS, seed=0,
+                              fmt="popcs")
+        env = dict(os.environ, N_PROC="8",
+                   PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "bisinger_tpu_torch.run", "--config",
+                               cfg["popcs_fs2"], "--binarize", "--hparams", data], env=env,
+                              capture_output=True, text=True, timeout=300)
+        binarize_s = time.perf_counter() - t0
+        with open(log_fn, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        checks["binarize rc 0"] = proc.returncode == 0
+        if proc.returncode != 0:
+            return False, [f"binarize failed: {proc.stderr[-2000:]}"]
+        counts_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("| binarized")]
+        lines.append(f"binarize (MidiSingingBinarizer): {binarize_s:.1f} s with 8 processes "
+                     f"({'; '.join(counts_line)}"
+                     f"{'; Praat-AC fallback warned' if 'parselmouth not installed' in proc.stdout else ''})")
+
+        def train(name, extra="", steps=TRAIN_STEPS):
+            """`name`'s config for `steps` steps in work dir `name`: (trainer, launches)."""
+            tr = run.trainer_from_args(run.parse_args(
+                ["--config", cfg[name], "--exp_name", name, "--hparams",
+                 f"{common},max_updates={steps}{extra}"]))
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            tr.fit()
+            counts = read(f"12 train {name}")
+            log = tr.train_log
+            t1, tn = log[0][1], log[-1][1]
+            losses = [m["total_loss"] for _, _, m in log]
+            stats[name] = dict(first_s=t1 - tr.loop_started,
+                               steps_per_s=(len(log) - 1) / (tn - t1),
+                               mem=torch.cuda.max_memory_allocated() / 2 ** 30,
+                               loss1=losses[0], loss20=losses[-1])
+            checks[f"{name} losses finite"] = all(
+                np.isfinite(v) for _, _, m in log for v in m.values())
+            checks[f"{name} {steps} steps"] = tr.global_step == steps
+            checks[f"{name} no kernel launched in training"] = not any(counts.values())
+            hp = tr.task.hp
+            st = stats[name]
+            lines.append(
+                f"{name} ({hp['task_cls'].rsplit('.', 1)[-1]}, hidden {hp['hidden_size']}, "
+                f"{hp['enc_layers']} + {hp['dec_layers']} FFT layers, "
+                + (f"T={hp['timesteps']} K={hp['K_step']} DiffNet {hp['residual_layers']} x "
+                   f"{hp['residual_channels']}, " if name != "popcs_fs2" else "")
+                + f"max_tokens {hp['max_tokens']}, bf16): first step {st['first_s']:.2f} s, "
+                f"then {st['steps_per_s']:.2f} steps/s; peak memory {st['mem']:.2f} GiB; loss "
+                f"step 1 {st['loss1']:.4f}, step {steps} {st['loss20']:.4f}; launches {counts}")
+            return tr
+
+        with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
+            tr_fs2 = train("popcs_fs2")
+            reset()
+            rc_val = run.main(["--config", cfg["popcs_fs2"], "--exp_name", "popcs_fs2",
+                               "--validate"])
+            rc_res = run.main(["--config", cfg["popcs_fs2"], "--exp_name", "popcs_fs2",
+                               "--max_updates", str(TRAIN_STEPS + 2)])
+            counts_vr = read("12 validate and resume popcs_fs2")
+            fs2_dir = os.path.join(root, "checkpoints", "popcs_fs2")
+            train("popcs_ds_beta6", f",fs2_ckpt={fs2_dir}")
+
+            # the fs2 stage's mels of every item (given mel2ph, f0 and uv), one
+            # .npy per item: the offline task's recorded fs2 mels
+            fs2_mel_dir = os.path.join(root, "fs2_mels")
+            os.makedirs(fs2_mel_dir)
+            fs2_hp = tr_fs2.task.hp
+            ckpt = CheckpointManager(os.path.join(fs2_dir, "ckpt"))
+            fs2_task = FastSpeech2Task(fs2_hp, tr_fs2.task.vocab_size, device=dev)
+            fs2_task.load_state(load_npz(os.path.join(ckpt.directory, str(ckpt.latest_step()),
+                                                      "params.npz")))
+            fs2_task.model.eval()
+            n_written = 0
+            for split in ("train", "valid", "test"):
+                for b in DataLoader(M4SingerDataset(fs2_hp, split), fs2_hp, shuffle=False):
+                    with torch.no_grad():
+                        mel = fs2_task.forward(batch_to_device(b, dev))["mel_out"].float().cpu()
+                    for i, name in enumerate(b["item_names"]):
+                        np.save(os.path.join(fs2_mel_dir, f"{name}.npy"), mel[i].numpy())
+                        n_written += 1
+            del fs2_task
+            train("popcs_ds_beta6_offline", f",fs2_ckpt={fs2_dir},fs2_mel_dir={fs2_mel_dir}")
+        with open(log_fn) as f:
+            text = f.read()
+        val = [ln for ln in text.splitlines() if ln.startswith("| validate: total_loss=")]
+        checks["popcs_fs2 validate"] = rc_val == 0 and len(val) == 1 and np.isfinite(
+            float(val[0].split("=")[1]))
+        checks["popcs_fs2 resume to 22"] = (rc_res == 0 and ckpt.latest_step() == TRAIN_STEPS + 2
+                                            and f"| resumed from step {TRAIN_STEPS}" in text)
+        checks["no kernel launched in validate/resume"] = not any(counts_vr.values())
+        checks["popcs_ds_beta6 warm-started"] = text.count(f"| warm-started fs2 from {fs2_dir}") == 2
+        lines.append(f"popcs_fs2 --validate: {val[0][2:] if val else 'missing'}; resume: latest "
+                     f"checkpoint {ckpt.latest_step()}; {n_written} fs2 mels written for the "
+                     "offline task")
+
+        # ---- serve popcs_ds_beta6: f0 from its pitch predictor, no PE ----
+        voc_dir = os.path.join(FLAGSHIP_DIR, "vocoder")
+        svs = SVSInferTorch.from_work_dir(os.path.join(root, "checkpoints", "popcs_ds_beta6"),
+                                          FLAGSHIP_DIR, device=dev,
+                                          hp_overrides={"vocoder_ckpt": voc_dir})
+        hp = svs.hp
+        k, speedup = hp["K_step"], int(hp["pndm_speedup"])
+        # PLMS's denoiser calls as the JAX loop makes them: 2 at the first
+        # step, then one a step of np.arange(0, K, speedup) after it
+        want_k1 = 2 + len(np.arange(0, k, speedup)) - 1
+        svs.infer_once(POPCS_SCORE)  # warm
+        reset()
+        t0 = time.perf_counter()
+        wav = svs.infer_once(POPCS_SCORE)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read("popcs served")
+        checks["served without a PE"] = svs.pe is None
+        checks["served audio finite, non-silent"] = bool(np.isfinite(wav).all()) and float(
+            np.abs(wav).max()) > 1e-3
+        checks[f"K1-bf16 {want_k1} launches"] = counts == {
+            "fused_residual_stack": 0, "fused_residual_stack_bf16": want_k1,
+            "fused_mrf_stage": 0, "fused_mrf_stage_bf16": 4}
+        lines.append(f"popcs_ds_beta6 served from its work dir (from_work_dir, flagship vocoder "
+                     f"{os.path.relpath(voc_dir, repo)}, pe_enable {hp['pe_enable']}: f0 from "
+                     f"the pitch predictor; PLMS pndm_speedup {speedup} over K={k}, expected "
+                     f"{want_k1} denoiser calls as JAX's loop makes them): {len(wav)} samples, "
+                     f"|wav| max {float(np.abs(wav).max()):.3f}, warm request {serve_s:.3f} s, "
+                     f"launches {counts}")
+        stats["served"] = dict(request_s=serve_s)
+
+        # ---- fp32 card vs CPU: FastSpeech2Task (pitch, uv, energy) and offline ----
+        fp32 = dict(compute_dtype="float32", dropout=0.0, predictor_dropout=0.0)
+        hp_fs2 = apply_overrides(load_hparams(cfg["popcs_fs2"], common),
+                                 dict(fp32, use_energy_embed=True))
+        hp_off = apply_overrides(load_hparams(cfg["popcs_ds_beta6_offline"], common),
+                                 dict(fp32, fs2_mel_dir=fs2_mel_dir))
+        data_hp = dict(hp_off, use_energy_embed=True)  # the batch carries both tasks' fields
+        b = next(iter(DataLoader(M4SingerDataset(data_hp, "valid"), data_hp, shuffle=False,
+                                 max_sentences=4)))
+        b = {k: (v[:4, :256] if k in ("mels", "mel2ph", "f0", "uv", "energy", "fs2_mels")
+                 else v[:4]) if isinstance(v, np.ndarray) and v.ndim else v for k, v in b.items()}
+        g = torch.Generator().manual_seed(12)
+        rows = b["txt_tokens"].shape[0]
+        pins = dict(t=torch.randint(0, hp_off["K_step"], (rows,), generator=g),
+                    noise=torch.randn((rows, 256, 80), generator=g))
+        vocab = svs.vocab_size
+        reset()
+        for label, cls, hpx, work, pin in (
+                ("FastSpeech2Task (frame pitch, uv, energy)", FastSpeech2Task, hp_fs2, None, {}),
+                ("DiffSingerOfflineTask", DiffSingerOfflineTask, hp_off,
+                 "popcs_ds_beta6_offline", pins)):
+            if work is None:  # the fs2 stage trained above, with a fresh energy head
+                task = cls(hpx, vocab, device="cpu")
+                trained = load_npz(os.path.join(ckpt.directory, str(ckpt.latest_step()),
+                                                "params.npz"))
+                params = dict(task.state()["params"], **trained)
+            else:
+                c = CheckpointManager(os.path.join(root, "checkpoints", work, "ckpt"))
+                params = load_npz(os.path.join(c.directory, str(c.latest_step()), "params.npz"))
+            ok, text = step_parity(lambda d, cls=cls, hpx=hpx: cls(hpx, vocab, device=d),
+                                   params, b, pin, dev)
+            checks[f"{label} fp32 card vs CPU"] = ok
+            lines.append(f"{label} fp32 step card vs CPU ({rows} x "
+                         f"{b['txt_tokens'].shape[1]} tokens x 256 frames, every loss): {text}")
+        checks["no kernel launched in the parity steps"] = not any(read("12 parity").values())
+        lines.append(f"steps/s (first step apart), peak GiB, served request s on {card}: "
+                     + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()}
+                                   for k, v in stats.items()}))
     finally:
         os.chdir(cwd)
     bad = [k for k, v in checks.items() if not v]
@@ -1267,6 +1506,11 @@ def main() -> int:
                 return 1
         with Phase("11 cascade training") as ph:
             ok, lines = cascade_phase(svs, counters, by_path, dev, tmp)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+        with Phase("12 PopCS family from the YAML configs") as ph:
+            ok, lines = popcs_phase(counters, by_path, dev, tmp, smi)
             ph.done(" | ".join(lines))
             if not ok:
                 return 1

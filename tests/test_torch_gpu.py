@@ -419,3 +419,89 @@ def test_fp32_gan_step_on_the_card_matches_the_cpu(cuda, variant):
         over.update(vocoder_multiband=4, upsample_rates=[8, 4], upsample_kernel_sizes=[16, 8])
     ok, text = gan_step_parity(make_hparams(over), cuda)
     assert ok, text
+
+
+def _popcs_batch(b=2, n_tokens=16, n_frames=64, seed=0):
+    """A PopCS-shaped numpy batch: tokens, a sorted frame map, the target mel,
+    log2 f0 with uv, energy, word boundaries and a recorded fs2 mel."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    txt = np.zeros((b, n_tokens), np.int64)
+    txt[:, : n_tokens - 2] = r.integers(3, 14, (b, n_tokens - 2))
+    mel2ph = np.zeros((b, n_frames), np.int64)
+    mel2ph[:, : n_frames - 8] = np.sort(r.integers(1, n_tokens - 2, (b, n_frames - 8)), axis=1)
+    mels = (r.standard_normal((b, n_frames, 80)) * 0.5 - 4).astype(np.float32)
+    mels[mel2ph == 0] = 0.0
+    uv = (r.random((b, n_frames)) < 0.3).astype(np.float32)
+    return dict(txt_tokens=txt, mel2ph=mel2ph, spk_ids=np.zeros((b,), np.int64), mels=mels,
+                f0=r.uniform(7.3, 8.6, (b, n_frames)).astype(np.float32), uv=uv,
+                energy=np.sqrt((np.exp(mels) ** 2).sum(-1)).astype(np.float32),
+                word_boundary=r.integers(0, 2, (b, n_tokens)),
+                fs2_mels=mels + (0.3 * r.standard_normal(mels.shape)).astype(np.float32))
+
+
+@pytest.mark.parametrize("task", ["FastSpeech2Task", "DiffSingerOfflineTask"])
+def test_fp32_popcs_step_on_the_card_matches_the_cpu(cuda, task):
+    """One fp32 step of the PopCS configs' tasks (hidden 256 from the YAML
+    configs; FastSpeech2Task with frame pitch, uv and energy on) from the
+    same initialisation on the card and on the CPU, at chip_smoke phase 12's
+    bounds (tools/step_parity: every loss within 1e-5 of its value, every
+    gradient within 1e-4 of the largest, every parameter within 1e-6 beyond
+    Adam's carry, ReLU kinks pinned to the CPU's side)."""
+    import numpy as np
+
+    from bisinger_tpu_torch.config import load_hparams
+    from bisinger_tpu_torch.tools.step_parity import step_parity
+    from bisinger_tpu_torch.training import tasks
+
+    cfg = {"FastSpeech2Task": "usr/popcs_fs2.yaml",
+           "DiffSingerOfflineTask": "usr/popcs_ds_beta6_offline.yaml"}[task]
+    hp = load_hparams(cfg, dict(compute_dtype="float32", dropout=0.0, predictor_dropout=0.0,
+                                use_energy_embed=True))
+    cls = getattr(tasks, task)
+    params = cls(hp, 16, device="cpu").state()["params"]
+    for k in params:  # the DiffNet's zero-initialised output projection, drawn
+        if k.startswith("denoise_fn/output_projection/"):
+            params[k] = 0.05 * np.random.default_rng(1).standard_normal(
+                params[k].shape).astype(np.float32)
+    g = torch.Generator().manual_seed(2)
+    pins = {} if task == "FastSpeech2Task" else dict(
+        t=torch.randint(0, hp["K_step"], (2,), generator=g), noise=torch.randn((2, 64, 80),
+                                                                                generator=g))
+    ok, text = step_parity(lambda d: cls(hp, 16, device=d), params, _popcs_batch(), pins, cuda)
+    assert ok, text
+
+
+def test_popcs_bf16_synthesis_launches_k1_and_k2(cuda):
+    """popcs_ds_beta6 (bf16, K=51, PLMS at pndm_speedup 1) with the
+    flagship's vocoder and no PE, from a phoneme-level score: K1-bf16 once
+    a denoiser call (K/speedup + 1 = 52), K2-bf16 once an MRF stage (4), no
+    fp32 launch; finite audio, frames x 128 samples."""
+    import numpy as np
+
+    from bisinger_tpu_torch.config import load_hparams, load_hparams_json
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, _pe_and_vocoder
+    from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+    from bisinger_tpu_torch.training.tasks import flax_init_
+    from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder
+
+    phones = ["<SP>", "a", "ang", "ao", "h", "i", "in", "l", "m", "sh", "x"]
+    hp = load_hparams("usr/popcs_ds_beta6.yaml")
+    assert hp["compute_dtype"] == "bfloat16" and hp["K_step"] == 51 and hp["pndm_speedup"] == 1
+    model = flax_init_(GaussianDiffusion(hp, len(phones) + 3), 0)
+    _, vocoder = _pe_and_vocoder(FLAGSHIP_DIR, load_hparams_json(
+        f"{FLAGSHIP_DIR}/hparams_diff.json"), with_pe=False)
+    svs = SVSInferTorch(hp, model, None, vocoder, cuda,
+                        encoder=TokenTextEncoder(phones, replace_oov=","), spk_map={"pop-cs": 0})
+    score = dict(input_type="phoneme", ph_seq="<SP> sh ang x in h ao <SP>",
+                 note_seq="rest C4 C4 D4 D4 E4 E4 rest", note_dur_seq="0.1 " * 7 + "0.1",
+                 is_slur_seq=" ".join(["0"] * 8), lang_seq=" ".join(["1"] * 8))
+    counters = (diffnet_stack.counter, diffnet_stack.counter_bf16, mrf_stage.counter,
+                mrf_stage.counter_bf16)
+    for c in counters:
+        c.launches = 0
+    wav = svs.infer_once(score)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [0, 52, 0, 4]
+    assert np.isfinite(wav).all() and len(wav) % 128 == 0 and len(wav) > 0

@@ -28,7 +28,7 @@ from bisinger_tpu.vocoders.hifigan import flatten_params
 from bisinger_tpu_torch.models import common
 from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
 from bisinger_tpu_torch.training import losses as L
-from bisinger_tpu_torch.training.tasks import PitchExtractionTask
+from bisinger_tpu_torch.training.tasks import PitchExtractionTask, task_class
 from bisinger_tpu_torch.weights import export_flax_params, load_flax_params
 
 from torch_port_helpers import hparams, max_err, t
@@ -271,7 +271,7 @@ def test_pe_cli_binarize_train_resume_validate(tmp_path, monkeypatch, capsys):
     from bisinger_tpu_torch.training.checkpoints import CheckpointManager
     from bisinger_tpu_torch.weights import load_npz
 
-    assert run.task_class("bisinger_tpu.training.tasks.PitchExtractionTask") is \
+    assert task_class("bisinger_tpu.training.tasks.PitchExtractionTask") is \
         PitchExtractionTask
     make_synthetic_corpus(str(tmp_path / "raw"), n_items=10, seed=0)
     cfg = make_hparams(dict(

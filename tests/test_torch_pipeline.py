@@ -319,8 +319,9 @@ def test_port_imports_nothing_of_jax():
     JAX package and __graft_entry__, every module of the port (the score
     front end, the server, the CLI, the data pipeline, the training
     modules, the GAN vocoder's task, weight norm, PQMF, STFT, wrapper and
-    trainer tool, and the card-vs-CPU step check among them) and chip_smoke
-    (without running it) import."""
+    trainer tool, the card-vs-CPU step check and the YAML reader among them)
+    and chip_smoke (without running it) import, and a YAML config of the
+    repo loads with its cascade."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pypinyin", "jieba",
@@ -341,6 +342,9 @@ def test_port_imports_nothing_of_jax():
             importlib.import_module(name)
         import chip_smoke
         assert callable(chip_smoke.main)
+        from bisinger_tpu_torch.config import load_hparams
+        hp = load_hparams("configs/usr/popcs_ds_beta6_offline.yaml")
+        assert hp["K_step"] == 51 and hp["use_midi"] is False and hp["hop_size"] == 128
         loaded = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
         print(" ".join(names))
@@ -363,4 +367,4 @@ def test_port_imports_nothing_of_jax():
             "bisinger_tpu_torch.training.vocoder_task", "bisinger_tpu_torch.training.weight_norm",
             "bisinger_tpu_torch.models.pqmf", "bisinger_tpu_torch.ops.stft",
             "bisinger_tpu_torch.vocoders.hifigan", "bisinger_tpu_torch.tools.train_vocoder",
-            "bisinger_tpu_torch.tools.step_parity"} <= names
+            "bisinger_tpu_torch.tools.step_parity", "bisinger_tpu_torch.yaml_subset"} <= names
