@@ -59,6 +59,12 @@ DEFAULTS: Dict[str, Any] = {
     "use_pitch_embed": True,
     "pitch_type": "frame",
     "use_uv": True,
+    "cwt_hidden_size": 128,
+    "cwt_layers": 2,
+    "cwt_loss": "l1",
+    "cwt_add_f0_loss": False,
+    "cwt_std_scale": 0.8,
+    "cwt_scales": 10,
     "pitch_norm": "log",
     "pitch_loss": "l1",
     "lambda_f0": 1.0,

@@ -1,16 +1,23 @@
 """Offline binarizer: raw corpus metadata -> feature record shards
 (counterpart of `bisinger_tpu/data/binarizer.py:1-633`: `M4SingerBinarizer`,
-alias `SingingBinarizer`, and `MidiSingingBinarizer`).
+alias `SingingBinarizer`, `TextGridBinarizer`, alias `ZhBinarizer`, and
+`MidiSingingBinarizer`).
 
   - metadata: the BiSinger `raw_json_fn` line-per-dict format: {item_name,
     txt, phs, ph_dur, notes, notes_dur, is_slur, word_boundary, lang,
-    speechsing}; or, for `MidiSingingBinarizer` (DiffSinger's PopCS), a JSON
+    speechsing}; for `MidiSingingBinarizer` (DiffSinger's PopCS), a JSON
     list of such items with their `wav_fn` in `<dir>/meta.json` for each
     dir of `processed_data_dir` (else `raw_data_dir`; a comma-separated
     list prefixes names and speakers with `ds<i>_`), the speaker "pop-cs"
-    unless an item names one;
+    unless an item names one; for `TextGridBinarizer` (an MFA-aligned
+    speech corpus), `raw_json_fn` lines of {item_name, wav_fn, tg_fn, txt,
+    ph, spk, lang} without MIDI fields;
   - features per utterance: log-mel (`utils.audio.wav2spec`), f0 + coarse
-    pitch, and mel2ph from the cumulative rounding of `ph_dur`;
+    pitch, and mel2ph from the cumulative rounding of `ph_dur`, or from the
+    TextGrid's last tier (`data/textgrid.py`; with
+    `binarization_args.fix_zh_dur`, Chinese duration fixing for pinyin
+    items of lang 1); with `binarization_args.with_f0cwt`, the CWT of the
+    continuous log-f0 (`utils/cwt.py`) and its mean and std;
   - split: test items by `test_prefixes` (a name's start; for
     `MidiSingingBinarizer`, anywhere in it), else the tail; valid == test;
   - output per split: `<prefix>.data/.idx` shards (`data/records.py`),
@@ -20,9 +27,8 @@ alias `SingingBinarizer`, and `MidiSingingBinarizer`).
 f0: `pitch_extractor: parselmouth` (the flagship's) uses parselmouth when
 it imports and otherwise, with a warning, the in-repo Praat AC tracker
 (`utils/praat_pitch.py`); `autocorr` is the quick numpy tracker. Options
-not ported raise: speaker embeddings (`with_spk_embed`), CWT features,
-silence trimming and loudness normalisation; so does `ZhBinarizer`, whose
-TextGrid alignment is not ported. `N_PROC` worker processes (default 1; one
+not ported raise: speaker embeddings (`with_spk_embed`), silence trimming
+and loudness normalisation. `N_PROC` worker processes (default 1; one
 spawned pool for all the splits) extract the items.
 """
 
@@ -38,11 +44,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from bisinger_tpu_torch.data.records import RecordWriter
+from bisinger_tpu_torch.data.textgrid import (
+    fix_zh_durations,
+    is_sil_phoneme,
+    textgrid_to_mel2ph,
+)
 from bisinger_tpu_torch.utils.audio import wav2spec
+from bisinger_tpu_torch.utils.cwt import f0_to_cwt_spec, get_cont_lf0
 from bisinger_tpu_torch.utils.pitch import f0_to_coarse_np
 from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder
 
-_UNPORTED_ARGS = ("with_spk_embed", "with_f0cwt", "trim_long_sil")
+_UNPORTED_ARGS = ("with_spk_embed", "trim_long_sil")
 
 
 class BinarizationError(Exception):
@@ -136,10 +148,6 @@ def extract_f0(wav: np.ndarray, n_frames: int, hp) -> np.ndarray:
                 "bit-identical to Praat)",
             )
     return extract_f0_praat_ac(wav, n_frames, hp)
-
-
-def is_sil_phoneme(p: str) -> bool:
-    return not p[:1].isalpha()
 
 
 def derive_word_boundary(phs: List[str]) -> List[int]:
@@ -305,27 +313,43 @@ class M4SingerBinarizer:
                     raise BinarizationError("Empty f0")
                 res["f0"] = f0
                 res["pitch"] = f0_to_coarse_np(f0)
+            if hp["binarization_args"].get("with_f0cwt") and "f0" in res:
+                # the continuous log-f0's statistics and its CWT
+                # (`binarizer.py:439-451`)
+                _, cont_lf0 = get_cont_lf0(res["f0"])
+                lf0_mean, lf0_std = float(np.mean(cont_lf0)), float(np.std(cont_lf0))
+                cwt_spec, _, _ = f0_to_cwt_spec(res["f0"], lf0_mean, lf0_std)
+                if np.any(np.isnan(cwt_spec)):
+                    raise BinarizationError("NaN CWT")
+                res["cwt_spec"] = cwt_spec
+                res["cwt_mean"] = lf0_mean
+                res["cwt_std"] = lf0_std
             phone = encoder.encode(item["ph"])
             if len(phone) == 0:
                 raise BinarizationError("Empty phoneme")
             res["phone"] = np.asarray(phone, dtype=np.int64)
             res["ph_is_sil"] = np.asarray(
                 [int(is_sil_phoneme(p)) for p in item["ph"].split()], dtype=np.int64)
-            res["mel2ph"] = ph_durs_to_mel2ph(item["ph_durs"], n_frames, hp["hop_size"],
-                                              hp["audio_sample_rate"])
-            for key in ("pitch_midi", "is_slur", "word_boundary", "lang"):
-                res[key] = np.asarray(item[key], dtype=np.int64)
-            res["midi_dur"] = np.asarray(item["midi_dur"], dtype=np.float32)
-            res["speechsing"] = np.asarray(item["speechsing"], dtype=np.int64)
-            if not (res["pitch_midi"].shape == res["is_slur"].shape == res["lang"].shape
-                    == (len(phone),)):
-                raise ValueError(f"{item['item_name']}: notes {res['pitch_midi'].shape}, slurs "
-                                 f"{res['is_slur'].shape}, lang {res['lang'].shape} against "
-                                 f"{len(phone)} phones")
+            res["mel2ph"] = self.get_align(item, n_frames, f0=res.get("f0"))
+            if "pitch_midi" in item:
+                for key in ("pitch_midi", "is_slur", "word_boundary", "lang"):
+                    res[key] = np.asarray(item[key], dtype=np.int64)
+                res["midi_dur"] = np.asarray(item["midi_dur"], dtype=np.float32)
+                res["speechsing"] = np.asarray(item["speechsing"], dtype=np.int64)
+                if not (res["pitch_midi"].shape == res["is_slur"].shape == res["lang"].shape
+                        == (len(phone),)):
+                    raise ValueError(f"{item['item_name']}: notes {res['pitch_midi'].shape}, "
+                                     f"slurs {res['is_slur'].shape}, lang {res['lang'].shape} "
+                                     f"against {len(phone)} phones")
             return res
         except BinarizationError as e:
             print(f"| Skip item ({e}). item_name: {item['item_name']}")
             return None
+
+    def get_align(self, item: Dict[str, Any], n_frames: int, f0=None) -> np.ndarray:
+        """mel2ph from the per-phone durations (`binarizer.py:482-487`)."""
+        return ph_durs_to_mel2ph(item["ph_durs"], n_frames, self.hp["hop_size"],
+                                 self.hp["audio_sample_rate"])
 
     # ---- the whole corpus ------------------------------------------------
     def process(self):
@@ -408,20 +432,52 @@ class MidiSingingBinarizer(M4SingerBinarizer):
         return any(p in name for p in prefixes)
 
 
-class ZhBinarizer(M4SingerBinarizer):
-    """The reference's name for the TextGrid binarizer, which is not ported."""
+class TextGridBinarizer(M4SingerBinarizer):
+    """An MFA-aligned corpus (`binarizer.py:534-578`): each meta item names
+    its TextGrid (`tg_fn`) in place of per-phone durations, and mel2ph comes
+    from the alignment's last tier."""
 
-    def __init__(self, hp):
-        raise NotImplementedError("ZhBinarizer (TextGridBinarizer: TextGrid alignments) is not "
-                                  "ported")
+    def load_meta_data(self):
+        hp = self.hp
+        path = os.path.join(hp["raw_data_dir"], hp["raw_json_fn"])
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                song = json.loads(line)
+                name = song["item_name"]
+                self.items[name] = {
+                    "item_name": name,
+                    "wav_fn": song["wav_fn"],
+                    "tg_fn": song["tg_fn"],
+                    "txt": song["txt"],
+                    "ph": song["ph"] if isinstance(song["ph"], str) else " ".join(song["ph"]),
+                    "spk": song.get("spk", name.split("#")[0]),
+                    "lang": song.get("lang", 1),
+                }
+        self.item_names = sorted(self.items.keys())
+
+    def get_align(self, item: Dict[str, Any], n_frames: int, f0=None) -> np.ndarray:
+        with open(item["tg_fn"], encoding="utf-8") as f:
+            tg_text = f.read()
+        mel2ph, _ = textgrid_to_mel2ph(tg_text, item["ph"], n_frames, self.hp["hop_size"],
+                                       self.hp["audio_sample_rate"])
+        if self.hp["binarization_args"].get("fix_zh_dur") and item.get("lang", 1) == 1:
+            # pinyin-phone Chinese items only (see fix_zh_durations)
+            mel2ph = fix_zh_durations(mel2ph, item["ph"].split(" "), f0=f0)
+        return mel2ph
 
 
-# the reference's name of the BiSinger binarizer
+# the reference's names of the BiSinger and the TextGrid binarizers
 SingingBinarizer = M4SingerBinarizer
+ZhBinarizer = TextGridBinarizer
 # the classes `binarizer_cls` names, by the last part of a dotted name; the
 # reference's ZhSingingBinarizer is ZhBinarizer (`bisinger_tpu/run.py:54-63`)
-BINARIZERS = {c.__name__: c for c in (M4SingerBinarizer, MidiSingingBinarizer, ZhBinarizer)}
-BINARIZERS.update(SingingBinarizer=SingingBinarizer, ZhSingingBinarizer=ZhBinarizer)
+BINARIZERS = {c.__name__: c for c in (M4SingerBinarizer, MidiSingingBinarizer,
+                                      TextGridBinarizer)}
+BINARIZERS.update(SingingBinarizer=SingingBinarizer, ZhBinarizer=ZhBinarizer,
+                  ZhSingingBinarizer=ZhBinarizer)
 
 
 def binarizer_class(name: str):

@@ -11,9 +11,10 @@
     port's batches are the JAX package's at the same seed.
 
 Everything is numpy on the host. Beside the binarized fields an item
-carries the frame energy (`use_energy_embed`) and the offline task's
-recorded fs2 mel (`fs2_mel_dir/<item_name>.npy`). The CWT and
-speaker-embedding features are not ported.
+carries the frame energy (`use_energy_embed`), the offline task's
+recorded fs2 mel (`fs2_mel_dir/<item_name>.npy`) and, with `pitch_type:
+cwt`, the binarized CWT spectrogram (`cwt_spec`) with the log-f0's mean and
+std (`f0_mean`, `f0_std`). The speaker-embedding features are not ported.
 """
 
 from __future__ import annotations
@@ -99,6 +100,10 @@ class M4SingerDataset:
         for key in ("pitch_midi", "midi_dur", "is_slur", "word_boundary", "lang", "ph_is_sil"):
             if key in item:
                 sample[key] = np.asarray(item[key])
+        if hp.get("pitch_type") == "cwt" and "cwt_spec" in item:
+            sample["cwt_spec"] = item["cwt_spec"][:t].astype(np.float32)
+            sample["f0_mean"] = float(item["cwt_mean"])
+            sample["f0_std"] = float(item["cwt_std"])
         if "speechsing" in item:
             sample["speechsing"] = int(np.asarray(item["speechsing"]).reshape(-1)[0])
         if hp.get("fs2_mel_dir"):
@@ -195,6 +200,10 @@ def collate_batch(samples: List[Dict[str, Any]], hp, static_shapes: bool = True
             batch[key] = pad_1d([s[key] for s in samples], t_txt)
     if "midi_dur" in samples[0]:
         batch["midi_dur"] = pad_1d([s["midi_dur"] for s in samples], t_txt).astype(np.float32)
+    if "cwt_spec" in samples[0]:
+        batch["cwt_spec"] = pad_2d([s["cwt_spec"] for s in samples], t_mel)
+        batch["f0_mean"] = np.asarray([s["f0_mean"] for s in samples], np.float32)
+        batch["f0_std"] = np.asarray([s["f0_std"] for s in samples], np.float32)
     if "speechsing" in samples[0]:
         batch["speechsing"] = np.asarray([s["speechsing"] for s in samples], dtype=np.int64)
     return batch

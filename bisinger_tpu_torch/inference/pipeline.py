@@ -12,14 +12,16 @@ carry a frame map `mel2ph`. `items_to_batch` pads items into one batch at
 the configured buckets, and `synthesize` runs
 
     FastSpeech2MIDI or FastSpeech2 (`use_midi`) -> diffusion sampler
-    (DiffNet through K1) -> mel -> f0 -> NSF HiFi-GAN (MRF stages through
+    (DiffNet through K1) -> mel -> f0 -> HiFi-GAN (MRF stages through
     K2) -> wav,
 
 through PQMF synthesis when the vocoder is multiband (`vocoder_multiband`).
 The f0 is the PitchExtractor's when the pipeline has one (the flagship's;
 a work dir's with `pe_enable`), else the acoustic model's own `f0_denorm`
-(a pitch-conditioned FastSpeech2's), else zeros
-(`bisinger_tpu/inference/pipeline.py:253-259`).
+(a pitch-conditioned FastSpeech2's: frame, phone or CWT pitch), else zeros
+(`bisinger_tpu/inference/pipeline.py:253-259`). The vocoder is handed the
+f0 only when it was built with `use_nsf`, from its own hyperparameters
+(`pipeline.py:248-268`); the plain HiFi-GAN of the TTS configs takes none.
 
 The score entry points trim each waveform to its filled frames.
 """
@@ -162,8 +164,9 @@ class SVSInferTorch:
         `work_dir`, the phone set and speakers its binarizer wrote
         (`binary_data_dir`); the vocoder, and the PE when the run's
         `pe_enable` is set, with their hyperparameters, from `assets_dir`
-        (laid out as `from_checkpoint` reads it). Without the PE, f0 is the
-        model's own."""
+        (laid out as `from_checkpoint` reads it: the vocoder is built from
+        the keys of `assets_dir/hparams_diff.json`, its own config's, not
+        from the acoustic run's). Without the PE, f0 is the model's own."""
         from bisinger_tpu_torch.training.checkpoints import CheckpointManager
         from bisinger_tpu_torch.training.tasks import (
             DiffSingerMIDITask,
@@ -274,7 +277,8 @@ class SVSInferTorch:
             f0 = ret["f0_denorm"]
         else:  # the NSF source runs unvoiced
             f0 = torch.zeros(mel.shape[:2], device=dev)
-        wav = self.vocoder(mel, f0, phase=nsf_phase, noise=nsf_noise, generator=generator)
+        wav = self.vocoder(mel, f0 if self.vocoder.use_nsf else None, phase=nsf_phase,
+                           noise=nsf_noise, generator=generator)
         if self.pqmf is not None:
             wav = self.pqmf.synthesis(wav)
         return {"wav": wav, "mel": mel, "f0": f0, "mel2ph": ret["mel2ph"]}

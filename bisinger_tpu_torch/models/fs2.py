@@ -9,7 +9,14 @@ gather; then the variance adaptors on the frame states:
   "frame": f0 and uv logits) or on the phones ("ph": f0), its input's
   gradient scaled by `predictor_grad`; the given f0 (and uv), else the
   predicted, denormalised (`f0_denorm`, 0 on the unvoiced and padding
-  frames), quantised to 256 bins and embedded;
+  frames), quantised to 256 bins and embedded. `pitch_type` "cwt" (the
+  TTS configs', `fs2.py:138-156, 234-250`): a 10-scale CWT spectrogram
+  (+ uv logit) head on the frames (`cwt_in_proj`, fp32, then
+  `cwt_predictor`) and a (mean, std) head on the first phone's state
+  (`cwt_stats_0/1/2`, fp32, its gradient unscaled); without a given f0 the
+  f0 is the inverse CWT of the head's output with the std scaled by
+  `cwt_std_scale`, on the frames (padded frames included, no mel2ph
+  gather), and uv the sign of the last logit;
 - `use_energy_embed`: an energy predictor on the same input; the given
   energy, else the predicted, quantised to 256 bins and embedded;
 then the speaker embedding; FFT decoder -> `mel_out`.
@@ -18,7 +25,7 @@ then the speaker embedding; FFT decoder -> `mel_out`.
 midi-duration and slur embeddings and ESM(token emb, lang emb) to the
 encoder input and a style embedding to the decoder input.
 
-Options not ported raise: `pitch_type` cwt, speaker vectors
+Options not ported raise: speaker vectors
 (`use_spk_embed`), split speaker ids, the MoG/CRF duration heads,
 relative positions, LEFT-padded or non-GELU FFNs. The FFT stacks, the ESM
 and the predictors' convs run in `compute_dtype` (`fs2.py:66-115,
@@ -56,6 +63,7 @@ from bisinger_tpu_torch.models.predictors import (
     EnergyPredictor,
     PitchPredictor,
 )
+from bisinger_tpu_torch.utils.cwt import cwt2f0_norm
 from bisinger_tpu_torch.utils.pitch import denorm_f0, f0_to_coarse
 from bisinger_tpu_torch.utils.seq import gather_phoneme_states, length_regulator
 
@@ -72,9 +80,9 @@ class FastSpeech2(nn.Module):
         for key, msg in _UNPORTED.items():
             if hp.get(key):
                 raise NotImplementedError(msg)
-        if hp.get("use_pitch_embed") and hp["pitch_type"] not in ("frame", "ph"):
+        if hp.get("use_pitch_embed") and hp["pitch_type"] not in ("frame", "ph", "cwt"):
             raise NotImplementedError(f"pitch_type={hp['pitch_type']} is not ported (the port "
-                                      "runs frame and ph)")
+                                      "runs frame, ph and cwt)")
         if hp.get("dur_loss", "mse") not in ("mse", "huber"):
             raise NotImplementedError(f"dur_loss={hp['dur_loss']} is not ported")
         if hp["ffn_padding"] != "SAME" or hp["ffn_act"] != "gelu" or (
@@ -102,9 +110,19 @@ class FastSpeech2(nn.Module):
             self.spk_embed_proj = Embedding(hp["num_spk"] + 1, h)
         if hp.get("use_pitch_embed"):
             self.pitch_embed = Embedding(300, h, padding_idx)
-            self.pitch_predictor = PitchPredictor(
-                h, hp["predictor_layers"], ph, 2 if hp["pitch_type"] == "frame" else 1,
-                hp["predictor_kernel"], dtype, pdrop)
+            if hp["pitch_type"] == "cwt":  # the Dense layers compute in fp32, as flax's
+                ch = hp["cwt_hidden_size"]
+                self.cwt_in_proj = nn.Linear(h, ch)
+                self.cwt_predictor = PitchPredictor(
+                    ch, hp["predictor_layers"], ph, 10 + (1 if hp["use_uv"] else 0),
+                    hp["predictor_kernel"], dtype, pdrop)
+                self.cwt_stats_0 = nn.Linear(h, ch)
+                self.cwt_stats_1 = nn.Linear(ch, ch)
+                self.cwt_stats_2 = nn.Linear(ch, 2)
+            else:
+                self.pitch_predictor = PitchPredictor(
+                    h, hp["predictor_layers"], ph, 2 if hp["pitch_type"] == "frame" else 1,
+                    hp["predictor_kernel"], dtype, pdrop)
         if hp.get("use_energy_embed"):
             self.energy_embed = Embedding(256, h, padding_idx)
             self.energy_predictor = EnergyPredictor(h, hp["predictor_layers"], ph, 1,
@@ -138,6 +156,20 @@ class FastSpeech2(nn.Module):
             ret["f0_denorm"] = f0_denorm = denorm_f0(f0, None, hp["pitch_norm"], **f0_kw)
             pitch = F.pad(f0_to_coarse(f0_denorm), (1, 0))  # [B, 1 + T_txt]
             return self.pitch_embed(torch.gather(pitch, 1, mel2ph.long()))
+        if hp["pitch_type"] == "cwt":
+            ret["cwt"] = cwt_out = self.cwt_predictor(
+                self.cwt_in_proj(grad_scale(pitch_inp, hp["predictor_grad"])))
+            stats = F.relu(self.cwt_stats_0(pitch_inp_ph[:, 0, :]))
+            stats = self.cwt_stats_2(F.relu(self.cwt_stats_1(stats)))  # [B, 2]
+            mean = ret["f0_mean"] = stats[:, 0]
+            std = ret["f0_std"] = stats[:, 1]
+            if f0 is None:
+                f0 = cwt2f0_norm(cwt_out[:, :, :10], mean, std * hp["cwt_std_scale"], mel2ph,
+                                 hp["pitch_norm"], hp["use_uv"])
+                if hp["use_uv"]:
+                    uv = (cwt_out[:, :, -1] > 0).to(cwt_out.dtype)
+            ret["f0_denorm"] = f0_denorm = denorm_f0(f0, uv, hp["pitch_norm"], **f0_kw)
+            return self.pitch_embed(f0_to_coarse(f0_denorm))
         ret["pitch_pred"] = pred = self.pitch_predictor(
             grad_scale(pitch_inp, hp["predictor_grad"]))
         if f0 is None:

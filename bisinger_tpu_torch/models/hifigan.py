@@ -4,7 +4,12 @@
 Generator (`:43-111, 187-221, 247-414`): conv_pre (k7) -> per stage:
 leaky_relu(0.1) -> ConvTranspose up -> + LayerNorm(ReLU(strided
 noise_conv(harmonic source))) -> MRF stage -> leaky_relu(0.01) ->
-conv_post (k7) -> tanh. The NSF source's random phase and noise can be
+conv_post (k7) -> tanh. With `use_nsf` off (the TTS configs' plain
+HiFi-GAN) the generator has no harmonic source, no noise_conv and no
+noise_norm, as flax's built without an f0 (`:273-278, 320-335`), and
+takes f0=None; the stage input then stays in `compute_dtype`, and so do
+the MRF state and output (K2's bf16 output rounded to bf16, as the TPU
+kernel returns its input's dtype). The NSF source's random phase and noise can be
 handed in as tensors so that tests (and the GAN step's two passes) pin
 them. With `vocoder_multiband` n > 1 the generator emits n PQMF subbands
 at sample_rate / n (`models/pqmf.py` synthesises the waveform): conv_post
@@ -130,20 +135,21 @@ class ResBlock1(nn.Module):
         for i in range(len(self.dilations)):
             y = getattr(self, f"conv1_{i}")(leaky_relu(x, LRELU_SLOPE))
             y = getattr(self, f"conv2_{i}")(leaky_relu(y, LRELU_SLOPE))
-            x = x + y  # fp32: the state promotes a bf16 conv output
+            x = x + y  # the state's dtype: fp32 after the NSF merge, else the conv's
         return x
 
 
 class HifiGanGenerator(nn.Module):
-    """mel [B, T, 80], f0 [B, T] -> waveform [B, T * hop], or n subbands
-    [B, T * hop / n, n] with `vocoder_multiband` n > 1."""
+    """mel [B, T, 80], f0 [B, T] (None without `use_nsf`) -> waveform
+    [B, T * hop], or n subbands [B, T * hop / n, n] with `vocoder_multiband`
+    n > 1."""
 
     def __init__(self, hp: dict, n_mels: int = 80):
         super().__init__()
         if str(hp.get("resblock", "1")) != "1":
             raise NotImplementedError("the port's MRF runs ResBlock1")
-        if hp.get("use_denoise") or not hp.get("use_nsf", True):
-            raise NotImplementedError("the port runs the NSF vocoder without post-denoising")
+        if hp.get("use_denoise"):
+            raise NotImplementedError("use_denoise (post-denoising) is not ported")
         self.rates = list(hp["upsample_rates"])
         self.rk = list(hp["resblock_kernel_sizes"])
         self.rd = [list(d) for d in hp["resblock_dilation_sizes"]]
@@ -151,17 +157,20 @@ class HifiGanGenerator(nn.Module):
         c0 = hp["upsample_initial_channel"]
         self.dtype_ = dt = compute_dtype(hp)
         self.conv_pre = Conv(n_mels, c0, 7, dtype=dt)
-        self.m_source = SourceModuleHnNSF(hp["audio_sample_rate"], harmonic_num=8)
+        self.use_nsf = bool(hp.get("use_nsf", True))
+        if self.use_nsf:
+            self.m_source = SourceModuleHnNSF(hp["audio_sample_rate"], harmonic_num=8)
         c_prev = c0
         for i, (u, k) in enumerate(zip(self.rates, hp["upsample_kernel_sizes"])):
             c = c0 // (2 ** (i + 1))
             self.add_module(f"up_{i}", nn.ConvTranspose1d(c_prev, c, k, u, padding=(k - u) // 2))
-            # the harmonic source is at the full rate: stride it to this stage's
-            s = int(np.prod(self.rates[i + 1:])) * n
-            self.add_module(f"noise_conv_{i}",
-                            Conv(1, c, 2 * s, stride=s, padding=s // 2, dtype=dt) if s > 1
-                            else Conv(1, c, 1, dtype=dt))
-            self.add_module(f"noise_norm_{i}", nn.LayerNorm(c, eps=1e-6))
+            if self.use_nsf:
+                # the harmonic source is at the full rate: stride it to this stage's
+                s = int(np.prod(self.rates[i + 1:])) * n
+                self.add_module(f"noise_conv_{i}",
+                                Conv(1, c, 2 * s, stride=s, padding=s // 2, dtype=dt) if s > 1
+                                else Conv(1, c, 1, dtype=dt))
+                self.add_module(f"noise_norm_{i}", nn.LayerNorm(c, eps=1e-6))
             for j, (kj, dj) in enumerate(zip(self.rk, self.rd)):
                 self.add_module(f"res_{i}_{j}", ResBlock1(c, kj, dj, dtype=dt))
             c_prev = c
@@ -190,19 +199,27 @@ class HifiGanGenerator(nn.Module):
             return out / len(blocks)
         stage = mrf_stage_bf16 if self.dtype_ == torch.bfloat16 else mrf_stage
         w, b = self.stage_weights(i)
-        return stage(x.contiguous(), w, b, self.rk, self.rd)
+        # the kernels take and give fp32; a bf16 stage input is exact in fp32
+        x_in = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
+        return stage(x_in, w, b, self.rk, self.rd).to(x.dtype)
 
-    def forward(self, mel, f0, phase=None, noise=None, generator=None):
-        hop = int(np.prod(self.rates)) * self.multiband
-        f0_up = torch.repeat_interleave(f0, hop, dim=1)[:, :, None]
-        har, _ = self.m_source(f0_up, phase, noise, generator)
+    def forward(self, mel, f0=None, phase=None, noise=None, generator=None):
+        if (f0 is not None) != self.use_nsf:
+            raise ValueError(f"use_nsf is {self.use_nsf}: the generator takes "
+                             f"{'an' if self.use_nsf else 'no'} f0")
+        if self.use_nsf:
+            hop = int(np.prod(self.rates)) * self.multiband
+            f0_up = torch.repeat_interleave(f0, hop, dim=1)[:, :, None]
+            har, _ = self.m_source(f0_up, phase, noise, generator)
         x = self.conv_pre(mel)
         for i in range(len(self.rates)):
             x = self.upsample(i, leaky_relu(x, LRELU_SLOPE))
-            xs = F.relu(getattr(self, f"noise_conv_{i}")(har))
-            xs = layer_norm(getattr(self, f"noise_norm_{i}"), xs)
-            x = self.mrf(i, x + xs[:, :x.shape[1]])  # fp32: the norm's output promotes x
-        x = F.leaky_relu(x)  # slope 0.01, as the reference's final activation
+            if self.use_nsf:
+                xs = F.relu(getattr(self, f"noise_conv_{i}")(har))
+                xs = layer_norm(getattr(self, f"noise_norm_{i}"), xs)
+                x = x + xs[:, :x.shape[1]]  # fp32: the norm's output promotes x
+            x = self.mrf(i, x)
+        x = leaky_relu(x, 0.01)  # the reference's final activation
         x = torch.tanh(self.conv_post(x))
         return x[..., 0] if self.multiband == 1 else x
 

@@ -239,16 +239,16 @@ def step_parity(make_task: Callable, params: Dict[str, np.ndarray], batch, pins:
     return compare(card, cpu, kinks, raw, ref)
 
 
-def gan_batch():
-    """A voiced GAN batch (B=2, 32 frames, hop 128; f0 200-300 Hz on every
-    frame) and its NSF draw: ({"mels", "f0", "wav"}, {"phase", "noise"}),
-    CPU tensors."""
+def gan_batch(hop: int):
+    """A voiced GAN batch (B=2, 32 frames of `hop` samples; f0 200-300 Hz on
+    every frame) and its NSF draw: ({"mels", "f0", "wav"}, {"phase",
+    "noise"}), CPU tensors."""
     g = torch.Generator().manual_seed(SEED)
     batch = {"mels": torch.randn(2, 32, 80, generator=g) * 0.5 - 4,
              "f0": 200.0 + 100.0 * torch.rand(2, 32, generator=g),
-             "wav": 0.1 * torch.randn(2, 32 * 128, generator=g)}
+             "wav": 0.1 * torch.randn(2, 32 * hop, generator=g)}
     pins = {"phase": torch.rand(2, 9, generator=g),
-            "noise": torch.randn(2, 32 * 128, 9, generator=g)}
+            "noise": torch.randn(2, 32 * hop, 9, generator=g)}
     return batch, pins
 
 
@@ -283,10 +283,11 @@ def _gan_step(hp, device, batch, pins, fp64: bool, kinks=contextlib.nullcontext(
 
 def gan_step_parity(hp, dev) -> Tuple[bool, str]:
     """One fp32 GAN step (the discriminators' update, then the generator's)
-    from the same initialisation, voiced batch (B=2, 32 frames) and NSF draw
-    on the CPU, then on `dev` as it falls and with the CPU's kinks, and in
-    float64 on the CPU. (ok, text)."""
-    batch, pins = gan_batch()
+    from the same initialisation, voiced batch (B=2, 32 frames at the
+    generator's hop) and NSF draw on the CPU, then on `dev` as it falls and
+    with the CPU's kinks, and in float64 on the CPU. (ok, text)."""
+    hop = int(np.prod(hp["upsample_rates"])) * int(hp.get("vocoder_multiband", 1) or 1)
+    batch, pins = gan_batch(hop)
     cpu_dev, kinks = torch.device("cpu"), Kinks()
     cpu = _gan_step(hp, cpu_dev, batch, pins, False, kinks.record())
     raw = _gan_step(hp, dev, batch, pins, False)

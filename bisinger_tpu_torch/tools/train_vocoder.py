@@ -1,4 +1,4 @@
-"""Train the NSF HiFi-GAN vocoder (the GAN task, `training/vocoder_task.py`)
+"""Train the HiFi-GAN vocoder (the GAN task, `training/vocoder_task.py`)
 on synthetic harmonic audio, then round-trip the generator through the
 inference wrapper (the port's counterpart of `scripts/train_vocoder.py`).
 
@@ -8,9 +8,13 @@ Settings come from the environment, as the JAX script reads them:
 TV_STEPS (400), TV_BATCH (4), TV_FRAMES (32), TV_CHANNELS (64),
 TV_MULTIBAND (1; 4 trains the PQMF fast mode: upsample rates [8, 4],
 kernels [16, 8], 4 subbands), TV_OUT (a directory), TV_IMPROVE (0.7),
-TV_DMIN (0.05), TV_DMAX (8.0). The flagship recipe runs TV_BATCH=8
-TV_FRAMES=64 TV_CHANNELS=512. compute_dtype is the default bfloat16 (the
-discriminators and conv_post are fp32).
+TV_DMIN (0.05), TV_DMAX (8.0), and TV_CONFIG: a config (YAML or JSON, as
+`run --config` takes it) whose keys replace the defaults under the
+overrides above, e.g. configs/tts/hifigan.yaml for the TTS configs' plain
+HiFi-GAN (22.05 kHz, hop 256, rates [8, 8, 2, 2], no NSF source). The
+flagship recipe runs TV_BATCH=8 TV_FRAMES=64 TV_CHANNELS=512.
+compute_dtype is the default bfloat16 (the discriminators and conv_post are
+fp32).
 
 The clips are rendered notes (`data/synthetic.render_notes`) with their
 f0 exact per frame; each step samples random windows of TV_FRAMES frames.
@@ -87,18 +91,19 @@ def settings():
                 multiband=int(env("TV_MULTIBAND", 1)),
                 out_dir=os.path.abspath(env("TV_OUT", "vocoder_run")),
                 improve=float(env("TV_IMPROVE", 0.7)), d_min=float(env("TV_DMIN", 0.05)),
-                d_max=float(env("TV_DMAX", 8.0)))
+                d_max=float(env("TV_DMAX", 8.0)), config=env("TV_CONFIG", ""))
 
 
-def vocoder_hparams(channels: int, multiband: int, ckpt_dir: str):
-    """The defaults with the script's overrides."""
-    from bisinger_tpu_torch.config import make_hparams
+def vocoder_hparams(channels: int, multiband: int, ckpt_dir: str, config: str = ""):
+    """The defaults, or `config`'s hyperparameters, with the script's
+    overrides."""
+    from bisinger_tpu_torch.config import load_hparams, make_hparams
 
     over = dict(upsample_initial_channel=channels, vocoder_ckpt=ckpt_dir)
     if multiband > 1:
         over.update(vocoder_multiband=multiband, upsample_rates=[8, 4],
                     upsample_kernel_sizes=[16, 8])
-    return make_hparams(over)
+    return load_hparams(config, over) if config else make_hparams(over)
 
 
 def run(cfg: dict, device=None, on_step=None) -> dict:
@@ -111,7 +116,8 @@ def run(cfg: dict, device=None, on_step=None) -> dict:
 
     out_dir = cfg["out_dir"]
     os.makedirs(out_dir, exist_ok=True)
-    hp = vocoder_hparams(cfg["channels"], cfg["multiband"], os.path.join(out_dir, "vocoder"))
+    hp = vocoder_hparams(cfg["channels"], cfg["multiband"], os.path.join(out_dir, "vocoder"),
+                         cfg.get("config", ""))
     steps, batch, frames = cfg["steps"], cfg["batch"], cfg["frames"]
     rng_np = np.random.RandomState(0)
     clips = build_windows(hp, n_clips=12, frames=frames, rng=rng_np)

@@ -2,9 +2,10 @@
 the mel l1 and SSIM losses, the MIDI tasks' phone, word and sentence
 duration losses, the frame-level f0 loss (L1 or L2 on the voiced frames
 plus the uv logits' BCE) of the PitchExtractor and of FastSpeech2's pitch
-predictor, its phone-level f0 loss, and the energy loss. Every reduction
-is masked over static shapes; the word-duration loss sums into a fixed
-`max_words` segments. The CWT pitch loss is not ported.
+predictor, its phone-level f0 loss, the CWT pitch head's loss, and the
+energy loss. Every reduction is masked over static shapes (but the CWT
+spectrogram's, a plain mean over every element, padding included, as
+JAX's); the word-duration loss sums into a fixed `max_words` segments.
 """
 
 from __future__ import annotations
@@ -175,7 +176,26 @@ def add_f0_loss(pitch_pred, f0, uv, nonpadding, losses: Dict, hp):
 def add_pitch_loss(ret, batch, losses: Dict, hp):
     """FastSpeech2's pitch loss (`losses.py:243-279`): `pitch_type` "frame"
     as `add_f0_loss` over the frames of mel2ph; "ph", the L1 of the f0 head
-    against a phone-level f0 over the tokens."""
+    against a phone-level f0 over the tokens; "cwt", the spectrogram's
+    `cwt_loss` (l1 or l2, a plain mean) as "C", the uv logit's BCE over the
+    frames of mel2ph (`use_uv`) and the L1 of the log-f0 mean and std, each
+    x lambda_f0 (uv x lambda_uv)."""
+    if hp["pitch_type"] == "cwt":
+        err = ret["cwt"][:, :, :10] - batch["cwt_spec"]
+        if hp["cwt_loss"] == "l1":
+            # |err| with jnp.abs's gradient at 0, +1 (torch's is 0): on the padded
+            # frames the head's output and the padded target are both 0
+            losses["C"] = torch.where(err >= 0, err, -err).mean() * hp["lambda_f0"]
+        elif hp["cwt_loss"] == "l2":
+            losses["C"] = (err ** 2).mean() * hp["lambda_f0"]
+        else:
+            raise NotImplementedError(f"cwt_loss: {hp['cwt_loss']}")
+        if hp["use_uv"]:
+            uv_loss = binary_cross_entropy_with_logits(ret["cwt"][:, :, -1], batch["uv"])
+            losses["uv"] = _masked_mean(uv_loss, (batch["mel2ph"] != 0).float()) * hp["lambda_uv"]
+        losses["f0_mean"] = (ret["f0_mean"] - batch["f0_mean"]).abs().mean() * hp["lambda_f0"]
+        losses["f0_std"] = (ret["f0_std"] - batch["f0_std"]).abs().mean() * hp["lambda_f0"]
+        return
     if hp["pitch_type"] == "ph":
         nonpadding = (batch["txt_tokens"] != 0).float()
         err = torch.abs(ret["pitch_pred"][:, :, 0] - batch["f0"])

@@ -50,6 +50,7 @@ from bisinger_tpu_torch.models.pe import PitchExtractor
 from bisinger_tpu_torch.training import losses as L
 from bisinger_tpu_torch.training.checkpoints import load_params_into
 from bisinger_tpu_torch.training.optim import AdamW, predictor_only_frozen
+from bisinger_tpu_torch.utils.cwt import cwt2f0_norm
 from bisinger_tpu_torch.weights import export_flax_params, load_flax_params
 
 
@@ -57,10 +58,15 @@ def model_kwargs(batch: Dict[str, torch.Tensor], hp, drop_f0: bool = False
                  ) -> Dict[str, Any]:
     """A batch as the model's keywords (`tasks.py:42-72`): f0, uv and energy
     (f0 and uv left out with `drop_f0`), and the MIDI inputs with
-    `use_midi`."""
+    `use_midi`. With `pitch_type: cwt` the f0 is the inverse of the
+    batch's recorded CWT spectrogram (`cwt2f0_norm`)."""
+    f0 = None if drop_f0 else batch.get("f0")
+    if f0 is not None and hp["pitch_type"] == "cwt" and "cwt_spec" in batch:
+        f0 = cwt2f0_norm(batch["cwt_spec"], batch["f0_mean"], batch["f0_std"], batch["mel2ph"],
+                         hp["pitch_norm"], hp["use_uv"])
     kw = dict(txt_tokens=batch["txt_tokens"], mel2ph=batch["mel2ph"],
-              spk_id=batch["spk_ids"], f0=None if drop_f0 else batch.get("f0"),
-              uv=None if drop_f0 else batch.get("uv"), energy=batch.get("energy"))
+              spk_id=batch["spk_ids"], f0=f0, uv=None if drop_f0 else batch.get("uv"),
+              energy=batch.get("energy"))
     if hp.get("use_midi"):
         kw.update(pitch_midi=batch.get("pitch_midi"), midi_dur=batch.get("midi_dur"),
                   is_slur=batch.get("is_slur"), lang=batch.get("lang"),

@@ -1,12 +1,17 @@
-"""The NSF HiFi-GAN vocoder's GAN training task (counterpart of
-`bisinger_tpu/training/vocoder_task.py:1-203`).
+"""The HiFi-GAN vocoder's GAN training task (counterpart of
+`bisinger_tpu/training/vocoder_task.py:1-203`), NSF or plain.
 
 One step updates the discriminators (MPD + MSD, LSGAN) on a generated
 waveform cut from the graph, then the generator against the updated
 discriminators: adversarial loss, feature matching, 45 x the log-mel L1
 (`lambda_mel`) and, under `use_mrstft_loss`, the multi-resolution STFT
 loss. Both passes of the generator share one NSF draw (harmonic phase and
-noise), as `vocoder_task.py:153` draws `rng_g` once. Every kernel trains
+noise), as `vocoder_task.py:153` draws `rng_g` once. With `use_nsf` off
+the generator is handed no f0, and has no harmonic source to train: a
+departure from JAX's task, which hands it the batch's f0 whatever
+`use_nsf` says (`vocoder_task.py:106-108, 152-157`), so trains a source
+that its wrapper then never runs (`vocoders/hifigan.py:90, 108`); given
+f0=None, JAX's task computes the port's step. Every kernel trains
 as a weight-norm pair (`training/weight_norm.py`; the JAX package's
 default, `vocoder_weight_norm: true`, which nothing turns off); each side
 has its own `AdamW` in the "vocoder" mode
@@ -18,7 +23,7 @@ optimizer", "G forward" with "G forward: generator" and "G forward:
 discriminators" inside it, "G optimizer"), which `tools/profile_train.py`
 reads (the backward runs on autograd's thread, outside any range).
 
-Data: {"mels" [B, T, 80], "f0" [B, T], "wav" [B, T * hop]}.
+Data: {"mels" [B, T, 80], "f0" [B, T] (read with `use_nsf`), "wav" [B, T * hop]}.
 """
 
 from __future__ import annotations
@@ -190,8 +195,9 @@ class HifiGanTask:
         """The discriminators' update, then the generator's; returns the
         detached losses. `phase` and `noise` pin the step's NSF draw, else
         it comes from `generator`."""
-        mel, f0, wav = batch["mels"], batch["f0"], batch["wav"]
-        if phase is None or noise is None:
+        mel, wav = batch["mels"], batch["wav"]
+        f0 = batch["f0"] if self.generator.use_nsf else None
+        if self.generator.use_nsf and (phase is None or noise is None):
             phase, noise = self.nsf_draws(mel, generator)
         with record_function("D forward"):
             with torch.no_grad():

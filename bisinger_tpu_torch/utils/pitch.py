@@ -1,7 +1,7 @@
 """f0 utilities (counterpart of `bisinger_tpu/utils/pitch.py`): the
 host-side numpy functions of the binarizer and the dataset (`_np`), and
 the torch ones of the pitch-conditioned FastSpeech2 (`f0_to_coarse`,
-`denorm_f0`)."""
+`norm_f0`, `denorm_f0`)."""
 
 from __future__ import annotations
 
@@ -35,6 +35,19 @@ def f0_to_coarse(f0: torch.Tensor) -> torch.Tensor:
     f0_mel = torch.where(f0_mel > 0, scaled, f0_mel)
     f0_mel = torch.clamp(f0_mel, 1.0, F0_BIN - 1)
     return torch.floor(f0_mel + 0.5).long()
+
+
+def norm_f0(f0, uv, pitch_norm: str = "log", f0_mean: float = 0.0, f0_std: float = 1.0,
+            use_uv: bool = True):
+    """Normalise f0 (`pitch.py:44-53`): log2 for "log", (f0 - mean) / std
+    for "standard"; 0 where `uv` (with `use_uv`)."""
+    if pitch_norm == "standard":
+        f0 = (f0 - f0_mean) / f0_std
+    elif pitch_norm == "log":
+        f0 = torch.log2(torch.clamp_min(f0, 1e-8))
+    if uv is not None and use_uv:
+        f0 = torch.where(uv > 0, torch.zeros_like(f0), f0)
+    return f0
 
 
 def denorm_f0(f0, uv, pitch_norm: str = "log", f0_mean: float = 0.0, f0_std: float = 1.0,

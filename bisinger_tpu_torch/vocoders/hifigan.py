@@ -1,12 +1,14 @@
-"""The NSF HiFi-GAN inference wrapper (counterpart of
+"""The HiFi-GAN inference wrapper (counterpart of
 `bisinger_tpu/vocoders/hifigan.py:29-142`).
 
 `HifiGAN(hp)` loads the generator of the highest step among
 `<vocoder_ckpt>/generator_*.npz`, by the step's number (a lexicographic
 sort would take generator_00004000 after generator_000030000); there is
 no random-init fallback: no file raises. `spec2wav` and `spec2wav_batch`
-run it in eval mode (the MRF stages through K2) on the NSF path, with
-PQMF synthesis after a multiband generator; `save_params` writes
+run it in eval mode (the MRF stages through K2), on the NSF path with the
+given f0 when `use_nsf` is on, else without f0 (the plain HiFi-GAN; an f0
+handed in is not used, as `vocoders/hifigan.py:81-120`), with PQMF
+synthesis after a multiband generator; `save_params` writes
 `generator_{step:09d}.npz`. Post-denoising is not ported (the generator
 refuses `use_denoise`).
 """
@@ -67,20 +69,27 @@ class HifiGAN:
         return path
 
     @torch.no_grad()
-    def spec2wav_batch(self, mels, f0s, generator: Optional[torch.Generator] = None
+    def spec2wav_batch(self, mels, f0s=None, generator: Optional[torch.Generator] = None
                        ) -> np.ndarray:
-        """[B, T, 80] mels and [B, T] f0 -> wav [B, T * hop] float32, one
-        call for the batch. The NSF draws come from `generator` (default one
-        seeded with 0)."""
+        """[B, T, 80] mels and [B, T] f0 (read with `use_nsf`) -> wav
+        [B, T * hop] float32, one call for the batch. The NSF draws come from
+        `generator` (default one seeded with 0)."""
         mels = torch.as_tensor(np.asarray(mels, np.float32), device=self.device)
-        f0s = torch.as_tensor(np.asarray(f0s, np.float32), device=self.device)
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        out = self.model(mels, f0s, generator=generator)
+        if not self.model.use_nsf:
+            out = self.model(mels)
+        else:
+            if f0s is None:
+                raise ValueError("use_nsf is on: spec2wav needs an f0")
+            f0s = torch.as_tensor(np.asarray(f0s, np.float32), device=self.device)
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            out = self.model(mels, f0s, generator=generator)
         if self.pqmf is not None:
             out = self.pqmf.synthesis(out)
         return out.float().cpu().numpy()
 
-    def spec2wav(self, mel, f0, generator: Optional[torch.Generator] = None) -> np.ndarray:
-        """mel [T, 80], f0 [T] -> wav [T * hop]."""
-        return self.spec2wav_batch(np.asarray(mel)[None], np.asarray(f0)[None], generator)[0]
+    def spec2wav(self, mel, f0=None, generator: Optional[torch.Generator] = None
+                 ) -> np.ndarray:
+        """mel [T, 80] (and f0 [T] with `use_nsf`) -> wav [T * hop]."""
+        return self.spec2wav_batch(np.asarray(mel)[None],
+                                   None if f0 is None else np.asarray(f0)[None], generator)[0]

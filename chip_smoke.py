@@ -94,14 +94,31 @@ and seconds (a failed phase exits non-zero):
      the CPU at phase 10's bounds, every loss. Steps/s, peak memory, the
      served request's seconds; the log goes to
      checkpoints/chip_smoke/popcs.log;
+  13. (run before 9) DiffSpeech TTS from the repo's LJSpeech configs
+     (configs/tts/lj/fs2.yaml, configs/usr/lj_ds_beta6.yaml,
+     configs/tts/hifigan.yaml) in bf16 at their widths and batching, only
+     the steps cut: a TextGrid corpus written here (64 items of 2-4 s at
+     22.05 kHz, ARPAbet phones) binarized by `run --binarize` with the
+     TextGrid binarizer (ZhBinarizer) and the CWT features; lj/fs2 (the CWT
+     pitch head) 20 steps; lj_ds_beta6 (T=100, K=71) 20 steps warm-started
+     from it, `--validate`; the plain HiFi-GAN (no NSF, rates 8·8·2·2, hop
+     256, 512 channels) through tools/train_vocoder at B=8, 64 frames, 20
+     steps; the DiffSpeech work dir served through `from_work_dir` with an
+     assets dir holding the trained generator and its own config (16
+     K1-bf16, 4 K2-bf16 launches), then through `run --infer` on the card;
+     one fp32 step of the lj/fs2 task and of the plain GAN task on the card
+     against the CPU. Steps/s, peak memory, losses (the CWT loss C among
+     them), the served request's seconds; the log goes to
+     checkpoints/chip_smoke/tts.log;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
-     buckets of phases 5, 8, 10, 11 and 12 (the mb4 stages among them).
+     buckets of phases 5, 8, 10, 11, 12 and 13 (the mb4 stages and the
+     plain generator's 8·8·2·2 stages among them).
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5, 8, 10, 11 and 12. Without a CUDA device it exits 1 and prints
+path of phases 5, 8, 10, 11, 12 and 13. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -1094,6 +1111,366 @@ def popcs_phase(counters, by_path, dev, tmp, card):
     return not bad, lines
 
 
+# ---- phase 13: the TTS path (DiffSpeech from the LJSpeech configs) ----------
+TTS_ITEMS = 64
+# an ARPAbet inventory: the phones of the TextGrid corpus (silences are "<SP>")
+ARPABET = ["AA1", "AE1", "AH0", "B", "D", "EH1", "ER0", "F", "IY1", "K", "L", "M", "N",
+           "OW1", "P", "R", "S", "T", "UW1", "Z"]
+FRICATIVES = {"F", "S", "Z"}  # rendered as noise: unvoiced stretches inside speech
+TTS_REQUEST = dict(  # phoneme level: the corpus's phones; durations come from the predictor
+    item_name="tts", input_type="phoneme",
+    ph_seq="<SP> K AE1 T <SP> M AA1 D ER0 N <SP> L IY1 F <SP>",
+    note_seq=" ".join(["rest"] * 15), note_dur_seq=" ".join(["0.1"] * 15),
+    is_slur_seq=" ".join(["0"] * 15), lang_seq=" ".join(["0"] * 15))
+
+
+def textgrid_text(dur, tiers):
+    """Praat's long TextGrid format for `tiers` [(name, [(xmin, xmax, text)])]."""
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "", "xmin = 0",
+             f"xmax = {dur!r}", "tiers? <exists>", f"size = {len(tiers)}", "item []:"]
+    for i, (name, ivs) in enumerate(tiers, 1):
+        lines += [f"    item [{i}]:", '        class = "IntervalTier"',
+                  f'        name = "{name}"', "        xmin = 0", f"        xmax = {dur!r}",
+                  f"        intervals: size = {len(ivs)}"]
+        for j, (a, b, text) in enumerate(ivs, 1):
+            lines += [f"        intervals [{j}]:", f"            xmin = {float(a)!r}",
+                      f"            xmax = {float(b)!r}", f'            text = "{text}"']
+    return "\n".join(lines) + "\n"
+
+
+def write_textgrid_corpus(root, n_items, seed=0, sample_rate=22050, dur_range=(2.0, 4.0)):
+    """An MFA-style speech corpus: per item a 16-bit WAV, a TextGrid with a
+    words tier and a phones tier (the last, which the aligner reads; silence
+    intervals empty) and a line of `meta.json` {item_name, wav_fn, tg_fn,
+    txt, ph, spk}. Words of 2-4 phones from `ARPABET`, silences at both ends
+    and between some words; the audio is a harmonic voice whose f0 glides
+    through 90-220 Hz, noise on the fricatives, near-silence in the pauses.
+    tests/torch_port_helpers.py holds a copy for the CPU tests."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    os.makedirs(root, exist_ok=True)
+    r = np.random.RandomState(seed)
+    meta = []
+    for i in range(n_items):
+        total = r.uniform(*dur_range)
+        n_words = max(2, int(round((total - 0.45) / 0.31)))  # ~0.31 s a word
+        words = [list(r.choice(ARPABET, r.randint(2, 5))) for _ in range(n_words)]
+        pauses = [r.rand() < 0.3 for _ in range(n_words - 1)]
+        # durations: phones ~ U(0.05, 0.12) s, pauses 0.1-0.25 s, edges 0.15-0.3 s
+        segs = [("", r.uniform(0.15, 0.3))]
+        for w, word in enumerate(words):
+            segs += [(p, r.uniform(0.05, 0.12)) for p in word]
+            if w < len(pauses) and pauses[w]:
+                segs.append(("", r.uniform(0.1, 0.25)))
+        segs.append(("", r.uniform(0.15, 0.3)))
+        bounds = np.concatenate([[0.0], np.cumsum([d for _, d in segs])])
+        dur = float(bounds[-1])
+        n = int(round(dur * sample_rate))
+        t = np.arange(n) / sample_rate
+        f0 = (150 + 50 * np.sin(2 * np.pi * t / r.uniform(0.8, 1.6) + r.uniform(0, 6))
+              + r.uniform(-20, 20))
+        phase = 2 * np.pi * np.cumsum(f0) / sample_rate
+        voice = sum(np.sin(k * phase) / k for k in range(1, 11))
+        noise = r.randn(n)
+        wav = np.zeros(n)
+        for (ph, _), a, b in zip(segs, bounds[:-1], bounds[1:]):
+            lo, hi = int(round(a * sample_rate)), int(round(b * sample_rate))
+            if ph == "":
+                wav[lo:hi] = 1e-4 * noise[lo:hi]
+            elif ph in FRICATIVES:
+                wav[lo:hi] = 0.05 * noise[lo:hi]
+            else:
+                wav[lo:hi] = 0.2 * voice[lo:hi]
+        name = f"LJ{i // 50 + 1:03d}-{i % 50 + 1:04d}"
+        wav_fn = os.path.join(root, f"{name}.wav")
+        wavfile.write(wav_fn, sample_rate, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+        phone_tier = [(a, b, ph) for (ph, _), a, b in zip(segs, bounds[:-1], bounds[1:])]
+        word_tier, k = [(0.0, bounds[1], "")], 1
+        for w, word in enumerate(words):
+            word_tier.append((bounds[k], bounds[k + len(word)], "w%d" % w))
+            k += len(word)
+            if segs[k][0] == "":
+                word_tier.append((bounds[k], bounds[k + 1], ""))
+                k += 1
+        tg_fn = os.path.join(root, f"{name}.TextGrid")
+        with open(tg_fn, "w") as f:
+            f.write(textgrid_text(dur, [("words", word_tier), ("phones", phone_tier)]))
+        ph = ["<SP>"]
+        for w, word in enumerate(words):
+            ph += word
+            if w < len(pauses) and pauses[w]:
+                ph.append("<SP>")
+        ph.append("<SP>")
+        meta.append(dict(item_name=name, wav_fn=wav_fn, tg_fn=tg_fn,
+                         txt=" ".join("w%d" % w for w in range(len(words))), ph=" ".join(ph),
+                         spk="LJSpeech"))
+    with open(os.path.join(root, "meta.json"), "w") as f:
+        for m in meta:
+            f.write(json.dumps(m) + "\n")
+    return meta
+
+
+def tts_phase(counters, by_path, dev, tmp, card):
+    """Phase 13: DiffSpeech TTS from the repo's LJSpeech configs, trained and
+    served on the card in bf16 at the configs' widths and batching; only the
+    steps are cut. A TextGrid corpus written here (64 items of 2-4 s at
+    22.05 kHz, ARPAbet phones) binarized by `run --binarize --config
+    configs/tts/lj/fs2.yaml` with binarizer_cls ZhBinarizer (the TextGrid
+    binarizer, with_f0cwt, the Praat-AC tracker); lj/fs2 (the plain
+    FastSpeech2 with the CWT pitch head, hidden 256, 4 + 4 layers, max_tokens
+    40000) for 20 steps; lj_ds_beta6 (T=100, K=71, max_beta 0.06, DiffNet 20
+    x 256) for 20 steps warm-started from lj/fs2's work dir, then
+    `--validate`; the plain HiFi-GAN of configs/tts/hifigan.yaml (no NSF,
+    rates 8·8·2·2, 512 channels) through tools/train_vocoder (TV_CONFIG) at
+    B=8, 64 frames for 20 steps. Serving: an assets dir with the trained
+    generator and the vocoder config's keys (hparams_diff.json), the
+    DiffSpeech work dir through SVSInferTorch.from_work_dir (durations from
+    the predictor, f0 from the CWT head, PLMS at pndm_speedup 5 over K=71 from
+    a Gaussian start: 2 + len(arange(0, 71, 5)) - 1 = 16 K1-bf16 launches,
+    as JAX's loop calls the denoiser; 4 K2-bf16; the fp32 routes 0), then
+    `run --infer` on the card. Last, one fp32 step on the card against the CPU
+    (tools/step_parity) of the lj/fs2 task (4 x 256 frames) and of the plain
+    GAN task (2 x 32 frames). `card` (nvidia-smi's name and power limit) goes
+    beside the times. Returns (ok, lines)."""
+    import contextlib
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from bisinger_tpu_torch import run
+    from bisinger_tpu_torch.config import apply_overrides, load_hparams
+    from bisinger_tpu_torch.data.dataset import DataLoader, M4SingerDataset
+    from bisinger_tpu_torch.inference.pipeline import SVSInferTorch
+    from bisinger_tpu_torch.tools import train_vocoder
+    from bisinger_tpu_torch.tools.step_parity import gan_step_parity, step_parity
+    from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+    from bisinger_tpu_torch.training.tasks import AuxDecoderMIDITask
+    from bisinger_tpu_torch.vocoders.hifigan import latest_generator
+    from bisinger_tpu_torch.weights import load_npz
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = {name: os.path.join(repo, "configs", path) for name, path in (
+        ("lj_fs2", "tts/lj/fs2.yaml"), ("lj_ds_beta6", "usr/lj_ds_beta6.yaml"),
+        ("hifigan", "tts/hifigan.yaml"))}
+    log_fn = os.path.join(repo, "checkpoints", "chip_smoke", "tts.log")
+    root = os.path.join(tmp, "tts")
+    os.makedirs(root)
+    lines, checks, stats = [], {}, {}
+
+    reset, read = launch_counts(counters, by_path)
+
+    data = (f"raw_data_dir={root}/raw,raw_json_fn=meta.json,binary_data_dir={root}/binary")
+    common = f"{data},log_interval=1,val_check_interval=1000,num_ckpt_keep=2"
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        write_textgrid_corpus(os.path.join(root, "raw"), TTS_ITEMS, seed=0)
+        env = dict(os.environ, N_PROC="8",
+                   PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "bisinger_tpu_torch.run", "--config",
+                               cfg["lj_fs2"], "--binarize", "--hparams",
+                               f"{data},binarizer_cls=bisinger_tpu.data.binarizer.ZhBinarizer"],
+                              env=env, capture_output=True, text=True, timeout=300)
+        binarize_s = time.perf_counter() - t0
+        with open(log_fn, "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        checks["binarize rc 0"] = proc.returncode == 0
+        if proc.returncode != 0:
+            return False, [f"binarize failed: {proc.stderr[-2000:]}"]
+        counts_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("| binarized")]
+        warned = "; Praat-AC fallback warned" if "parselmouth not installed" in proc.stdout else ""
+        lines.append(f"binarize (TextGridBinarizer, with_f0cwt): {binarize_s:.1f} s with 8 "
+                     f"processes ({'; '.join(counts_line)}{warned})")
+        stats["binarize"] = dict(seconds=binarize_s)
+
+        def train(name, extra=""):
+            """`name`'s config for 20 steps in work dir `name`: the trainer."""
+            tr = run.trainer_from_args(run.parse_args(
+                ["--config", cfg[name], "--exp_name", name, "--hparams",
+                 f"{common},max_updates={TRAIN_STEPS}{extra}"]))
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            tr.fit()
+            counts = read(f"13 train {name}")
+            log = tr.train_log
+            t1, tn = log[0][1], log[-1][1]
+            first, last = log[0][2], log[-1][2]
+            stats[name] = dict(first_s=t1 - tr.loop_started,
+                               steps_per_s=(len(log) - 1) / (tn - t1),
+                               mem=torch.cuda.max_memory_allocated() / 2 ** 30,
+                               loss1=first["total_loss"], loss20=last["total_loss"],
+                               C1=first["C"], C20=last["C"])
+            checks[f"{name} losses finite"] = all(
+                np.isfinite(v) for _, _, m in log for v in m.values())
+            checks[f"{name} {TRAIN_STEPS} steps"] = tr.global_step == TRAIN_STEPS
+            checks[f"{name} total loss fell"] = last["total_loss"] < first["total_loss"]
+            checks[f"{name} no kernel launched in training"] = not any(counts.values())
+            hp = tr.task.hp
+            st = stats[name]
+            lines.append(
+                f"{name} ({hp['task_cls'].rsplit('.', 1)[-1]}, pitch_type {hp['pitch_type']}, "
+                f"hidden {hp['hidden_size']}, {hp['enc_layers']} + {hp['dec_layers']} FFT "
+                "layers, "
+                + (f"T={hp['timesteps']} K={hp['K_step']} max_beta {hp['max_beta']} DiffNet "
+                   f"{hp['residual_layers']} x {hp['residual_channels']}, "
+                   if name == "lj_ds_beta6" else "")
+                + f"max_tokens {hp['max_tokens']}, bf16): first step {st['first_s']:.2f} s, "
+                f"then {st['steps_per_s']:.2f} steps/s; peak memory {st['mem']:.2f} GiB; loss "
+                f"step 1 {st['loss1']:.4f}, step {TRAIN_STEPS} {st['loss20']:.4f}; C "
+                f"{st['C1']:.4f} -> {st['C20']:.4f}; launches {counts}")
+            return tr
+
+        with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
+            tr_fs2 = train("lj_fs2")
+            fs2_dir = os.path.join(root, "checkpoints", "lj_fs2")
+            train("lj_ds_beta6", f",fs2_ckpt={fs2_dir}")
+            reset()
+            rc_val = run.main(["--config", cfg["lj_ds_beta6"], "--exp_name", "lj_ds_beta6",
+                               "--validate"])
+            counts_val = read("13 validate lj_ds_beta6")
+        with open(log_fn) as f:
+            text = f.read()
+        val = [ln for ln in text.splitlines() if ln.startswith("| validate: total_loss=")]
+        checks["lj_ds_beta6 validate"] = rc_val == 0 and len(val) == 1 and np.isfinite(
+            float(val[0].split("=")[1]))
+        checks["no kernel launched in validation"] = not any(counts_val.values())
+        checks["lj_ds_beta6 warm-started"] = f"| warm-started fs2 from {fs2_dir}" in text
+        lines.append(f"lj_ds_beta6 --validate: {val[0][2:] if val else 'missing'}")
+
+        # ---- the plain HiFi-GAN through tools/train_vocoder ----
+        per_step = []
+
+        def on_step(step, metrics):
+            per_step.append(({k: c.launches for k, c in counters.items()},
+                             torch.cuda.max_memory_allocated()))
+
+        voc_cfg = dict(train_vocoder.settings(), steps=TRAIN_STEPS, batch=8, frames=64,
+                       channels=512, multiband=1, out_dir=os.path.join(root, "voc"),
+                       config=cfg["hifigan"])
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        with open(log_fn, "a") as logf, contextlib.redirect_stderr(logf):
+            summary = train_vocoder.run(voc_cfg, device=dev, on_step=on_step)
+        if per_step:
+            by_path["13 train plain vocoder"] = per_step[-1][0]
+        mem = per_step[-1][1] / 2 ** 30 if per_step else float("nan")
+        checks[f"plain vocoder {TRAIN_STEPS} steps"] = len(per_step) == TRAIN_STEPS
+        checks["plain vocoder D and G losses finite"] = bool(np.isfinite([
+            summary.get(k, np.nan) for k in ("gen_mel_first", "gen_mel_last",
+                                             "disc_loss_first", "disc_loss_last")]).all())
+        checks["plain vocoder gen_mel fell"] = summary.get("gen_mel_last", np.inf) < \
+            summary.get("gen_mel_first", -np.inf)
+        checks["plain vocoder: no kernel launched in any train step"] = all(
+            not any(n.values()) for n, _ in per_step)
+        lines.append(
+            f"plain vocoder (configs/tts/hifigan.yaml: no NSF, rates 8·8·2·2, hop 256, 512 "
+            f"channels, B=8, 64 frames, bf16): {summary.get('steps_per_s', np.nan):.2f} steps/s "
+            f"(first step apart); peak memory {mem:.2f} GiB; gen_mel "
+            f"{summary.get('gen_mel_first', np.nan):.4f} -> "
+            f"{summary.get('gen_mel_last', np.nan):.4f}; disc_loss {summary.get('disc_loss_first', np.nan):.4f} -> "
+            f"{summary.get('disc_loss_last', np.nan):.4f}; mel L1 of the round trip "
+            f"{summary.get('mel_l1_vocoded_init', np.nan):.3f} (init) -> "
+            f"{summary.get('mel_l1_vocoded_trained', np.nan):.3f}")
+        stats["plain_vocoder"] = dict(steps_per_s=summary.get("steps_per_s", np.nan), mem=mem)
+
+        # ---- serve: the assets dir (decision (b): the vocoder's own config) ----
+        assets = os.path.join(root, "assets")
+        os.makedirs(os.path.join(assets, "vocoder"))
+        gen_fn = latest_generator(os.path.join(voc_cfg["out_dir"], "vocoder"))
+        os.replace(gen_fn, os.path.join(assets, "vocoder", os.path.basename(gen_fn)))
+        voc_hp = load_hparams(cfg["hifigan"])
+        with open(os.path.join(assets, "hparams_diff.json"), "w") as f:
+            json.dump(voc_hp, f)
+        ds_dir = os.path.join(root, "checkpoints", "lj_ds_beta6")
+        svs = SVSInferTorch.from_work_dir(ds_dir, assets, device=dev)
+        hp = svs.hp
+        with open(os.path.join(hp["binary_data_dir"], "phone_set.json")) as f:
+            phones = set(json.load(f))
+        checks["request phones in the corpus's phone set"] = set(
+            TTS_REQUEST["ph_seq"].split()) <= phones
+        k, speedup = hp["K_step"], int(hp["pndm_speedup"])
+        # PLMS's denoiser calls as the JAX loop makes them: 2 at the first
+        # step, then one a step of np.arange(0, K, speedup) after it
+        want = {"fused_residual_stack": 0,
+                "fused_residual_stack_bf16": 2 + len(np.arange(0, k, speedup)) - 1,
+                "fused_mrf_stage": 0, "fused_mrf_stage_bf16": len(voc_hp["upsample_rates"])}
+        checks["vocoder from the assets config (8·8·2·2, no NSF)"] = (
+            svs.vocoder.rates == [8, 8, 2, 2] and not svs.vocoder.use_nsf)
+        svs.infer_once(TTS_REQUEST)  # warm
+        reset()
+        t0 = time.perf_counter()
+        wav = svs.infer_once(TTS_REQUEST)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        counts = read("tts served")
+        checks["served audio finite, non-silent, whole 256-sample frames"] = (
+            bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 1e-3
+            and len(wav) % 256 == 0)
+        checks[f"served: K1-bf16 {want['fused_residual_stack_bf16']}, K2-bf16 "
+               f"{want['fused_mrf_stage_bf16']}, fp32 0 launches"] = counts == want
+        lines.append(f"lj_ds_beta6 served from its work dir (from_work_dir, the plain vocoder "
+                     f"trained above from the assets dir; durations from the predictor, f0 "
+                     f"from the CWT head; PLMS pndm_speedup {speedup} over K={k}, expected "
+                     f"{want['fused_residual_stack_bf16']} denoiser calls): {len(wav)} samples "
+                     f"at {hp['audio_sample_rate']} Hz, |wav| max {float(np.abs(wav).max()):.3f}, "
+                     f"warm request {serve_s:.3f} s, launches {counts}")
+        stats["served"] = dict(request_s=serve_s, audio_s=len(wav) / hp["audio_sample_rate"])
+
+        req_fn = os.path.join(root, "request.json")
+        with open(req_fn, "w") as f:
+            json.dump([TTS_REQUEST], f)
+        reset()
+        t0 = time.perf_counter()
+        with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
+            rc_inf = run.main(["--infer", "--exp_name", "lj_ds_beta6", "--ckpt_dir", assets,
+                               "--input", req_fn, "--out", os.path.join(root, "out"),
+                               "--device", "cuda"])
+        cli_s = time.perf_counter() - t0
+        counts_cli = read("tts run --infer")
+        sr, cli_wav = wavfile.read(os.path.join(root, "out", "tts.wav"))
+        checks["run --infer: 22.05 kHz audio, non-silent"] = (
+            rc_inf == 0 and sr == 22050 and len(cli_wav) % 256 == 0
+            and int(np.abs(cli_wav).max()) > 32)
+        checks["run --infer launches"] = counts_cli == want
+        lines.append(f"run --infer --device cuda (the work dir and the assets dir): rc {rc_inf}, "
+                     f"{len(cli_wav)} samples at {sr} Hz, {cli_s:.2f} s with the loading, "
+                     f"launches {counts_cli}")
+
+        # ---- fp32 card vs CPU: the lj/fs2 task (CWT head) and the plain GAN task ----
+        fp32 = dict(compute_dtype="float32", dropout=0.0, predictor_dropout=0.0)
+        hp_fs2 = apply_overrides(load_hparams(cfg["lj_fs2"], common), fp32)
+        b = next(iter(DataLoader(M4SingerDataset(hp_fs2, "valid"), hp_fs2, shuffle=False,
+                                 max_sentences=4)))
+        b = {k: (v[:4, :256] if k in ("mels", "mel2ph", "f0", "uv", "cwt_spec") else v[:4])
+             if isinstance(v, np.ndarray) and v.ndim else v for k, v in b.items()}
+        ckpt = CheckpointManager(os.path.join(fs2_dir, "ckpt"))
+        params = load_npz(os.path.join(ckpt.directory, str(ckpt.latest_step()), "params.npz"))
+        vocab = tr_fs2.task.vocab_size
+        reset()
+        ok, ptext = step_parity(lambda d: AuxDecoderMIDITask(hp_fs2, vocab, device=d), params, b,
+                                {}, dev)
+        checks["lj/fs2 fp32 card vs CPU"] = ok
+        lines.append(f"lj/fs2 (CWT head) fp32 step card vs CPU ({b['txt_tokens'].shape[0]} x "
+                     f"{b['txt_tokens'].shape[1]} tokens x 256 frames, every loss, trained "
+                     f"weights): {ptext}")
+        ok, gtext = gan_step_parity(load_hparams(cfg["hifigan"], dict(compute_dtype="float32")),
+                                    dev)
+        checks["plain GAN fp32 step card vs CPU"] = ok
+        lines.append(f"plain GAN fp32 step card vs CPU (512 channels, B=2, 32 frames, no f0): "
+                     f"{gtext}")
+        checks["no kernel launched in the parity steps"] = not any(read("13 parity").values())
+        lines.append(f"binarize s, steps/s (first step apart), peak GiB, losses, served request "
+                     f"s on {card}: " + json.dumps(
+                         {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in stats.items()}))
+    finally:
+        os.chdir(cwd)
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1511,6 +1888,11 @@ def main() -> int:
                 return 1
         with Phase("12 PopCS family from the YAML configs") as ph:
             ok, lines = popcs_phase(counters, by_path, dev, tmp, smi)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+        with Phase("13 TTS: DiffSpeech from the LJSpeech configs") as ph:
+            ok, lines = tts_phase(counters, by_path, dev, tmp, smi)
             ph.done(" | ".join(lines))
             if not ok:
                 return 1

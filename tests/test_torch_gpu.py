@@ -388,6 +388,10 @@ def test_fp32_kernels_repeat_bit_identically(cuda, kernel):
                                    (1, 32 * 37, 128)])
 @pytest.mark.parametrize("route", ["fp32", "bf16"])
 def test_mrf_stage_at_the_mb4_stage_shapes(cuda, route, B, U, F):
+    _stage_matches_plain(cuda, route, B, U, F)
+
+
+def _stage_matches_plain(cuda, route, B, U, F):
     g = torch.Generator(device=cuda).manual_seed(B + U + F)
     x, w, b = _k2_fp32_args(g, B, U, F)
     if route == "fp32":
@@ -401,6 +405,81 @@ def test_mrf_stage_at_the_mb4_stage_shapes(cuda, route, B, U, F):
         ref = mrf_stage.mrf_stage_plain_bf16(x, w, b, RK, RD)
         assert _rel(got, ref) <= mrf_stage.TOLERANCE_BF16
         assert _mean_rel(got, ref) <= mrf_stage.MEAN_TOLERANCE_BF16
+
+
+# The plain HiFi-GAN's stages (configs/tts/hifigan.yaml: rates 8·8·2·2, 512
+# channels): F=256, 128, 64 and 32 over 8T, 64T, 128T and 256T samples at the
+# TTS request of chip_smoke.py phase 13 (B=1, T=512), and ragged
+@pytest.mark.parametrize("B,U,F", [(1, 8 * 512, 256), (1, 64 * 512, 128), (1, 128 * 512, 64),
+                                   (1, 256 * 512, 32), (2, 8 * 37, 256), (2, 256 * 37, 32)])
+@pytest.mark.parametrize("route", ["fp32", "bf16"])
+def test_mrf_stage_at_the_tts_stage_shapes(cuda, route, B, U, F):
+    _stage_matches_plain(cuda, route, B, U, F)
+
+
+def _tts_path(device):
+    """DiffSpeech from configs/usr/lj_ds_beta6.yaml in fp32 (hidden 256, the
+    CWT head, DiffNet 20 x 256, T=100, K=71, PLMS at pndm_speedup 5) and the
+    plain generator of configs/tts/hifigan.yaml (512 channels), seeded draws
+    (the duration head's bias at 1.6, so that every phone gets frames; the
+    CWT stats head's at a log-f0 mean of 5.3, 200 Hz; the generator's
+    upsamplers and conv_post at unit gain, so that the waveform carries the
+    stages' signal), on `device`."""
+    from bisinger_tpu_torch.config import load_hparams
+    from bisinger_tpu_torch.inference.pipeline import SVSInferTorch
+    from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+    from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
+    from bisinger_tpu_torch.training.tasks import flax_init_
+    from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder
+
+    phones = ["<SP>", "AA1", "AE1", "D", "K", "L", "M", "N", "T"]
+    hp = load_hparams("usr/lj_ds_beta6.yaml", dict(compute_dtype="float32", bucket_tokens=[16],
+                                                   bucket_frames=[64]))
+    voc_hp = load_hparams("tts/hifigan.yaml", dict(compute_dtype="float32"))
+    model = flax_init_(GaussianDiffusion(hp, len(phones) + 3), 0)
+    g = torch.Generator().manual_seed(1)
+    vocoder = HifiGanGenerator(voc_hp)
+    with torch.no_grad():
+        model.fs2.dur_predictor.linear.bias.fill_(1.6)
+        model.fs2.cwt_stats_2.bias.copy_(torch.tensor([5.3, 0.25]))  # log-f0 ~ 200 Hz
+        model.denoise_fn.output_projection.weight.normal_(0, 0.05, generator=g)
+        for name, p in vocoder.named_parameters():
+            fan_in = p[0].numel() if p.dim() > 1 else 1
+            p.copy_(torch.randn(p.shape, generator=g) * (
+                0.03 if name.startswith("res_") else fan_in ** -0.5) if p.dim() > 1
+                else 0.05 * torch.randn(p.shape, generator=g))
+    return SVSInferTorch(hp, model, None, vocoder, device,
+                         encoder=TokenTextEncoder(phones, replace_oov=","),
+                         spk_map={"LJSpeech": 0})
+
+
+def test_tts_path_on_the_card_matches_the_cpu(cuda):
+    """The TTS path in fp32, card (K1 and K2, fp32 routes) against CPU
+    (their plain versions) from a phoneme-level request, the start noise
+    pinned: durations from the predictor, f0 from the CWT head, PLMS over
+    K=71 (2 + len(arange(0, 71, 5)) - 1 = 16 K1 launches), the plain
+    generator (4 K2 launches); the port's parity bounds: mel 1e-3, f0 1 Hz,
+    waveform 2e-3."""
+    import numpy as np
+
+    req = dict(input_type="phoneme", ph_seq="<SP> K AE1 T <SP> M AA1 D <SP>",
+               note_seq=" ".join(["rest"] * 9), note_dur_seq=" ".join(["0.06"] * 9),
+               is_slur_seq=" ".join(["0"] * 9), lang_seq=" ".join(["0"] * 9))
+    on_card, on_cpu = _tts_path(cuda), _tts_path(torch.device("cpu"))
+    batch = on_cpu.items_to_batch(on_cpu.score_items([req]))
+    start = torch.randn((1, batch["n_frames"], 80), generator=torch.Generator().manual_seed(2))
+    counters = (diffnet_stack.counter, diffnet_stack.counter_bf16, mrf_stage.counter,
+                mrf_stage.counter_bf16)
+    for c in counters:
+        c.launches = 0
+    got = on_card.synthesize(batch, start_noise=start.to(cuda))
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [2 + len(np.arange(0, 71, 5)) - 1, 0, 4, 0]
+    ref = on_cpu.synthesize(batch, start_noise=start)
+    assert torch.equal(got["mel2ph"].cpu(), ref["mel2ph"]) and int((ref["mel2ph"] > 0).sum()) >= 9
+    assert (got["mel"].cpu() - ref["mel"]).abs().max() <= 1e-3
+    assert (got["f0"].cpu() - ref["f0"]).abs().max() <= 1.0 and ref["f0"].max() > 50
+    assert ref["wav"].std() > 1e-2 and (got["wav"].cpu() - ref["wav"]).abs().max() <= 2e-3
 
 
 @pytest.mark.parametrize("variant", ["full_band", "mb4"])

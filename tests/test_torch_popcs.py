@@ -128,8 +128,10 @@ def test_plain_fs2_forward_matches_flax(tmp_path, case):
 
 
 def test_pitch_and_energy_losses_match_jax():
-    """Frame pitch (f0 on the voiced frames, uv's BCE), phone-level pitch and
-    the energy MSE on random inputs: within 1e-6."""
+    """Frame pitch (f0 on the voiced frames, uv's BCE), phone-level pitch,
+    the CWT head's losses (the spectrogram's l1 or l2, uv's BCE, the log-f0
+    mean and std) and the energy MSE on random inputs: within 1e-6; an
+    unknown cwt_loss raises, as in JAX."""
     r = np.random.default_rng(0)
     txt = np.zeros((2, 10), np.int64)
     txt[:, :8] = r.integers(1, 20, (2, 8))
@@ -160,8 +162,27 @@ def test_pitch_and_energy_losses_match_jax():
         for k in jl:
             np.testing.assert_allclose(float(pl[k]), float(jl[k]), rtol=0, atol=1e-6,
                                        err_msg=f"{over} {k}")
-    with pytest.raises(NotImplementedError, match="cwt"):
-        L.add_pitch_loss({}, {}, {}, dict(pitch_type="cwt"))
+    # the CWT head's losses (the TTS configs'), l1 and l2, with and without uv
+    for over in (dict(cwt_loss="l1", use_uv=True), dict(cwt_loss="l2", use_uv=False)):
+        hp = dict(over, pitch_type="cwt", lambda_f0=1.0, lambda_uv=0.5)
+        ret = dict(cwt=r.standard_normal((2, 24, 11 if over["use_uv"] else 10)).astype(
+            np.float32), f0_mean=r.normal(5.4, 0.2, 2).astype(np.float32),
+            f0_std=r.uniform(0.1, 0.3, 2).astype(np.float32))
+        sample = dict(mel2ph=mel2ph, uv=uv, cwt_spec=r.standard_normal((2, 24, 10)).astype(
+            np.float32), f0_mean=r.normal(5.4, 0.2, 2).astype(np.float32),
+            f0_std=r.uniform(0.1, 0.3, 2).astype(np.float32))
+        pl, jl = {}, {}
+        L.add_pitch_loss({k: t(v) for k, v in ret.items()}, {k: t(v) for k, v in sample.items()},
+                         pl, hp)
+        JL.add_pitch_loss({k: jnp.asarray(v) for k, v in ret.items()},
+                          {k: jnp.asarray(v) for k, v in sample.items()}, jl, hp)
+        assert set(pl) == set(jl) == ({"C", "f0_mean", "f0_std"}
+                                      | ({"uv"} if over["use_uv"] else set()))
+        for k in jl:
+            np.testing.assert_allclose(float(pl[k]), float(jl[k]), rtol=0, atol=1e-6,
+                                       err_msg=f"{over} {k}")
+    with pytest.raises(NotImplementedError, match="cwt_loss"):
+        L.add_pitch_loss(ret, sample, {}, dict(hp, cwt_loss="ssim"))
 
 
 def _counted(model):

@@ -1,7 +1,8 @@
 """The port's GAN vocoder path against the JAX package, on the CPU: PQMF,
 the multiband generator (tiny, and the trained flagship mb4 weights), the
 discriminators, the GAN losses and STFT losses, weight norm, one full GAN
-step (full band and mb4), the bf16 training generator; the generator glob
+step (full band, mb4 and the plain generator without f0), the bf16
+training generator; the generator glob
 by step number, the inference wrapper, the decisions (the MSD keeps weight
 norm on every scale; one NSF draw a step; no kernel in a train step) and
 `tools/train_vocoder`.
@@ -55,6 +56,8 @@ from torch_port_helpers import hparams, max_err, t, to_port
 GEN = dict(use_pitch_embed=True, hop_size=64, upsample_rates=[4, 4, 2, 2],
            upsample_kernel_sizes=[8, 8, 4, 4], upsample_initial_channel=16)
 MB4 = dict(GEN, upsample_rates=[4, 4], upsample_kernel_sizes=[8, 8], vocoder_multiband=4)
+PLAIN = dict(GEN, use_nsf=False)  # the TTS configs' HiFi-GAN: no harmonic source
+VARIANTS = {"full_band": GEN, "mb4": MB4, "plain": PLAIN}
 B, T = 2, 16  # 16 frames: 1024 samples at hop 64
 
 
@@ -106,10 +109,12 @@ def _draw(shapes, seed, small=()):
 @functools.lru_cache(maxsize=None)
 def _trees(variant):
     """(JAX hparams, port hparams, generator params, {"mpd", "msd"} params)
-    of the full-band or mb4 settings, plain kernels, seeded draws."""
-    jhp, php = hparams(**(GEN if variant == "full_band" else MB4))
+    of the full-band, mb4 or plain settings, plain kernels, seeded draws; the
+    plain generator's tree is flax's built without an f0."""
+    jhp, php = hparams(**VARIANTS[variant])
     mel, f0, wav, _, _ = _inputs(11)
     key = jax.random.PRNGKey(0)
+    f0 = f0 if php["use_nsf"] else None
     gen, mpd, msd = jax.eval_shape(lambda: (
         jh.HifiGanGenerator(hp=jhp).init({"params": key, "nsf": key}, mel, f0)["params"],
         jh.MultiPeriodDiscriminator().init(key, wav, wav)["params"],
@@ -364,9 +369,10 @@ def _flat(tree):
     return {k: np.asarray(v) for k, v in flatten_params(jax.device_get(tree)).items()}
 
 
-@pytest.fixture(scope="module", params=["full_band", "mb4"])
+@pytest.fixture(scope="module", params=list(VARIANTS))
 def gan_step(request):
-    """One JAX GAN step (full band or mb4) with its draws pinned, in float64
+    """One JAX GAN step (full band, mb4 or plain) with its draws pinned, in
+    float64
     (`jax.enable_x64`): in fp32, XLA's CPU gradients of the MSD's grouped
     convs read up to 1.3e-4 of the largest away from an fp64 run of the same
     step, the port's fp32 ones 3e-7, so an fp32 JAX step is no reference at
@@ -390,7 +396,9 @@ def gan_step(request):
                                                         tx=jtask.gen_tx))(f64(gen))
             ds = jax.jit(lambda p: GANTrainState.create(apply_fn=None, params=p,
                                                         tx=jtask.disc_tx))(f64(disc))
-            batch = f64({"mels": mel, "f0": f0, "wav": wav})
+            # the plain generator gets f0=None (decision (a), ROADMAP Queue 3):
+            # JAX's task computes the port's step when handed none
+            batch = f64({"mels": mel, "f0": f0 if php["use_nsf"] else None, "wav": wav})
             metrics, dg, gg, ds2, gs2 = _jax_gan_step(jtask, gs, ds, batch,
                                                       jax.random.PRNGKey(1))
     finally:
@@ -412,7 +420,8 @@ def _grads(module, params):
 
 
 def test_one_gan_step_matches_jax(gan_step):
-    """One fp32 GAN step, full band and mb4: D loss, G loss and every aux
+    """One fp32 GAN step, full band, mb4 and plain (no f0, decision (a) of
+    ROADMAP Queue 3): D loss, G loss and every aux
     metric within 1e-5 of its own value; every gradient of both updates
     within 1e-4 of that update's largest |gradient|; AdamW alone on JAX's
     gradients within 1e-6 of optax's parameters; the port's own step within
@@ -460,6 +469,7 @@ def test_one_gan_step_matches_jax(gan_step):
             assert (err - carried).max() <= 1e-6, (g["name"], k, float((err - carried).max()))
 
 
+@pytest.mark.parametrize("gan_step", ["full_band", "mb4"], indirect=True)
 def test_float64_gan_step_matches_jax_float64(gan_step):
     """The port's GAN step cast to float64 (`tools/step_parity`'s reference
     of a card-vs-CPU step) against JAX's float64 step from the same trees

@@ -95,3 +95,98 @@ def t(x):
 
 def max_err(a, b):
     return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))))
+
+
+# an ARPAbet inventory: the phones of a TextGrid corpus (silences are "<SP>")
+ARPABET = ["AA1", "AE1", "AH0", "B", "D", "EH1", "ER0", "F", "IY1", "K", "L", "M", "N",
+           "OW1", "P", "R", "S", "T", "UW1", "Z"]
+FRICATIVES = {"F", "S", "Z"}  # rendered as noise: unvoiced stretches inside speech
+
+
+def write_textgrid_corpus(root, n_items, seed=0, sample_rate=22050, dur_range=(2.0, 4.0)):
+    """An MFA-style speech corpus (the test copy of chip_smoke.py's writer):
+    per item a 16-bit WAV, a TextGrid with a words tier and a phones tier
+    (the last, which the aligner reads; silence intervals empty) and a line of
+    `meta.json` {item_name, wav_fn, tg_fn, txt, ph, spk}. Words of 2-4 phones
+    from `ARPABET`, silences at both ends and between some words; the audio
+    is a harmonic voice whose f0 glides through 90-220 Hz, noise on the
+    fricatives, near-silence in the pauses."""
+    import json
+    import os
+
+    from scipy.io import wavfile
+
+    os.makedirs(root, exist_ok=True)
+    r = np.random.RandomState(seed)
+    meta = []
+    for i in range(n_items):
+        total = r.uniform(*dur_range)
+        n_words = max(2, int(round((total - 0.45) / 0.31)))  # ~0.31 s a word
+        words = [list(r.choice(ARPABET, r.randint(2, 5))) for _ in range(n_words)]
+        pauses = [r.rand() < 0.3 for _ in range(n_words - 1)]
+        # durations: phones ~ U(0.05, 0.12) s, pauses 0.1-0.25 s, edges 0.15-0.3 s
+        segs = [("", r.uniform(0.15, 0.3))]
+        for w, word in enumerate(words):
+            segs += [(p, r.uniform(0.05, 0.12)) for p in word]
+            if w < len(pauses) and pauses[w]:
+                segs.append(("", r.uniform(0.1, 0.25)))
+        segs.append(("", r.uniform(0.15, 0.3)))
+        bounds = np.concatenate([[0.0], np.cumsum([d for _, d in segs])])
+        dur = float(bounds[-1])
+        n = int(round(dur * sample_rate))
+        t = np.arange(n) / sample_rate
+        f0 = (150 + 50 * np.sin(2 * np.pi * t / r.uniform(0.8, 1.6) + r.uniform(0, 6))
+              + r.uniform(-20, 20))
+        phase = 2 * np.pi * np.cumsum(f0) / sample_rate
+        voice = sum(np.sin(k * phase) / k for k in range(1, 11))
+        noise = r.randn(n)
+        wav = np.zeros(n)
+        for (ph, _), a, b in zip(segs, bounds[:-1], bounds[1:]):
+            lo, hi = int(round(a * sample_rate)), int(round(b * sample_rate))
+            if ph == "":
+                wav[lo:hi] = 1e-4 * noise[lo:hi]
+            elif ph in FRICATIVES:
+                wav[lo:hi] = 0.05 * noise[lo:hi]
+            else:
+                wav[lo:hi] = 0.2 * voice[lo:hi]
+        name = f"LJ{i // 50 + 1:03d}-{i % 50 + 1:04d}"
+        wav_fn = os.path.join(root, f"{name}.wav")
+        wavfile.write(wav_fn, sample_rate, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
+        phone_tier = [(a, b, ph) for (ph, _), a, b in zip(segs, bounds[:-1], bounds[1:])]
+        word_tier, k = [(0.0, bounds[1], "")], 1
+        for w, word in enumerate(words):
+            word_tier.append((bounds[k], bounds[k + len(word)], "w%d" % w))
+            k += len(word)
+            if segs[k][0] == "":
+                word_tier.append((bounds[k], bounds[k + 1], ""))
+                k += 1
+        tg_fn = os.path.join(root, f"{name}.TextGrid")
+        with open(tg_fn, "w") as f:
+            f.write(textgrid_text(dur, [("words", word_tier), ("phones", phone_tier)]))
+        ph = ["<SP>"]
+        for w, word in enumerate(words):
+            ph += word
+            if w < len(pauses) and pauses[w]:
+                ph.append("<SP>")
+        ph.append("<SP>")
+        meta.append(dict(item_name=name, wav_fn=wav_fn, tg_fn=tg_fn,
+                         txt=" ".join("w%d" % w for w in range(len(words))), ph=" ".join(ph),
+                         spk="LJSpeech"))
+    with open(os.path.join(root, "meta.json"), "w") as f:
+        for m in meta:
+            f.write(json.dumps(m) + "\n")
+    return meta
+
+
+def textgrid_text(dur, tiers):
+    """Praat's long TextGrid format for `tiers` [(name, [(xmin, xmax, text)])]."""
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "", "xmin = 0",
+             f"xmax = {dur!r}", "tiers? <exists>", f"size = {len(tiers)}", "item []:"]
+    for i, (name, ivs) in enumerate(tiers, 1):
+        lines += [f"    item [{i}]:", '        class = "IntervalTier"',
+                  f'        name = "{name}"', "        xmin = 0", f"        xmax = {dur!r}",
+                  f"        intervals: size = {len(ivs)}"]
+        for j, (a, b, text) in enumerate(ivs, 1):
+            lines += [f"        intervals [{j}]:", f"            xmin = {float(a)!r}",
+                      f"            xmax = {float(b)!r}", f'            text = "{text}"']
+    return "\n".join(lines) + "\n"
