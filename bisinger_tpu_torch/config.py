@@ -165,6 +165,9 @@ DEFAULTS: Dict[str, Any] = {
     "test_set_name": "test",
     "device_resident_corpus": False,
     "dataloader_prefetch": 2,
+    # the (data, model) mesh: data -1 is every rank of a data-parallel run;
+    # model > 1 (tensor parallelism) is not ported (parallel/mesh.py)
+    "mesh_shape": {"data": -1, "model": 1},
     # inference entry points
     "pe_enable": False,  # serve f0 from a PitchExtractor (else the model's own)
     "profile_infer": False,

@@ -19,6 +19,7 @@ std (`f0_mean`, `f0_std`). The speaker-embedding features are not ported.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
@@ -225,24 +226,50 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _slice_batch_rows(batch: Dict[str, Any], shard_index: int, num_shards: int
+                      ) -> Dict[str, Any]:
+    """This rank's row range of a collated batch (an equal split; the loader
+    pads the sample list to a multiple of num_shards first), as
+    `bisinger_tpu/data/dataset.py:259-277`."""
+    n = int(batch["txt_tokens"].shape[0])
+    per = n // num_shards
+    lo, hi = shard_index * per, (shard_index + 1) * per
+    out = {}
+    for k, v in batch.items():
+        if k == "nsamples":
+            out[k] = per
+        elif isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == n:
+            out[k] = v[lo:hi]
+        elif isinstance(v, list) and len(v) == n:
+            out[k] = v[lo:hi]
+        else:
+            out[k] = v
+    return out
+
+
 class DataLoader:
-    """Epoch iterator: order -> budget batches -> collate. `endless`
-    repeats with a fresh order each epoch. The padded batch repeats its
-    last sample up to a multiple of `batch_multiple`
-    (`pad_batch_to_multiple`), as the JAX package pads for its device
-    count: the ESM attends across the batch, so the padding rows reach the
-    real ones and must be the same."""
+    """Epoch iterator: order -> budget batches -> collate -> rows of this
+    rank. `endless` repeats with a fresh order each epoch. The padded batch
+    repeats its last sample up to a multiple of lcm(`batch_multiple`,
+    `num_shards`) (`pad_batch_to_multiple`), as the JAX package pads for its
+    device count: the ESM attends across the batch, so the padding rows
+    reach the real ones and must be the same. With `num_shards` > 1 every
+    rank collates the whole global batch (the same seed, so the same
+    buckets) and keeps its equal share of the rows (`shard_index`), as
+    `bisinger_tpu/data/dataset.py:340-365`."""
 
     def __init__(self, dataset: M4SingerDataset, hp, shuffle: bool = True,
                  max_tokens: Optional[int] = None, max_sentences: Optional[int] = None,
-                 batch_multiple: int = 1, endless: bool = False, seed: int = 1234,
-                 pad_batch_to_multiple: bool = True):
+                 batch_multiple: int = 1, shard_index: int = 0, num_shards: int = 1,
+                 endless: bool = False, seed: int = 1234, pad_batch_to_multiple: bool = True):
         self.dataset = dataset
         self.hp = hp
         self.shuffle = shuffle
         self.max_tokens = max_tokens if max_tokens is not None else hp["max_tokens"]
         self.max_sentences = max_sentences if max_sentences is not None else hp["max_sentences"]
         self.batch_multiple = batch_multiple
+        self.shard_index = shard_index
+        self.num_shards = num_shards
         self.endless = endless
         self.seed = seed
         self.epoch = 0
@@ -264,10 +291,15 @@ class DataLoader:
         while True:
             for batch_idx in self._epoch_batches(self.epoch):
                 samples = [self.dataset[i] for i in batch_idx]
-                if self.pad_batch_to_multiple and self.batch_multiple > 1:
-                    while len(samples) % self.batch_multiple:
+                # a multiple of both, or the row split would drop rows
+                mult = math.lcm(self.batch_multiple, self.num_shards)
+                if self.pad_batch_to_multiple and mult > 1:
+                    while len(samples) % mult:
                         samples.append(samples[-1])
-                yield collate_batch(samples, self.hp)
+                batch = collate_batch(samples, self.hp)
+                if self.num_shards > 1:
+                    batch = _slice_batch_rows(batch, self.shard_index, self.num_shards)
+                yield batch
             self.epoch += 1
             if not self.endless:
                 return

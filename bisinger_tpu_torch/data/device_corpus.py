@@ -9,13 +9,17 @@ flagship's setting): no per-step host-to-device copy of a batch.
      `index_select`; only the B indices cross.
 
 B is max_sentences capped by the frame budget (max_tokens over the widest
-frame bucket). The order is a fresh permutation from `RandomState(seed)`
-each epoch. The tail is dropped as in the JAX package: when fewer than B
-positions of the permutation are left, the next batch starts a new
-permutation, so each epoch yields floor(N / B) batches of B rows and the
-last N mod B items of a permutation sit that epoch out. Every batch keeps
-one static shape, and the batches equal the JAX package's at the same
-seed.
+frame bucket), rounded up to a multiple of the ranks (as
+`bisinger_tpu/data/device_corpus.py:83-87` rounds to the data axis). Every
+rank holds the whole corpus and draws the same index vector of the global
+batch (the same seed), then gathers only its rows: JAX's replicated corpus
+with a batch-sharded gather, one process a rank. The order is a fresh
+permutation from `RandomState(seed)` each epoch. The tail is dropped as in
+the JAX package: when fewer than B positions of the permutation are left,
+the next batch starts a new permutation, so each epoch yields floor(N / B)
+batches of B rows and the last N mod B items of a permutation sit that
+epoch out. Every batch keeps one static shape, and the batches equal the
+JAX package's at the same seed.
 """
 
 from __future__ import annotations
@@ -29,9 +33,11 @@ from bisinger_tpu_torch.data.dataset import DataLoader, batch_to_device
 
 
 class DeviceResidentFeeder:
-    """Endless iterator of batches gathered on `device`."""
+    """Endless iterator of batches gathered on `device`: the rows of rank
+    `shard_index` of `num_shards` of each global batch."""
 
-    def __init__(self, dataset, hp, device, seed: int = 1234):
+    def __init__(self, dataset, hp, device, seed: int = 1234, shard_index: int = 0,
+                 num_shards: int = 1):
         dl = DataLoader(dataset, hp, shuffle=False, endless=False, max_tokens=10 ** 9,
                         max_sentences=1, pad_batch_to_multiple=False)
         rows: Dict[str, list] = {}
@@ -52,6 +58,8 @@ class DeviceResidentFeeder:
         budget = max(int(hp["max_tokens"]) // max(t_bucket, 1), 1)
         ms = int(hp.get("max_sentences", 0) or 0)
         self.batch_size = min(ms, budget) if 0 < ms <= 100_000 else budget
+        self.shard_index, self.num_shards = shard_index, num_shards
+        self.batch_size = -(-self.batch_size // self.num_shards) * self.num_shards
         self.device = torch.device(device)
         self.corpus = {k: v.to(self.device) for k, v in stacked.items()}
         self.bytes_resident = sum(v.numel() * v.element_size() for v in self.corpus.values())
@@ -74,5 +82,7 @@ class DeviceResidentFeeder:
         return self
 
     def __next__(self) -> Dict[str, torch.Tensor]:
-        idx = torch.as_tensor(self.next_indices(), dtype=torch.long).to(self.device)
+        per = self.batch_size // self.num_shards
+        rows = self.next_indices()[self.shard_index * per:(self.shard_index + 1) * per]
+        idx = torch.as_tensor(rows, dtype=torch.long).to(self.device)
         return {k: v.index_select(0, idx) for k, v in self.corpus.items()}

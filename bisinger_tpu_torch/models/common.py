@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bisinger_tpu_torch.parallel import mesh as dp
+
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -77,7 +79,9 @@ class Dropout(nn.Module):
     """flax's `nn.Dropout(rate)`: in train mode each value is kept with
     probability 1 - rate and divided by it, else zeroed; the mask is drawn
     from `self.generator` (a `torch.Generator` on the input's device, set by
-    `set_dropout_generator`). The identity in eval mode or at rate 0."""
+    `set_dropout_generator`), at the global batch's shape under data
+    parallelism, of which this rank keeps its rows, so that a step does not
+    depend on the number of ranks. The identity in eval mode or at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -88,7 +92,8 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        mask = dp.draw_rows(lambda s: torch.rand(s, generator=self.generator,
+                                                 device=x.device), x.shape) < keep
         return torch.where(mask, div(x, keep), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -145,13 +150,19 @@ def batch_norm(bn: nn.BatchNorm1d, x, use_running_average: bool = True):
     (`use_running_average=False`), with the batch's over every B x T frame
     in fp32: the mean and the biased variance E[x^2] - E[x]^2 (clamped at
     0), which also update the running ones as running = 0.9 * running +
-    0.1 * batch (torch's BatchNorm1d would store the unbiased variance)."""
+    0.1 * batch (torch's BatchNorm1d would store the unbiased variance).
+    Under data parallelism the batch is the global one, as under JAX's
+    SPMD: the sums of x and x^2 are summed over the ranks (differentiably)
+    before the division, so every rank normalises with, and stores, the
+    same statistics."""
     x = x.to(bn.weight.dtype)
     if use_running_average:
         mean, var = bn.running_mean, bn.running_var
     else:
-        mean = x.mean((0, 1))
-        var = torch.clamp_min((x * x).mean((0, 1)) - mean * mean, 0.0)
+        n = x.shape[0] * x.shape[1] * dp.world_size()
+        sums = dp.all_reduce_sum(torch.stack([x.sum((0, 1)), (x * x).sum((0, 1))]))
+        mean = sums[0] / n
+        var = torch.clamp_min(sums[1] / n - mean * mean, 0.0)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
@@ -322,7 +333,10 @@ class ESM(nn.Module):
     """Embedding Skip Module (`common.py:246-301`):
     Mo = MHA(q=Eo, k=v=LN1(LP)) + LP; Fo = FFN(LN2(Mo)) + Mo.
     `cross_batch=True` attends across the BATCH axis at each token index,
-    as the reference does (batch_first=False MHA fed [B, T, H])."""
+    as the reference does (batch_first=False MHA fed [B, T, H]); under data
+    parallelism across the global batch, as under JAX's SPMD: the keys and
+    values are every rank's rows (`all_gather_rows`), the queries this
+    rank's."""
 
     def __init__(self, hidden: int, num_heads: int = 8, cross_batch: bool = True,
                  dtype=torch.float32):
@@ -337,8 +351,8 @@ class ESM(nn.Module):
     def forward(self, eo, lp):
         lp_norm = layer_norm(self.ln1, lp)
         if self.cross_batch:
-            mo = self.mh(eo.transpose(0, 1), lp_norm.transpose(0, 1),
-                         lp_norm.transpose(0, 1)).transpose(0, 1)
+            kv = dp.all_gather_rows(lp_norm).transpose(0, 1)
+            mo = self.mh(eo.transpose(0, 1), kv, kv).transpose(0, 1)
         else:
             mo = self.mh(eo, lp_norm, lp_norm)
         mo = mo + lp  # fp32: the bf16 attention output promotes against lp

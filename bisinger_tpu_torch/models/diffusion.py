@@ -39,6 +39,7 @@ from torch import nn
 
 from bisinger_tpu_torch.models.diffnet import DiffNet
 from bisinger_tpu_torch.models.fs2 import FastSpeech2, FastSpeech2MIDI
+from bisinger_tpu_torch.parallel.mesh import draw_rows, global_count, global_mean, local_rows
 
 
 def linear_beta_schedule(timesteps: int, max_beta: float = 0.01) -> np.ndarray:
@@ -156,31 +157,42 @@ class GaussianDiffusion(nn.Module):
 
     def p_losses(self, x_start, t, cond, noise, nonpadding=None):
         """The denoiser's loss at steps t [B] (`diffusion.py:128-140`): l1
-        over the nonpadding frames, or the l2 mean over every value."""
+        over the nonpadding frames, or the l2 mean over every value; under
+        data parallelism this rank's share of the global batch's
+        (`training/losses.py`)."""
         x_recon = self.denoise_fn(self.q_sample_t(x_start, t, noise), t, cond=cond)
         loss_type = self.hp.get("diff_loss_type", "l1")
         if loss_type == "l1":
             err = (noise - x_recon).abs()
             if nonpadding is None:
-                return err.mean()
+                return global_mean(err)
             w = nonpadding[:, :, None]
-            return (err * w).sum() / torch.clamp_min(w.sum() * x_start.shape[-1], 1.0)
+            return (err * w).sum() / torch.clamp_min(
+                global_count(w.sum()) * x_start.shape[-1], 1.0)
         if loss_type == "l2":
-            return ((noise - x_recon) ** 2).mean()
+            return global_mean((noise - x_recon) ** 2)
         raise NotImplementedError(f"diff_loss_type={loss_type}")
 
     def train_forward(self, txt_tokens, mel2ph, ref_mels, t=None, noise=None,
                       generator: Optional[torch.Generator] = None, **cond):
         """-> dict with diff_loss, dur, mel2ph, decoder_inp (and the
         conditioner's pitch and energy outputs). `t` [B] and `noise`
-        [B, T, M] pin the draws, else they come from `generator`."""
+        [B, T, M] pin the draws, else they come from `generator`; both at
+        the global batch's shape under data parallelism, of which this rank
+        takes its rows."""
         ret = self.fs2(txt_tokens, mel2ph=mel2ph, ref_mels=ref_mels, skip_decoder=True, **cond)
         x = self.norm_spec(ref_mels)
-        dev = x.device
+        dev, b = x.device, x.shape[0]
         if t is None:
-            t = torch.randint(0, self.K_step, (x.shape[0],), generator=generator, device=dev)
+            t = draw_rows(lambda s: torch.randint(0, self.K_step, s, generator=generator,
+                                                  device=dev), (b,))
+        else:
+            t = local_rows(t, b)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=dev)
+            noise = draw_rows(lambda s: torch.randn(s, generator=generator, device=dev),
+                              x.shape)
+        else:
+            noise = local_rows(noise, b)
         nonpadding = (mel2ph != 0).to(x.dtype)
         ret["diff_loss"] = self.p_losses(x, t.long(), ret["decoder_inp"], noise, nonpadding)
         return ret

@@ -12,6 +12,9 @@
     # pe_batch_stats.npz at each checkpoint)
     python -m bisinger_tpu_torch.run --config exp.json --exp_name pe \\
         --hparams "task_cls=tasks.tts.pe.PitchExtractionTask,pitch_type=frame,use_uv=true"
+    # data-parallel training, one process per card (the mesh's data axis):
+    # N ranks take the step one process takes on the global batch
+    torchrun --nproc_per_node N -m bisinger_tpu_torch.run --config exp.json --exp_name fs2
     # validate the latest checkpoint
     python -m bisinger_tpu_torch.run --exp_name fs2 --validate
     # scores -> wavs: the flagship's files, or a work dir's latest checkpoint
@@ -28,6 +31,14 @@ reference's dotted names, the JAX package's or the port's
 (`training.tasks.task_class`, `data.binarizer.binarizer_class`); the
 diffusion stage and the BiSinger binarizer by default. Every action
 runs on the card unless `--device cpu` asks for the CPU.
+
+Under torchrun's environment (RANK, WORLD_SIZE, ...) training and
+`--validate` run data-parallel (`parallel/mesh.py`), each rank on
+cuda:LOCAL_RANK unless `--device` names a device, over NCCL on the card and
+gloo on the CPU unless `--dist_backend` names one (gloo lets ranks share a
+card); `--dist_init` replaces torchrun's rendezvous (for example a
+`file://` path). `--binarize` and `--infer` refuse to run on more than one
+rank.
 """
 
 from __future__ import annotations
@@ -79,7 +90,13 @@ def parse_args(argv=None):
                              "weights (default artifacts/flagship); with --exp_name, the PE "
                              "and vocoder come from here")
     parser.add_argument("--device", type=str, default=None,
-                        help="default: the card; 'cpu' to ask for it")
+                        help="default: the card (cuda:LOCAL_RANK under torchrun); 'cpu' to ask "
+                             "for it")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                        help="under torchrun: the process group's backend (default nccl on the "
+                             "card, gloo on the CPU)")
+    parser.add_argument("--dist_init", type=str, default=None,
+                        help="under torchrun: the group's init method (default env://)")
     return parser.parse_args(argv)
 
 
@@ -89,11 +106,15 @@ def work_dir_of(args) -> str:
 
 def trainer_from_args(args):
     """The task of `task_cls` and its Trainer in the work dir, as the train
-    and --validate actions build them."""
+    and --validate actions build them; under torchrun's environment this
+    process joins the data-parallel group first."""
+    from bisinger_tpu_torch.parallel import mesh as dp
     from bisinger_tpu_torch.training.tasks import PitchExtractionTask, task_class
     from bisinger_tpu_torch.training.trainer import Trainer
     from bisinger_tpu_torch.utils.text_encoder import build_phone_encoder
 
+    if dp.launched():
+        args.device = dp.init_data_parallel(args.device, args.dist_backend, args.dist_init)
     hp = load_config(args, work_dir_of(args))
     if not hp["binary_data_dir"]:
         raise ValueError("binary_data_dir is not set: name a config (--config) or set it "
@@ -113,6 +134,12 @@ def main(argv=None) -> int:
     full_fp32()
     args = parse_args(argv)
     work_dir = work_dir_of(args)
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    for flag, on in (("--binarize", args.binarize), ("--infer", args.infer)):
+        if on and ranks > 1:
+            print(f"{flag} runs in one process, not on {ranks} ranks: launch it without "
+                  "torchrun", file=sys.stderr)
+            return 2
     if args.infer:
         from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
 
@@ -136,12 +163,20 @@ def main(argv=None) -> int:
         hp = load_config(args, work_dir)
         binarizer_class(hp.get("binarizer_cls", ""))(hp).process()
         return 0
-    trainer = trainer_from_args(args)
-    if args.validate:
-        print(f"| validate: total_loss={trainer.validate():.4f}")
+    from bisinger_tpu_torch.parallel import mesh as dp
+
+    owns_group = dp.launched() and not dp.active()
+    try:
+        trainer = trainer_from_args(args)
+        if args.validate:
+            loss = trainer.validate()
+            trainer.say(f"| validate: total_loss={loss:.4f}")
+            return 0
+        trainer.fit(max_updates=args.max_updates or None)
         return 0
-    trainer.fit(max_updates=args.max_updates or None)
-    return 0
+    finally:
+        if owns_group:
+            dp.shutdown()
 
 
 if __name__ == "__main__":

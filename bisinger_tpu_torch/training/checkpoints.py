@@ -13,6 +13,9 @@ A step is written into a temporary directory and renamed into place, so a
 directory with `meta.json` is complete; the newest `max_to_keep` stay.
 `load_params_into` merges a source's parameters into a target's where the
 names and shapes agree (the FFT-Singer warm start of the diffusion stage).
+Data-parallel, rank 0 alone saves (its generator state is every rank's: the
+ranks draw alike), the others wait at a barrier, and every rank restores
+from the same directory (`training/trainer.py`).
 """
 
 from __future__ import annotations

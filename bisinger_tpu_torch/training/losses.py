@@ -6,6 +6,14 @@ predictor, its phone-level f0 loss, the CWT pitch head's loss, and the
 energy loss. Every reduction is masked over static shapes (but the CWT
 spectrogram's, a plain mean over every element, padding included, as
 JAX's); the word-duration loss sums into a fixed `max_words` segments.
+
+Under data parallelism each loss is this rank's share of the loss over
+the global batch, as JAX computes it on the globally sharded array: the
+local sum over the global count (a mask's sum over every rank, or every
+rank's elements for a plain mean; `parallel.mesh.global_count`,
+`global_mean`). The clamp at 1 applies to the global count. The shares sum
+over the ranks to the global loss, and so do their gradients; an average
+of the ranks' own means would weigh the ranks' frames unequally.
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bisinger_tpu_torch.parallel.mesh import global_count, global_mean
+
 
 def weights_nonzero_speech(target):
     """1.0 for frames with any energy, broadcast over the mel bins."""
@@ -25,7 +35,7 @@ def weights_nonzero_speech(target):
 
 def mel_l1_loss(mel_out, target):
     w = weights_nonzero_speech(target)
-    return ((mel_out - target).abs() * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    return ((mel_out - target).abs() * w).sum() / torch.clamp_min(global_count(w.sum()), 1.0)
 
 
 def _gaussian_window(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -56,7 +66,7 @@ def ssim(img1, img2, window_size: int = 11):
 def mel_ssim_loss(mel_out, target, bias: float = 6.0):
     w = weights_nonzero_speech(target)
     loss = (1.0 - ssim(mel_out + bias, target + bias)) * w
-    return loss.sum() / torch.clamp_min(w.sum(), 1.0)
+    return loss.sum() / torch.clamp_min(global_count(w.sum()), 1.0)
 
 
 def parse_mel_loss_spec(spec: str) -> Dict[str, float]:
@@ -102,7 +112,7 @@ def segment_sum(values, segment_ids, num_segments: int):
 
 
 def _masked_mean(x, mask):
-    return (x * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return (x * mask).sum() / torch.clamp_min(global_count(mask.sum()), 1.0)
 
 
 def add_dur_loss_midi(dur_pred_log, mel2ph, txt_tokens, word_boundary, losses: Dict, hp):
@@ -125,7 +135,7 @@ def add_dur_loss_midi(dur_pred_log, mel2ph, txt_tokens, word_boundary, losses: D
     if hp["lambda_sent_dur"] > 0:
         sent_p = (dur_pred * nonpadding).sum(-1)
         sent_g = dur_gt.sum(-1)
-        sdur = ((torch.log(sent_p + 1.0) - torch.log(sent_g + 1.0)) ** 2).mean()
+        sdur = global_mean((torch.log(sent_p + 1.0) - torch.log(sent_g + 1.0)) ** 2)
         losses["sdur"] = sdur * hp["lambda_sent_dur"]
 
 
@@ -146,7 +156,8 @@ def add_dur_loss_sil(dur_pred_log, mel2ph, txt_tokens, is_sil, losses: Dict, hp)
         wdur = (torch.log(word_dur_p + 1.0) - torch.log(word_dur_g + 1.0)) ** 2
         losses["wdur"] = _masked_mean(wdur, (word_dur_g > 0).float()) * hp["lambda_word_dur"]
     if hp["lambda_sent_dur"] > 0:
-        sdur = ((torch.log(dur_pred.sum(-1) + 1.0) - torch.log(dur_gt.sum(-1) + 1.0)) ** 2).mean()
+        sdur = global_mean((torch.log(dur_pred.sum(-1) + 1.0)
+                            - torch.log(dur_gt.sum(-1) + 1.0)) ** 2)
         losses["sdur"] = sdur * hp["lambda_sent_dur"]
 
 
@@ -185,16 +196,16 @@ def add_pitch_loss(ret, batch, losses: Dict, hp):
         if hp["cwt_loss"] == "l1":
             # |err| with jnp.abs's gradient at 0, +1 (torch's is 0): on the padded
             # frames the head's output and the padded target are both 0
-            losses["C"] = torch.where(err >= 0, err, -err).mean() * hp["lambda_f0"]
+            losses["C"] = global_mean(torch.where(err >= 0, err, -err)) * hp["lambda_f0"]
         elif hp["cwt_loss"] == "l2":
-            losses["C"] = (err ** 2).mean() * hp["lambda_f0"]
+            losses["C"] = global_mean(err ** 2) * hp["lambda_f0"]
         else:
             raise NotImplementedError(f"cwt_loss: {hp['cwt_loss']}")
         if hp["use_uv"]:
             uv_loss = binary_cross_entropy_with_logits(ret["cwt"][:, :, -1], batch["uv"])
             losses["uv"] = _masked_mean(uv_loss, (batch["mel2ph"] != 0).float()) * hp["lambda_uv"]
-        losses["f0_mean"] = (ret["f0_mean"] - batch["f0_mean"]).abs().mean() * hp["lambda_f0"]
-        losses["f0_std"] = (ret["f0_std"] - batch["f0_std"]).abs().mean() * hp["lambda_f0"]
+        for k in ("f0_mean", "f0_std"):
+            losses[k] = global_mean((ret[k] - batch[k]).abs()) * hp["lambda_f0"]
         return
     if hp["pitch_type"] == "ph":
         nonpadding = (batch["txt_tokens"] != 0).float()

@@ -26,6 +26,10 @@ vocoder's `optax.adamw`), written for the port and held to optax's numbers:
     vocoder_task.py:86-88`): a constant rate (default 2e-4), betas 0.8 and
     0.99 by default, optax's own weight decay 1e-4 on every leaf (biases and
     weight-norm g's too), no clipping and no accumulation.
+
+Data-parallel, the optimizer runs on the gradients already summed over the
+ranks (`training/tasks.py`), so the clip, the moments and the accumulation
+are the same on every rank; the trainer checks that the ranks' states agree.
 """
 
 from __future__ import annotations

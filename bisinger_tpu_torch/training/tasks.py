@@ -28,6 +28,13 @@ the model in train mode under autograd: dropout from the generator it is
 handed, the diffusion stage's t and noise from it too, or pinned by the
 caller. No step reaches K1 or K2, as no step in the JAX package reaches a
 Pallas kernel. The GAN vocoder task is `training/vocoder_task.py`.
+
+Under data parallelism (`parallel/mesh.py`) each rank's step is its share
+of JAX's SPMD step on the global batch: its losses are partial sums of the
+global ones, so after the backward pass the gradients are summed over the
+ranks (`GradientReducer`), and the clip, Adam and the accumulation then run
+on the same gradients on every rank; the returned losses are summed over
+the ranks, so every rank reads the global values.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from bisinger_tpu_torch.models.diffnet import DiffNet
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion, OfflineGaussianDiffusion
 from bisinger_tpu_torch.models.fs2 import FastSpeech2, FastSpeech2MIDI
 from bisinger_tpu_torch.models.pe import PitchExtractor
+from bisinger_tpu_torch.parallel.mesh import GradientReducer, reduce_values
 from bisinger_tpu_torch.training import losses as L
 from bisinger_tpu_torch.training.checkpoints import load_params_into
 from bisinger_tpu_torch.training.optim import AdamW, predictor_only_frozen
@@ -146,6 +154,7 @@ class AuxDecoderMIDITask:
         self.device = resolve_device(device)
         self.model = flax_init_(self.build_model(), hp.get("seed", 1234)).to(self.device)
         self.opt = self.build_optimizer()
+        self.reduce_gradients = GradientReducer(dict(self.model.named_parameters()))
 
     def build_model(self) -> nn.Module:
         return (FastSpeech2MIDI if self.hp.get("use_midi") else FastSpeech2)(self.hp,
@@ -209,10 +218,10 @@ class AuxDecoderMIDITask:
         total = sum(losses.values())
         self.opt.zero_grad()
         total.backward()
+        self.reduce_gradients()
         grad_norm = AdamW.global_norm(self.opt.grads())
         self.opt.step()
-        out = {k: v.detach() for k, v in losses.items()}
-        out["total_loss"] = total.detach()
+        out = reduce_values({k: v.detach() for k, v in {**losses, "total_loss": total}.items()})
         out["grad_norm"] = grad_norm
         return out
 
@@ -222,7 +231,7 @@ class AuxDecoderMIDITask:
         self.model.eval()
         losses = self.compute_losses(self.forward(batch, generator, drop_f0, t, noise), batch)
         losses["total_loss"] = sum(losses.values())
-        return losses
+        return reduce_values(losses)
 
 
 class DiffSingerMIDITask(AuxDecoderMIDITask):
@@ -306,6 +315,7 @@ class PitchExtractionTask(AuxDecoderMIDITask):
                                 xavier=("mel_encoder.in_proj", "mel_encoder.out_proj")
                                 ).to(self.device)
         self.opt = self.build_optimizer()
+        self.reduce_gradients = GradientReducer(dict(self.model.named_parameters()))
 
     def forward(self, batch, generator=None, drop_f0: bool = False, t=None, noise=None):
         return self.model(batch["mels"], deterministic=not self.model.training)

@@ -110,15 +110,31 @@ and seconds (a failed phase exits non-zero):
      against the CPU. Steps/s, peak memory, losses (the CWT loss C among
      them), the served request's seconds; the log goes to
      checkpoints/chip_smoke/tts.log;
+  14. (run before 9) data-parallel training on phase 10's corpus at the
+     flagship recipe's global batch (B=48, 512 frames, device-resident):
+     two ranks over gloo sharing the card (24 rows a rank), started by
+     `torch.distributed.run` on this script (`--dp-gloo`), train the
+     diffusion stage and the PitchExtractor 10 steps each through run's
+     trainer, resume the diffusion stage to step 12 through run.main, and
+     take one fp32 step of the diffusion stage against the same step in one
+     process (tools/step_parity's bounds, the 1-process step's ReLU sides
+     pinned); then one rank under NCCL (`--dp-nccl`) trains the diffusion
+     stage, its step-1 loss within 1e-3 of phase 10's. Gates: finite
+     losses, the ranks' state digests equal after each stage, one
+     checkpoint then the resume's, the 2-rank-trained weights served at B=4,
+     T=512 through K1-bf16 and K2-bf16 (`launches_by_path["data
+     parallel"]`). Steps/s, the gradients' all-reduce ms a step and peak
+     memory per rank are reported; rank 0's logs go to
+     checkpoints/chip_smoke/dp.log and dp_nccl.log;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
-     buckets of phases 5, 8, 10, 11, 12 and 13 (the mb4 stages and the
+     buckets of phases 5, 8, 10, 11, 12, 13 and 14 (the mb4 stages and the
      plain generator's 8·8·2·2 stages among them).
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5, 8, 10, 11, 12 and 13. Without a CUDA device it exits 1 and prints
+path of phases 5, 8, 10, 11, 12, 13 and 14. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -453,7 +469,7 @@ def _grad_checks(model):
     return finite, nonzero
 
 
-def training_phase(svs, counters, by_path, dev, tmp):
+def training_phase(svs, counters, by_path, dev, tmp, record):
     """Phase 10: the acoustic training path on the card at the flagship's
     widths in bf16 (20 x 256 DiffNet, hidden 256) and its batch shape
     (16 tokens, 512 frames, 48 sentences): the port's synthetic corpus (64
@@ -462,8 +478,9 @@ def training_phase(svs, counters, by_path, dev, tmp):
     warm-started from diff_params.npz) for 20 steps each through run's
     trainer on the device-resident corpus; `--validate` and a resume to step
     22; the gates; the trained weights served through K1 and K2. Each part's
-    launch counts go into `by_path`. The corpus stays in `tmp` for phase 11.
-    Returns (ok, lines)."""
+    launch counts go into `by_path`. The corpus stays in `tmp` for phase 11;
+    `record` gets each stage's loss at step 1 (phase 14 reads the diffusion
+    stage's). Returns (ok, lines)."""
     import contextlib
 
     import numpy as np
@@ -540,6 +557,7 @@ def training_phase(svs, counters, by_path, dev, tmp):
                 losses = [m["total_loss"] for _, _, m in log]
                 stats[stage] = dict(first_s=first_s, steps_per_s=steady, mem=mem,
                                     loss1=losses[0], loss20=losses[-1])
+                record[f"{stage} loss1"] = losses[0]
                 checks[f"{stage} losses finite"] = all(np.isfinite(x) for x in losses)
                 checks[f"{stage} grads finite"] = all(g[0] for g in grads.values())
                 checks[f"{stage} encoder/DiffNet grads non-zero"] = grads[2][1]
@@ -1471,6 +1489,259 @@ def tts_phase(counters, by_path, dev, tmp, card):
     return not bad, lines
 
 
+# ---- phase 14: data parallelism ------------------------------------------------
+DP_STEPS = 10
+
+
+def _dp_train(argv, dev):
+    """One stage through run's trainer on this rank: its losses, steady
+    steps/s (the first step apart), the gradients' all-reduce ms a step, the
+    peak memory, the digest of the state every rank must hold, the saved
+    checkpoints."""
+    import numpy as np
+
+    import torch.distributed as dist
+
+    from bisinger_tpu_torch import run
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = run.trainer_from_args(run.parse_args(argv))
+    tr.fit(max_updates=DP_STEPS)
+    log = tr.train_log
+    return dict(losses=[m["total_loss"] for _, _, m in log],
+                steps_per_s=(len(log) - 1) / (log[-1][1] - log[0][1]),
+                allreduce_ms=float(np.mean([m["allreduce_ms"] for _, _, m in log[1:]])),
+                mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                digest=tr.agree("after the stage"), ckpts=tr.ckpt.steps(),
+                world=dist.get_world_size(), backend=str(dist.get_backend()))
+
+
+def _dp_fp32_step(spec, dev):
+    """The fp32 step of `spec` on this rank's rows (t and noise at the global
+    shape, each ReLU pinned to the side the 1-process step took), as it falls
+    too; rank 0 holds both against the 1-process step with tools/step_parity's
+    bounds. Returns (ok, text, digest): ok and text on rank 0 (None on the
+    others), the digest of the step's parameters, checked equal on every rank."""
+    import numpy as np
+
+    from bisinger_tpu_torch.config import load_hparams_json
+    from bisinger_tpu_torch.parallel import mesh as dp
+    from bisinger_tpu_torch.tools.step_parity import Kinks, Step, _task_step, compare
+    from bisinger_tpu_torch.training.tasks import DiffSingerMIDITask
+    from bisinger_tpu_torch.weights import load_npz
+
+    hp = load_hparams_json(spec["hp"])
+    params = load_npz(spec["params"])
+    n, r = 4 // dp.world_size(), dp.rank()
+    data = dict(np.load(spec["batch"]))
+    rows = {k: v[r * n:(r + 1) * n] for k, v in data.items()}
+    pins = {k: torch.as_tensor(v) for k, v in np.load(spec["pins"]).items()}
+    kinks = Kinks()
+    kinks.sides = [side[r * n:(r + 1) * n] for side in torch.load(spec["kinks"])]
+    make = lambda d: DiffSingerMIDITask(hp, spec["vocab"], device=d)  # noqa: E731
+    pinned = _task_step(make, params, rows, pins, dev, False, kinks.pin())
+    raw = _task_step(make, params, rows, pins, dev, False)
+    digest = dp.check_identical([torch.as_tensor(v) for v in pinned.params[0].values()],
+                                "fp32 step")
+    if r != 0:
+        return None, None, digest
+    one = np.load(spec["one"])
+    step = lambda part: {k[len(part) + 1:]: one[k] for k in one.files  # noqa: E731
+                         if k.startswith(part + "/")}
+    ref = Step({k: float(v) for k, v in step("loss").items()}, [step("grad")],
+               [step("param")], float(one["lr"]), float(one["max_norm"]))
+    ok, text = compare(pinned, ref, kinks, raw)
+    return ok, text, digest
+
+
+def dp_ranks(tmp: str, nccl: bool) -> int:
+    """Phase 14's ranks, one process each, started by torchrun. Over gloo,
+    two ranks sharing the card: the diffusion stage and the PitchExtractor,
+    DP_STEPS each, through run's trainer on phase 10's corpus; a resume of
+    the diffusion stage through run.main; the fp32 step of dp_fp32.json.
+    Over NCCL, one rank: the diffusion stage. Each rank writes its results
+    to tmp/dp[_nccl]_rank<R>.json; rank 0's trainer log goes to
+    checkpoints/chip_smoke/dp[_nccl].log."""
+    import contextlib
+
+    from bisinger_tpu_torch import full_fp32, run
+    from bisinger_tpu_torch.parallel import mesh as dp
+    from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+
+    full_fp32()
+    tag = "dp_nccl" if nccl else "dp"
+    log_fn = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints",
+                          "chip_smoke", f"{tag}.log")
+    os.chdir(tmp)
+    dev = dp.init_data_parallel(None if nccl else "cuda:0", None if nccl else "gloo")
+    shared = [] if nccl else ["--device", "cuda:0", "--dist_backend", "gloo"]
+    out = {}
+    try:
+        with open(log_fn if dp.is_main() else os.devnull, "w") as logf, \
+                contextlib.redirect_stdout(logf):
+            for label, cfg in (("diffusion", "diff.json"),) + (() if nccl else (("pe",
+                                                                                  "pe.json"),)):
+                out[label] = _dp_train(["--config", cfg, "--exp_name", f"{tag}_{label}",
+                                        "--max_updates", str(DP_STEPS)] + shared, dev)
+            if not nccl:
+                rc = run.main(["--exp_name", f"{tag}_diffusion", "--max_updates",
+                               str(DP_STEPS + 2)] + shared)
+                out["resume"] = dict(rc=rc, ckpts=CheckpointManager(os.path.join(
+                    "checkpoints", f"{tag}_diffusion", "ckpt")).steps())
+                with open("dp_fp32.json") as f:
+                    ok, text, digest = _dp_fp32_step(json.load(f), dev)
+                out["fp32"] = dict(ok=ok, text=text, digest=digest)
+        with open(f"{tag}_rank{dp.rank()}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dp.shutdown()
+    return 0
+
+
+def dp_phase(svs, counters, by_path, dev, tmp, record):
+    """Phase 14: data-parallel training on the card, on phase 10's corpus at
+    the flagship recipe's global batch (B=48, 512 frames, device-resident):
+    two ranks over gloo sharing the card (24 rows a rank), started by
+    torchrun, train the diffusion stage (fs2 warm-started from
+    diff_params.npz) and the PitchExtractor DP_STEPS steps each through run's
+    trainer, resume the diffusion stage to DP_STEPS + 2 through run.main, and
+    take one fp32 step of the diffusion stage (4 x 64 frames, halves of
+    unequal valid frames) held against the same step in this process; then
+    one rank under NCCL (torchrun --nproc_per_node 1) trains the diffusion
+    stage, whose step-1 loss must equal phase 10's (the same seed, weights
+    and batch) within 1e-3 of its value (a bf16 forward). Gates: finite
+    losses; the ranks' digests of the whole state equal after each stage; the
+    fp32 step within tools/step_parity's bounds; one checkpoint after
+    DP_STEPS, then the resume's; the 2-rank-trained diffusion weights served
+    at B=4, T=512 through K1-bf16 and K2-bf16 (`launches_by_path["data
+    parallel"]`; phase 9 checks any new shape). Returns (ok, lines)."""
+    import numpy as np
+
+    from bisinger_tpu_torch.config import make_hparams
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
+    from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+    from bisinger_tpu_torch.tools.step_parity import Kinks, _task_step
+    from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+    from bisinger_tpu_torch.training.tasks import DiffSingerMIDITask
+    from bisinger_tpu_torch.weights import load_flax_params, load_npz
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    lines, checks = [], {}
+    reset, read = launch_counts(counters, by_path)
+
+    # ---- the fp32 step in this process, its ReLU sides recorded ----
+    params_fn = os.path.join(FLAGSHIP_DIR, "diff_params.npz")
+    vocab = int(load_npz(params_fn)["fs2/token_embed/embed/embedding"].shape[0])
+    hp32 = make_hparams(dict(svs.hp, compute_dtype="float32", dropout=0.0,
+                             predictor_dropout=0.0))
+    b = make_batch(4, 16, 64, vocab, seed=5)
+    r = np.random.RandomState(5)
+    b.update(mels=(r.randn(4, 64, 80) * 0.5 - 3).astype(np.float32),
+             word_boundary=r.randint(0, 2, (4, 16)))
+    for i, pad in enumerate((0, 4, 13, 21)):  # the halves' valid frames differ
+        b["mel2ph"][i, 56 - pad:] = 0
+    b["mels"][b["mel2ph"] == 0] = 0.0
+    g = torch.Generator().manual_seed(5)
+    pins = dict(t=torch.randint(0, hp32["K_step"], (4,), generator=g),
+                noise=torch.randn((4, 64, 80), generator=g))
+    kinks = Kinks()
+    one = _task_step(lambda d: DiffSingerMIDITask(hp32, vocab, device=d), load_npz(params_fn),
+                     b, pins, dev, False, kinks.record())
+    np.savez(os.path.join(tmp, "dp_one.npz"), lr=one.lr, max_norm=one.max_norm,
+             **{f"loss/{k}": v for k, v in one.losses.items()},
+             **{f"grad/{k}": v for k, v in one.grads[0].items()},
+             **{f"param/{k}": v for k, v in one.params[0].items()})
+    np.savez(os.path.join(tmp, "dp_batch.npz"), **b)
+    np.savez(os.path.join(tmp, "dp_pins.npz"), **{k: v.numpy() for k, v in pins.items()})
+    torch.save(kinks.sides, os.path.join(tmp, "dp_kinks.pt"))
+    with open(os.path.join(tmp, "dp_hp32.json"), "w") as f:
+        json.dump(hp32, f)
+    with open(os.path.join(tmp, "dp_fp32.json"), "w") as f:
+        json.dump(dict(hp=os.path.join(tmp, "dp_hp32.json"), params=params_fn, vocab=vocab,
+                       batch=os.path.join(tmp, "dp_batch.npz"),
+                       pins=os.path.join(tmp, "dp_pins.npz"),
+                       kinks=os.path.join(tmp, "dp_kinks.pt"),
+                       one=os.path.join(tmp, "dp_one.npz")), f)
+    del one
+
+    # ---- the ranks: 2 over gloo on the card, then 1 under NCCL ----
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    results, secs = {}, {}
+    for tag, n, flag in (("dp", 2, "--dp-gloo"), ("dp_nccl", 1, "--dp-nccl")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", str(n), os.path.join(repo, "chip_smoke.py"),
+                               flag, tmp], env=env, capture_output=True, text=True,
+                              timeout=240)
+        secs[tag] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            return False, [f"{tag} ranks failed (rc {proc.returncode}): "
+                           f"{(proc.stdout + proc.stderr)[-3000:]}"]
+        results[tag] = []
+        for i in range(n):
+            with open(os.path.join(tmp, f"{tag}_rank{i}.json")) as f:
+                results[tag].append(json.load(f))
+    two, (nccl,) = results["dp"], results["dp_nccl"]
+    for label in ("diffusion", "pe"):
+        a, c = two[0][label], two[1][label]
+        checks[f"2 ranks {label}: losses finite"] = all(np.isfinite(a["losses"]))
+        checks[f"2 ranks {label}: digests equal"] = a["digest"] == c["digest"]
+        checks[f"2 ranks {label}: {DP_STEPS} steps, one checkpoint"] = (
+            len(a["losses"]) == DP_STEPS and a["ckpts"] == [DP_STEPS])
+        lines.append(
+            f"{label}, 2 ranks over gloo sharing the card (global B=48, 24 rows a rank, bf16): "
+            f"{a['steps_per_s']:.2f} steps/s (first step apart), gradient all-reduce "
+            f"{a['allreduce_ms']:.1f} ms a step, peak memory {a['mem_gib']:.2f} / "
+            f"{c['mem_gib']:.2f} GiB (rank 0 / 1), loss step 1 {a['losses'][0]:.4f}, step "
+            f"{DP_STEPS} {a['losses'][-1]:.4f}, state digest {a['digest'][:12]} on both ranks")
+    res = two[0]["resume"]
+    checks["2-rank resume to step 12"] = (res["rc"] == 0 and two[1]["resume"]["rc"] == 0
+                                          and res["ckpts"] == [DP_STEPS, DP_STEPS + 2])
+    checks["fp32 step, 2 ranks vs 1"] = bool(two[0]["fp32"]["ok"])
+    checks["fp32 step: digests equal"] = two[0]["fp32"]["digest"] == two[1]["fp32"]["digest"]
+    lines.append(f"resume through run.main: checkpoints {res['ckpts']}; fp32 step on 2 ranks "
+                 f"(4 x 16 tokens x 64 frames, valid frames 56/52/43/35) against 1 process, "
+                 f"the 2-rank step with the 1-process step's ReLU sides pinned: "
+                 f"{two[0]['fp32']['text']}")
+    d = nccl["diffusion"]
+    ref1 = record["diff loss1"]
+    checks["NCCL: losses finite"] = all(np.isfinite(d["losses"]))
+    checks["NCCL: step-1 loss equals phase 10's"] = (
+        abs(d["losses"][0] - ref1) <= 1e-3 * abs(ref1))
+    checks["NCCL: world size 1, nccl"] = d["world"] == 1 and "nccl" in d["backend"]
+    lines.append(f"diffusion, 1 rank under NCCL ({d['backend']}): {d['steps_per_s']:.2f} "
+                 f"steps/s, gradient all-reduce {d['allreduce_ms']:.2f} ms a step, peak "
+                 f"{d['mem_gib']:.2f} GiB, loss step 1 {d['losses'][0]:.6f} (phase 10 "
+                 f"{ref1:.6f}, {abs(d['losses'][0] - ref1) / abs(ref1):.2e} of it)")
+    lines.append("launches (torchrun, imports and set-up included): " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items()))
+
+    # ---- serve what the 2 ranks trained ----
+    ckpt = CheckpointManager(os.path.join(tmp, "checkpoints", "dp_diffusion", "ckpt"))
+    flat = load_npz(os.path.join(ckpt.directory, str(ckpt.latest_step()), "params.npz"))
+    model = GaussianDiffusion(svs.hp, vocab, svs.hp["audio_num_mel_bins"])
+    load_flax_params(model, flat)
+    served = SVSInferTorch(svs.hp, model, svs.pe, svs.vocoder, dev)
+    reset()
+    t0 = time.perf_counter()
+    out = served.synthesize(make_batch(4, 16, 512, vocab, seed=9),
+                            generator=torch.Generator(device=dev).manual_seed(9))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read("data parallel")
+    wav = out["wav"]
+    checks["2-rank weights served: audio finite"] = bool(torch.isfinite(wav).all()) and \
+        tuple(wav.shape) == (4, 512 * 128)
+    checks["2-rank weights served: K1-bf16 and K2-bf16 launched"] = (
+        counts["fused_residual_stack_bf16"] > 0 and counts["fused_mrf_stage_bf16"] > 0)
+    lines.append(f"2-rank-trained diffusion weights (step {ckpt.latest_step()}) served at B=4, "
+                 f"T=512: wav {tuple(wav.shape)}, |wav| max {float(wav.abs().max()):.3f}, "
+                 f"{secs:.2f} s, launches {counts}")
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1875,9 +2146,10 @@ def main() -> int:
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    record = {}  # phase 10's step-1 losses, for phase 14
     try:
         with Phase("10 training") as ph:
-            ok, lines = training_phase(svs, counters, by_path, dev, tmp)
+            ok, lines = training_phase(svs, counters, by_path, dev, tmp, record)
             ph.done(" | ".join(lines))
             if not ok:
                 return 1
@@ -1893,6 +2165,11 @@ def main() -> int:
                 return 1
         with Phase("13 TTS: DiffSpeech from the LJSpeech configs") as ph:
             ok, lines = tts_phase(counters, by_path, dev, tmp, smi)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+        with Phase("14 data parallel") as ph:
+            ok, lines = dp_phase(svs, counters, by_path, dev, tmp, record)
             ph.done(" | ".join(lines))
             if not ok:
                 return 1
@@ -1964,4 +2241,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] in ("--dp-gloo", "--dp-nccl"):
+        sys.exit(dp_ranks(sys.argv[2], nccl=sys.argv[1] == "--dp-nccl"))
     sys.exit(main())

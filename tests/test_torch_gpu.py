@@ -584,3 +584,48 @@ def test_popcs_bf16_synthesis_launches_k1_and_k2(cuda):
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [0, 52, 0, 4]
     assert np.isfinite(wav).all() and len(wav) % 128 == 0 and len(wav) > 0
+
+
+_DP_PROBE = """
+import sys
+import torch
+import torch.distributed as dist
+from bisinger_tpu_torch.parallel import mesh as dp
+try:
+    dev = dp.init_data_parallel("cuda:0", sys.argv[1], sys.argv[2])
+except RuntimeError as e:
+    print("REFUSED", e)
+    sys.exit(3)
+t = torch.full((3,), float(dp.rank() + 1), device=dev)
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print("SUM", t.tolist(), dist.get_backend())
+dp.shutdown()
+"""
+
+
+def test_nccl_group_at_world_size_one_and_on_a_shared_card(cuda, tmp_path):
+    """Data parallelism over NCCL on the card: a group of one rank forms on
+    cuda:0 and all-reduces there; two ranks that ask NCCL for the one card
+    both raise before any NCCL call, naming the device, and leave; gloo
+    lets them share it."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def ranks(world, backend, tag):
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _DP_PROBE, backend, f"file://{tmp_path / tag}"],
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                     PYTHONPATH=repo), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(world)]
+        return [(p.communicate(timeout=300)[0], p.returncode) for p in procs]
+
+    ((out, rc),) = ranks(1, "nccl", "one")
+    assert rc == 0 and "SUM [1.0, 1.0, 1.0]" in out and "nccl" in out, out[-2000:]
+    for out, rc in ranks(2, "nccl", "shared"):
+        assert rc == 3 and "share the device cuda:0" in out, out[-2000:]
+    for out, rc in ranks(2, "gloo", "gloo"):
+        assert rc == 0 and "SUM [3.0, 3.0, 3.0]" in out, out[-2000:]
