@@ -12,18 +12,26 @@ carry a frame map `mel2ph`. `items_to_batch` pads items into one batch at
 the configured buckets, and `synthesize` runs
 
     FastSpeech2MIDI or FastSpeech2 (`use_midi`) -> diffusion sampler
-    (DiffNet through K1) -> mel -> f0 -> HiFi-GAN (MRF stages through
-    K2) -> wav,
+    (DiffNet through K1) -> mel -> f0 -> vocoder -> wav.
 
-through PQMF synthesis when the vocoder is multiband (`vocoder_multiband`).
-The f0 is the PitchExtractor's when the pipeline has one (the flagship's;
-a work dir's with `pe_enable`), else the acoustic model's own `f0_denorm`
-(a pitch-conditioned FastSpeech2's: frame, phone or CWT pitch), else zeros
-(`bisinger_tpu/inference/pipeline.py:253-259`). The vocoder is handed the
-f0 only when it was built with `use_nsf`, from its own hyperparameters
-(`pipeline.py:248-268`); the plain HiFi-GAN of the TTS configs takes none.
+The vocoder is the class the vocoder's own hyperparameters name
+(`vocoder`, through `vocoders/base_vocoder.get_vocoder_cls`): a HiFi-GAN
+(ResBlock1 stages through K2, ResBlock2 stages as layers; PQMF synthesis
+when multiband, `vocoder_multiband`) or a Parallel WaveGAN (noise z of
+T * hop samples drawn from the call's generator, no f0). The f0 is the
+PitchExtractor's when the pipeline has one (the flagship's; a work dir's
+with `pe_enable`), else the acoustic model's own `f0_denorm` (a
+pitch-conditioned FastSpeech2's: frame, phone or CWT pitch), else zeros
+(`bisinger_tpu/inference/pipeline.py:253-259`). A HiFi-GAN is handed the
+f0 only when it was built with `use_nsf` (`pipeline.py:248-268`); the plain
+HiFi-GAN of the TTS configs takes none.
 
-The score entry points trim each waveform to its filled frames.
+The score entry points trim each waveform to its filled frames; with the
+vocoder's `use_denoise` each waveform of the batch is first denoised on the
+host (`BaseVocoder.postprocess`), as JAX's `spec2wav_batch` does. The
+JAX package's fused path cannot serve a PWG, and its `run --infer` builds a
+HiFi-GAN whatever `vocoder` says; the port serves the class named
+(ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -41,12 +49,10 @@ from bisinger_tpu_torch import resolve_device
 from bisinger_tpu_torch.config import load_hparams_json
 from bisinger_tpu_torch.data.text.frontend import BilingualFrontend
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
-from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
 from bisinger_tpu_torch.models.pe import PitchExtractor
-from bisinger_tpu_torch.models.pqmf import pqmf_from_hparams
 from bisinger_tpu_torch.utils.audio import save_wav
 from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder, build_phone_encoder
-from bisinger_tpu_torch.vocoders.hifigan import latest_generator
+from bisinger_tpu_torch.vocoders.base_vocoder import as_vocoder, get_vocoder_cls, latest_generator
 from bisinger_tpu_torch.weights import load_flax_params, load_npz
 
 FLAGSHIP_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -87,9 +93,10 @@ def pick_bucket(n: int, buckets) -> int:
 
 def _pe_and_vocoder(ckpt_dir: str, hp: dict, with_pe: bool = True):
     """The PitchExtractor (pe_params.npz + pe_batch_stats.npz; None unless
-    `with_pe`) and the generator of the highest step among
-    vocoder/**/generator_*.npz of a trained run's directory
-    (vocoder_mb<n>/** for an n-band vocoder, as bench.py reads them)."""
+    `with_pe`) and the generator module of the class `hp["vocoder"]` names,
+    loaded from the highest step among vocoder/**/generator_*.npz of a
+    trained run's directory (vocoder_mb<n>/** for an n-band vocoder, as
+    bench.py reads them)."""
     pe = None
     if with_pe:
         stats_fn = os.path.join(ckpt_dir, "pe_batch_stats.npz")
@@ -104,7 +111,7 @@ def _pe_and_vocoder(ckpt_dir: str, hp: dict, with_pe: bool = True):
     path = latest_generator(os.path.join(ckpt_dir, sub), recursive=True)
     if path is None:
         raise FileNotFoundError(f"no {sub}/**/generator_*.npz under {ckpt_dir}")
-    vocoder = HifiGanGenerator(hp)
+    vocoder = get_vocoder_cls(hp).MODEL(hp)
     load_flax_params(vocoder, load_npz(path))
     return pe, vocoder
 
@@ -112,18 +119,19 @@ def _pe_and_vocoder(ckpt_dir: str, hp: dict, with_pe: bool = True):
 class SVSInferTorch:
     """The flagship's inference path on one device. Build it with
     `from_checkpoint` (the flagship's files) or from modules; the score
-    entry points need a phone `encoder` (and take a speaker map)."""
+    entry points need a phone `encoder` (and take a speaker map). `vocoder`
+    is a generator module (wrapped by its registered class, with `voc_hp`,
+    default `hp`) or a wrapper (`vocoders/base_vocoder.py`); `self.vocoder`
+    is its module, `self.voc` the wrapper."""
 
     def __init__(self, hp: dict, model: GaussianDiffusion, pe: Optional[PitchExtractor],
-                 vocoder: HifiGanGenerator, device=None,
-                 encoder: Optional[TokenTextEncoder] = None,
-                 spk_map: Optional[Dict[str, int]] = None):
+                 vocoder, device=None, encoder: Optional[TokenTextEncoder] = None,
+                 spk_map: Optional[Dict[str, int]] = None, voc_hp: Optional[dict] = None):
         self.device = resolve_device(device)
         self.hp = hp
         self.model = model.to(self.device).eval()
         self.pe = None if pe is None else pe.to(self.device).eval()
-        self.vocoder = vocoder.to(self.device).eval()
-        self.pqmf = pqmf_from_hparams(hp)  # a multiband vocoder's synthesis
+        self.voc = as_vocoder(vocoder, voc_hp or hp, self.device)
         self.spk_map = dict(spk_map or {})
         self.frontend = None if encoder is None else BilingualFrontend(
             encoder, phone_subst=hp.get("en_phone_subst"))
@@ -190,7 +198,16 @@ class SVSInferTorch:
         load_flax_params(model, restored["params"])
         assets_hp = load_hparams_json(os.path.join(assets_dir, "hparams_diff.json"))
         pe, vocoder = _pe_and_vocoder(assets_dir, assets_hp, with_pe=bool(hp.get("pe_enable")))
-        return cls(hp, model, pe, vocoder, device, encoder=encoder, spk_map=spk_map)
+        return cls(hp, model, pe, vocoder, device, encoder=encoder, spk_map=spk_map,
+                   voc_hp=assets_hp)
+
+    @property
+    def vocoder(self):
+        return self.voc.model
+
+    @vocoder.setter
+    def vocoder(self, module):
+        self.voc = self.voc.with_model(module)
 
     @property
     def vocab_size(self) -> int:
@@ -255,10 +272,11 @@ class SVSInferTorch:
     @torch.no_grad()
     def synthesize(self, batch: Dict[str, Any], start_noise=None, nsf_phase=None,
                    nsf_noise=None, generator: Optional[torch.Generator] = None,
-                   step_noise=None) -> Dict[str, torch.Tensor]:
+                   step_noise=None, pwg_z=None) -> Dict[str, torch.Tensor]:
         """One batch -> {"wav" [B, T*hop], "mel" [B, T, 80], "f0" [B, T],
-        "mel2ph" [B, T]}. Random draws (diffusion start, DDPM's steps, NSF
-        phase and noise) come from `generator` unless given."""
+        "mel2ph" [B, T]}, the vocoder's output before any post-denoising.
+        Random draws (diffusion start, DDPM's steps, NSF phase and noise, a
+        PWG's z) come from `generator` unless given."""
         dev = self.device
         as_t = lambda k: torch.as_tensor(batch[k], device=dev)  # noqa: E731
         mel2ph = batch.get("mel2ph")
@@ -277,10 +295,7 @@ class SVSInferTorch:
             f0 = ret["f0_denorm"]
         else:  # the NSF source runs unvoiced
             f0 = torch.zeros(mel.shape[:2], device=dev)
-        wav = self.vocoder(mel, f0 if self.vocoder.use_nsf else None, phase=nsf_phase,
-                           noise=nsf_noise, generator=generator)
-        if self.pqmf is not None:
-            wav = self.pqmf.synthesis(wav)
+        wav = self.voc.generate(mel, f0, generator, phase=nsf_phase, noise=nsf_noise, z=pwg_z)
         return {"wav": wav, "mel": mel, "f0": f0, "mel2ph": ret["mel2ph"]}
 
     # ---- score entry points ------------------------------------------------
@@ -293,16 +308,17 @@ class SVSInferTorch:
     def infer_batch(self, inputs: List[Dict[str, Any]],
                     generator: Optional[torch.Generator] = None, **pins) -> List[np.ndarray]:
         """Several scores in one batch -> one float32 waveform each, trimmed
-        to its filled frames x hop. Without a generator the draws come from
-        one seeded with 0, so a request repeated gives the same audio;
-        `pins` (start_noise, step_noise, nsf_phase, nsf_noise) fix them at
+        to its filled frames x hop (after the vocoder's post-denoising, on
+        the padded batch). Without a generator the draws come from one
+        seeded with 0, so a request repeated gives the same audio; `pins`
+        (start_noise, step_noise, nsf_phase, nsf_noise, pwg_z) fix them at
         the padded batch's shapes."""
         items = self.score_items(inputs)
         batch = self.items_to_batch(items)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         out = self.synthesize(batch, generator=generator, **pins)
-        wavs = out["wav"].float().cpu().numpy()  # one host fetch for the batch
+        wavs = self.voc.postprocess(out["wav"].float().cpu().numpy())  # one host fetch
         mel2ph = out["mel2ph"].cpu().numpy()
         filled = (mel2ph > 0).sum(axis=1)
         t_mel = mel2ph.shape[1]

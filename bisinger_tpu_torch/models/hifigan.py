@@ -25,6 +25,9 @@ residual state fp32, the mean over the blocks fp32. As
 `bisinger_tpu/models/hifigan.py:263-400`, conv_pre, the upsample and
 noise convs compute in `compute_dtype`, the noise LayerNorm in fp32 (so
 the stage input is fp32 again); the NSF source and conv_post are fp32.
+With `resblock: '2'` the stages hold `ResBlock2`s (one dilated conv a
+dilation), which run as layers in both modes: K2 fuses ResBlock1 only, as
+the TPU kernel does.
 
 Discriminators (`:416-533`), fp32 as in flax: `MultiPeriodDiscriminator`
 (periods 2, 3, 5, 7, 11, 2-D convs over [T / p, p]) and
@@ -139,6 +142,25 @@ class ResBlock1(nn.Module):
         return x
 
 
+class ResBlock2(nn.Module):
+    """The lighter MRF block: per dilation lrelu -> dilated conv_i, added to
+    the state (`hifigan.py:222-244`). It runs as these layers in eval mode
+    too: the JAX package runs K2 for ResBlock1 stages only (`:366-367`)."""
+
+    def __init__(self, channels: int, kernel_size: int, dilations: Sequence[int],
+                 dtype=torch.float32):
+        super().__init__()
+        self.dilations = list(dilations)
+        for i, d in enumerate(dilations):
+            self.add_module(f"conv_{i}", Conv(channels, channels, kernel_size, dilation=d,
+                                              dtype=dtype))
+
+    def forward(self, x):
+        for i in range(len(self.dilations)):
+            x = x + getattr(self, f"conv_{i}")(leaky_relu(x, LRELU_SLOPE))
+        return x
+
+
 class HifiGanGenerator(nn.Module):
     """mel [B, T, 80], f0 [B, T] (None without `use_nsf`) -> waveform
     [B, T * hop], or n subbands [B, T * hop / n, n] with `vocoder_multiband`
@@ -146,10 +168,8 @@ class HifiGanGenerator(nn.Module):
 
     def __init__(self, hp: dict, n_mels: int = 80):
         super().__init__()
-        if str(hp.get("resblock", "1")) != "1":
-            raise NotImplementedError("the port's MRF runs ResBlock1")
-        if hp.get("use_denoise"):
-            raise NotImplementedError("use_denoise (post-denoising) is not ported")
+        self.resblock1 = str(hp.get("resblock", "1")) == "1"
+        block = ResBlock1 if self.resblock1 else ResBlock2
         self.rates = list(hp["upsample_rates"])
         self.rk = list(hp["resblock_kernel_sizes"])
         self.rd = [list(d) for d in hp["resblock_dilation_sizes"]]
@@ -172,7 +192,7 @@ class HifiGanGenerator(nn.Module):
                                 else Conv(1, c, 1, dtype=dt))
                 self.add_module(f"noise_norm_{i}", nn.LayerNorm(c, eps=1e-6))
             for j, (kj, dj) in enumerate(zip(self.rk, self.rd)):
-                self.add_module(f"res_{i}_{j}", ResBlock1(c, kj, dj, dtype=dt))
+                self.add_module(f"res_{i}_{j}", block(c, kj, dj, dtype=dt))
             c_prev = c
         self.conv_post = Conv(c_prev, n, 7)
 
@@ -190,8 +210,9 @@ class HifiGanGenerator(nn.Module):
         return (y + up.bias.to(dt)[:, None]).transpose(1, 2)
 
     def mrf(self, i: int, x):
-        """MRF stage i: K2 in eval mode, the ResBlock1 layers in train mode."""
-        if self.training:
+        """MRF stage i: K2 in eval mode, the blocks' layers in train mode and
+        for ResBlock2 stages."""
+        if self.training or not self.resblock1:
             blocks = [getattr(self, f"res_{i}_{j}") for j in range(len(self.rk))]
             out = blocks[0](x)
             for blk in blocks[1:]:

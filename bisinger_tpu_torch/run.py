@@ -29,8 +29,11 @@ defaults < --config < the work dir's saved config.json (unless --reset) <
 --hparams. The task is `task_cls` and the binarizer `binarizer_cls`: the
 reference's dotted names, the JAX package's or the port's
 (`training.tasks.task_class`, `data.binarizer.binarizer_class`); the
-diffusion stage and the BiSinger binarizer by default. Every action
-runs on the card unless `--device cpu` asks for the CPU.
+diffusion stage and the BiSinger binarizer by default. `--infer` serves
+through the vocoder class the vocoder's config names (`vocoder`: the
+HiFi-GAN or a PWG, `vocoders/base_vocoder.py`), where the JAX package's
+`run --infer` always builds a HiFi-GAN. Every action runs on the card
+unless `--device cpu` asks for the CPU.
 
 Under torchrun's environment (RANK, WORLD_SIZE, ...) training and
 `--validate` run data-parallel (`parallel/mesh.py`), each rank on

@@ -26,6 +26,7 @@ vocoder's `optax.adamw`), written for the port and held to optax's numbers:
     vocoder_task.py:86-88`): a constant rate (default 2e-4), betas 0.8 and
     0.99 by default, optax's own weight decay 1e-4 on every leaf (biases and
     weight-norm g's too), no clipping and no accumulation.
+  - `RAdam`: the JAX package's `radam` (Rectified Adam), wired into no task.
 
 Data-parallel, the optimizer runs on the gradients already summed over the
 ranks (`training/tasks.py`), so the clip, the moments and the accumulation
@@ -240,6 +241,60 @@ class AdamW:
         for part in ("mu", "nu", "acc"):
             for k, v in (getattr(self, part) or {}).items():
                 v.copy_(torch.as_tensor(state[f"{part}/{k}"]))
+
+
+class RAdam:
+    """Rectified Adam (`bisinger_tpu/training/optim.py:171-222`, the
+    reference's optimizer of the PWG recipe), over named parameters, from
+    their .grad: Adam's moments; while the rectification term is undefined
+    (rho_t <= 4, the first steps) the update is the bias-corrected first
+    moment alone, after it rect * m_hat / (sqrt(v / (1 - b2^t)) + eps), the
+    rectification's radicand clipped at 0 and its denominator floored at
+    1e-8. The step's scalars are fp32, as JAX's; the rate is read at the
+    count of updates including this one. No task uses it, as none does in
+    the JAX package."""
+
+    def __init__(self, params: Dict[str, torch.nn.Parameter], learning_rate, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0):
+        self.params = dict(params)
+        self.lr_fn = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.count = 0
+        self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+
+    def zero_grad(self):
+        for p in self.params.values():
+            p.grad = None
+
+    def scalars(self, count: int):
+        """(use the adapted step, rect, 1 - b1^t, 1 - b2^t) at step `count`, fp32."""
+        t, b1, b2 = F32(count), F32(self.b1), F32(self.b2)
+        beta2_t = b2 ** t
+        rho_inf = F32(2.0 / (1.0 - self.b2) - 1.0)
+        rho_t = rho_inf - F32(2.0) * t * beta2_t / (F32(1.0) - beta2_t)
+        ratio = (rho_t - F32(4.0)) * (rho_t - F32(2.0)) * rho_inf / max(
+            (rho_inf - F32(4.0)) * (rho_inf - F32(2.0)) * rho_t, F32(1e-8))
+        rect = np.sqrt(max(ratio, F32(0.0)))
+        return bool(rho_t > 4.0), float(rect), float(F32(1.0) - b1 ** t), \
+            float(F32(1.0) - beta2_t)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        count = self.count + 1
+        adapt, rect, bc1, bc2 = self.scalars(count)
+        lr = float(self.lr_fn(count))
+        for k, p in self.params.items():
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            m = self.mu[k].mul_(self.b1).add_((1 - self.b1) * g)
+            v = self.nu[k].mul_(self.b2).add_((1 - self.b2) * g * g)
+            upd = m / bc1
+            if adapt:
+                upd = rect * upd / (torch.sqrt(v / bc2) + self.eps)
+            if self.weight_decay:
+                upd = upd + self.weight_decay * p
+            p.add_(-lr * upd)
+        self.count = count
 
 
 def predictor_only_frozen(params: Dict[str, torch.nn.Parameter]) -> Set[str]:

@@ -48,6 +48,19 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
+def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested flax tree (dicts of arrays) -> the flat "/"-joined dict that
+    `load_flax_params` takes."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten_tree(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
 def torch_key(flax_key: str) -> tuple:
     """"a/b/kernel" -> ("a.b", "weight")."""
     *path, leaf = flax_key.split("/")

@@ -126,15 +126,33 @@ and seconds (a failed phase exits non-zero):
      parallel"]`). Steps/s, the gradients' all-reduce ms a step and peak
      memory per rank are reported; rank 0's logs go to
      checkpoints/chip_smoke/dp.log and dp_nccl.log;
+  15. (run before 9) the rest of the vocoder family: (a) a Parallel
+     WaveGAN at configs/tts/pwg.yaml's widths (30 layers, 3 stacks,
+     64/128/64 channels) at the flagship's hop of 128, written from a seed
+     as the reference lays out its checkpoint (torch.save, weight norm),
+     imported by vocoders/torch_import into an assets dir whose config names
+     the PWG, and served behind diff_params.npz and the PE at B=4, T=512
+     (201 K1-bf16 launches, no K2: `launches_by_path["pwg served"]`); its
+     forward in fp32 on the card against the CPU on 32 frames; (b) a
+     HiFi-GAN with ResBlock2 (512 channels) trained through
+     tools/train_vocoder for 20 steps at B=8, 64 frames, and one fp32 GAN
+     step (128 channels) on the card against the CPU; (c) the flagship cascade with
+     use_denoise on a score (201 K1-bf16, 4 K2-bf16:
+     `launches_by_path["denoised"]`), its waveform finite and off the
+     undenoised one; (d) MelGAN's generator (512 channels, scales 8·4·2·2,
+     imported the same way), its multi-scale discriminator and both PWG
+     discriminators in fp32 on the card against the CPU (relative max
+     1e-4). Each part's seconds are reported; the trainer's log goes to
+     checkpoints/chip_smoke/vocoders.log;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
-     buckets of phases 5, 8, 10, 11, 12, 13 and 14 (the mb4 stages and the
+     buckets of phases 5, 8, 10-15 (the mb4 stages and the
      plain generator's 8·8·2·2 stages among them).
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5, 8, 10, 11, 12, 13 and 14. Without a CUDA device it exits 1 and prints
+path of phases 5, 8 and 10-15. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -1742,6 +1760,291 @@ def dp_phase(svs, counters, by_path, dev, tmp, record):
     return not bad, lines
 
 
+# ---- phase 15: the rest of the vocoder family ----------------------------------
+def _wn_pair(sd, name, w, bias=None):
+    """`w` under `name` as the reference's weight norm holds it: (weight_g,
+    weight_v), v a scaled copy (torch.nn.utils.weight_norm, dim 0)."""
+    w = w.detach().float().cpu()
+    sd[name + ".weight_v"] = w * 1.5
+    sd[name + ".weight_g"] = torch.linalg.vector_norm(w, dim=tuple(range(1, w.dim())),
+                                                      keepdim=True)
+    if bias is not None:
+        sd[name + ".bias"] = bias.detach().float().cpu()
+
+
+def reference_pwg_state_dict(gen):
+    """A port ParallelWaveGANGenerator in the reference's layout
+    (`modules/parallel_wavegan/models/parallel_wavegan.py`, weight norm on
+    every conv): the state dict `vocoders/torch_import.py` reads."""
+    sd = {}
+    for ours, theirs in (("first_conv", "first_conv"), ("post_conv_1", "last_conv_layers.1"),
+                         ("post_conv_2", "last_conv_layers.3"),
+                         ("upsample_net.conv_in", "upsample_net.conv_in")):
+        conv = gen.get_submodule(ours)
+        _wn_pair(sd, theirs, conv.weight, conv.bias)
+    for i in range(len(gen.scales)):
+        k = getattr(gen.upsample_net.upsample, f"conv_{i}_kernel")
+        _wn_pair(sd, f"upsample_net.upsample.up_layers.{2 * i + 1}", k.reshape(1, 1, 1, -1))
+    for i in range(gen.layers):
+        blk = getattr(gen, f"block_{i}")
+        for ours, theirs in (("conv", "conv"), ("aux_conv", "conv1x1_aux"),
+                             ("skip_conv", "conv1x1_skip"), ("out_conv", "conv1x1_out")):
+            conv = getattr(blk, ours)
+            _wn_pair(sd, f"conv_layers.{i}.{theirs}", conv.weight, conv.bias)
+    return sd
+
+
+def reference_melgan_state_dict(gen):
+    """A port MelGanGenerator in the reference's Sequential layout
+    (`melgan.*`, weight norm on every conv)."""
+    sd = {}
+    n = len(gen.scales)
+    _wn_pair(sd, "melgan.1", gen.conv_pre.weight, gen.conv_pre.bias)
+    for i in range(n):
+        up = getattr(gen, f"up_{i}")
+        _wn_pair(sd, f"melgan.{3 + 5 * i}", up.weight, up.bias)
+        res = getattr(gen, f"res_{i}")
+        for j in range(3):
+            base = f"melgan.{4 + 5 * i + j}"
+            for ours, theirs in ((f"conv_{j}", "stack.2"), (f"out_{j}", "stack.4"),
+                                 (f"skip_{j}", "skip_layer")):
+                conv = getattr(res, ours)
+                _wn_pair(sd, f"{base}.{theirs}", conv.weight, conv.bias)
+    _wn_pair(sd, f"melgan.{4 + 5 * n}", gen.conv_post.weight, gen.conv_post.bias)
+    return sd
+
+
+def _seeded_(module, seed):
+    """Every weight N(0, 1 / fan-in) and bias N(0, 0.05^2), from `seed`."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            fan_in = p[0].numel() if p.dim() > 1 else 1
+            p.copy_(torch.randn(p.shape, generator=g) * (fan_in ** -0.5 if p.dim() > 1 else 0.05))
+    return module
+
+
+def _import_round_trip(gen, state_dict_fn, importer, hp, path):
+    """`gen` written in the reference's layout with torch.save, read back by
+    load_torch_checkpoint and `importer` into a fresh module; returns (the
+    module, the flat tree, the largest relative weight difference)."""
+    from bisinger_tpu_torch.vocoders.torch_import import load_torch_checkpoint
+    from bisinger_tpu_torch.weights import flatten_tree, load_flax_params
+
+    torch.save({"state_dict": {"model_gen": state_dict_fn(gen)}}, path)
+    flat = flatten_tree(importer(load_torch_checkpoint(path), hp))
+    fresh = type(gen)(hp)
+    load_flax_params(fresh, flat)
+    worst = max(float((a.detach() - b.detach()).abs().max() / b.detach().abs().max())
+                for a, b in zip(fresh.parameters(), gen.parameters()))
+    return fresh.eval(), flat, worst
+
+
+def vocoder_phase(svs, counters, by_path, dev, tmp, card):
+    """Phase 15: the rest of the vocoder family on the card, in bf16 where a
+    model has a compute dtype. (a) A Parallel WaveGAN at configs/tts/pwg.yaml's
+    widths (30 layers, 3 stacks, 64/128/64 channels, aux 80, context 2) at the
+    flagship's 24 kHz / hop 128 (scales 4·4·4·2): a seeded generator written
+    with torch.save as the reference lays it out (weight norm), read back by
+    load_torch_checkpoint + import_pwg_generator into an assets dir with its
+    own config (hparams_diff.json naming the PWG) beside the flagship's
+    acoustic files; from_checkpoint serves it behind diff_params.npz and the
+    PE at B=4, T=512: 201 K1-bf16 launches, no K2 (`launches_by_path["pwg
+    served"]`); its forward on a 32-frame mel in fp32 against the CPU,
+    relative max <= 1e-4. (b) A HiFi-GAN with ResBlock2 (kernels 3, 5, 7,
+    dilations 1·2, 2·6, 3·12; NSF, 512 channels) trained through
+    tools/train_vocoder for 20 steps at B=8, 64 frames (no kernel in a train
+    step: ResBlock2 runs as layers), and one fp32 GAN step (128 channels)
+    on the card against the CPU (tools/step_parity). (c) The flagship cascade served with
+    use_denoise on a score: 201 K1-bf16, 4 K2-bf16 launches
+    (`launches_by_path["denoised"]`), a finite waveform that differs from the
+    undenoised one. (d) MelGAN's generator (512 channels, scales 8·4·2·2,
+    imported the same way), its multi-scale discriminator and both PWG
+    discriminators in fp32 against the CPU, relative max <= 1e-4. `card`
+    goes beside the seconds of each part. Returns (ok, lines)."""
+    import contextlib
+
+    import numpy as np
+
+    from bisinger_tpu_torch.config import load_hparams, load_hparams_json
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
+    from bisinger_tpu_torch.models.melgan import MelGanGenerator, MelGanMultiScaleDiscriminator
+    from bisinger_tpu_torch.models.pwg import (
+        ParallelWaveGANDiscriminator,
+        ParallelWaveGANGenerator,
+        ResidualParallelWaveGANDiscriminator,
+    )
+    from bisinger_tpu_torch.tools import train_vocoder
+    from bisinger_tpu_torch.tools.step_parity import gan_step_parity
+    from bisinger_tpu_torch.vocoders.hifigan import HifiGAN
+    from bisinger_tpu_torch.vocoders.pwg import PWG
+    from bisinger_tpu_torch.vocoders.torch_import import (
+        import_melgan_generator,
+        import_pwg_generator,
+    )
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "vocoders")
+    os.makedirs(root)
+    log_fn = os.path.join(repo, "checkpoints", "chip_smoke", "vocoders.log")
+    lines, checks, secs = [], {}, {}
+    reset, read = launch_counts(counters, by_path)
+    cpu = torch.device("cpu")
+
+    def card_vs_cpu(module, *args):
+        """(relative max of the card's output against the CPU's, the output)."""
+        with torch.no_grad():
+            ref = module.to(cpu)(*args)
+            got = module.to(dev)(*(a.to(dev) for a in args))
+        flat = lambda o: torch.cat([x.reshape(-1).float().cpu() for x in (  # noqa: E731
+            o if isinstance(o, (list, tuple)) else [o])])
+        if isinstance(ref, list):  # the MSD: each scale's (logits, feature maps)
+            ref = [x for out, feats in ref for x in [out, *feats]]
+            got = [x for out, feats in got for x in [out, *feats]]
+        return rel_err(flat(got), flat(ref))[1], ref
+
+    # ---- (a) the PWG: reference checkpoint -> assets dir -> served ----
+    t0 = time.perf_counter()
+    flag_hp = load_hparams_json(os.path.join(FLAGSHIP_DIR, "hparams_diff.json"))
+    pwg_keys = {k: v for k, v in load_hparams(os.path.join(repo, "configs", "tts", "pwg.yaml"))
+                .items() if k.startswith(("pwg_", "aux_context")) or k == "vocoder"}
+    voc_hp = dict(flag_hp, **pwg_keys, pwg_upsample_scales=[4, 4, 4, 2])
+    gen = _seeded_(ParallelWaveGANGenerator(voc_hp), 15)
+    imported, flat, w_err = _import_round_trip(gen, reference_pwg_state_dict,
+                                               import_pwg_generator, voc_hp,
+                                               os.path.join(root, "pwg.ckpt"))
+    checks["PWG at pwg.yaml's widths"] = (imported.layers == 30 and imported.hop == 128
+                                          and voc_hp["vocoder"].endswith(".PWG"))
+    checks["PWG checkpoint round trip within 1e-6"] = w_err <= 1e-6
+    assets = os.path.join(root, "assets")
+    os.makedirs(os.path.join(assets, "vocoder"))
+    for fn in ("diff_params.npz", "pe_params.npz", "pe_batch_stats.npz", "phone_set.json",
+               "spk_map.json"):
+        os.symlink(os.path.join(FLAGSHIP_DIR, fn), os.path.join(assets, fn))
+    np.savez(os.path.join(assets, "vocoder", "generator_000000000.npz"), **flat)
+    with open(os.path.join(assets, "hparams_diff.json"), "w") as f:
+        json.dump(voc_hp, f)
+    served = SVSInferTorch.from_checkpoint(assets, device=dev)
+    checks["served through the PWG wrapper"] = isinstance(served.voc, PWG)
+    vocab = served.vocab_size
+    batch = make_batch(4, 16, 512, vocab, seed=15)
+    served.synthesize(batch, generator=torch.Generator(device=dev).manual_seed(15))  # warm
+    reset()
+    t1 = time.perf_counter()
+    out = served.synthesize(batch, generator=torch.Generator(device=dev).manual_seed(15))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    counts = read("pwg served")
+    wav = out["wav"]
+    want = {"fused_residual_stack": 0, "fused_residual_stack_bf16": 201, "fused_mrf_stage": 0,
+            "fused_mrf_stage_bf16": 0}
+    checks["PWG served: finite (4, 65536)"] = bool(torch.isfinite(wav).all()) and \
+        tuple(wav.shape) == (4, 512 * 128)
+    checks["PWG served: K1-bf16 201, no K2 launch"] = counts == want
+    mel32 = out["mel"][:1, :32].float().cpu()
+    z = torch.randn((1, mel32.shape[1] * 128), generator=torch.Generator().manual_seed(16))
+    pwg_rel, _ = card_vs_cpu(served.vocoder, z, mel32)
+    checks["PWG fp32 card vs CPU <= 1e-4"] = pwg_rel <= 1e-4
+    secs["a"] = time.perf_counter() - t0
+    lines.append(f"(a) PWG (pwg.yaml widths, 30 layers, hop 128) from a reference-layout "
+                 f"checkpoint (torch.save, weight norm; import within {w_err:.2e} of the weights) "
+                 f"served from an assets dir behind diff_params.npz and the PE at B=4, T=512: "
+                 f"wav {tuple(wav.shape)}, |wav| max {float(wav.abs().max()):.3f}, warm "
+                 f"{serve_s:.3f} s, launches {counts}; PWG fp32 card vs CPU (32 frames) "
+                 f"relative max {pwg_rel:.3e} (tol 1e-4); {secs['a']:.1f} s")
+    del served, out, wav
+
+    # ---- (b) ResBlock2 HiFi-GAN: train_vocoder, then a fp32 GAN step card vs CPU ----
+    t0 = time.perf_counter()
+    rb2 = dict(resblock="2", resblock_kernel_sizes=[3, 5, 7],
+               resblock_dilation_sizes=[[1, 2], [2, 6], [3, 12]])
+    cfg_fn = os.path.join(root, "resblock2.json")
+    with open(cfg_fn, "w") as f:
+        json.dump(rb2, f)
+    per_step = []
+    voc_cfg = dict(train_vocoder.settings(), steps=TRAIN_STEPS, batch=8, frames=64,
+                   channels=512, multiband=1, out_dir=os.path.join(root, "rb2"), config=cfg_fn)
+    reset()
+    with open(log_fn, "w") as logf, contextlib.redirect_stderr(logf):
+        summary = train_vocoder.run(voc_cfg, device=dev, on_step=lambda s, m: per_step.append(
+            {k: c.launches for k, c in counters.items()}))
+    if per_step:
+        by_path["15 train resblock2 vocoder"] = per_step[-1]
+    checks[f"ResBlock2 vocoder {TRAIN_STEPS} steps"] = len(per_step) == TRAIN_STEPS
+    checks["ResBlock2 vocoder losses finite, gen_mel fell"] = bool(np.isfinite([
+        summary.get(k, np.nan) for k in ("gen_mel_first", "gen_mel_last", "disc_loss_first",
+                                         "disc_loss_last")]).all()) and \
+        summary["gen_mel_last"] < summary["gen_mel_first"]
+    checks["ResBlock2 vocoder: no kernel launched in any train step"] = all(
+        not any(n.values()) for n in per_step)
+    # the parity step at 128 channels, the same layers: at 512 its CPU steps take ~25 s
+    hp32 = load_hparams(cfg_fn, dict(compute_dtype="float32", upsample_initial_channel=128))
+    ok, gtext = gan_step_parity(hp32, dev)
+    checks["ResBlock2 GAN fp32 step card vs CPU"] = ok
+    checks["no kernel launched in the parity step"] = not any(read("15 parity").values())
+    secs["b"] = time.perf_counter() - t0
+    lines.append(f"(b) HiFi-GAN with ResBlock2 (kernels 3·5·7, dilations 1·2 2·6 3·12, NSF, 512 "
+                 f"channels, B=8, 64 frames, bf16) through tools/train_vocoder: "
+                 f"{summary.get('steps_per_s', np.nan):.2f} steps/s (first step apart); gen_mel "
+                 f"{summary.get('gen_mel_first', np.nan):.4f} -> "
+                 f"{summary.get('gen_mel_last', np.nan):.4f}; disc_loss "
+                 f"{summary.get('disc_loss_first', np.nan):.4f} -> "
+                 f"{summary.get('disc_loss_last', np.nan):.4f}; fp32 GAN step card vs CPU "
+                 f"(128 channels, B=2, 32 frames): {gtext}; {secs['b']:.1f} s")
+
+    # ---- (c) the flagship cascade with use_denoise ----
+    t0 = time.perf_counter()
+    svs_d = copy.copy(svs)
+    svs_d.voc = HifiGAN(dict(svs.voc.hp, use_denoise=True), device=dev, model=svs.vocoder)
+    svs.infer_batch([SCORES[0]])  # warm
+    reset()
+    wav_d = svs_d.infer_batch([SCORES[0]])[0]
+    torch.cuda.synchronize()
+    counts_d = read("denoised")
+    wav_p = svs.infer_batch([SCORES[0]])[0]
+    want_d = dict(want, fused_mrf_stage_bf16=4)
+    checks["denoised: K1-bf16 201, K2-bf16 4"] = counts_d == want_d
+    checks["denoised: finite, differs from the plain waveform"] = (
+        bool(np.isfinite(wav_d).all()) and wav_d.shape == wav_p.shape
+        and float(np.abs(wav_d - wav_p).max()) > 1e-4)
+    secs["c"] = time.perf_counter() - t0
+    lines.append(f"(c) flagship cascade with use_denoise (denoise_v 0.002) on a score: "
+                 f"{len(wav_d)} samples, |denoised - plain| max "
+                 f"{float(np.abs(wav_d - wav_p).max()):.4f}, launches {counts_d}; "
+                 f"{secs['c']:.1f} s")
+
+    # ---- (d) MelGAN and the discriminators, fp32 card vs CPU ----
+    t0 = time.perf_counter()
+    mel_hp = dict(flag_hp, melgan_upsample_scales=[8, 4, 2, 2], melgan_channels=512)
+    mg = _seeded_(MelGanGenerator(mel_hp), 17)
+    mg, _, mg_err = _import_round_trip(mg, reference_melgan_state_dict,
+                                       import_melgan_generator, mel_hp,
+                                       os.path.join(root, "melgan.ckpt"))
+    checks["MelGAN checkpoint round trip within 1e-6"] = mg_err <= 1e-6
+    mel_in = mel32 * 0.5
+    rels = {"MelGAN generator": card_vs_cpu(mg, mel_in)}
+    wave = rels["MelGAN generator"][1]
+    reset()
+    for name, module in (("MelGAN MSD", MelGanMultiScaleDiscriminator()),
+                         ("PWG discriminator", ParallelWaveGANDiscriminator()),
+                         ("residual PWG discriminator", ResidualParallelWaveGANDiscriminator())):
+        rels[name] = card_vs_cpu(_seeded_(module, 18), wave)
+    checks["no kernel launched by MelGAN or the discriminators"] = not any(
+        read("15 melgan and discriminators").values())
+    for name, (rel, _) in rels.items():
+        checks[f"{name} fp32 card vs CPU <= 1e-4"] = rel <= 1e-4
+    secs["d"] = time.perf_counter() - t0
+    lines.append(f"(d) fp32 card vs CPU, relative max (tol 1e-4): " + ", ".join(
+        f"{name} {rel:.3e}" for name, (rel, _) in rels.items())
+                 + f" (MelGAN 512 channels, 8·4·2·2, imported within {mg_err:.2e}; "
+                 f"{wave.shape[-1]} samples); {secs['d']:.1f} s")
+    lines.append(f"seconds by part on {card}: " + json.dumps(
+        {k: round(v, 2) for k, v in secs.items()}))
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2170,6 +2473,11 @@ def main() -> int:
                 return 1
         with Phase("14 data parallel") as ph:
             ok, lines = dp_phase(svs, counters, by_path, dev, tmp, record)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+        with Phase("15 vocoder family") as ph:
+            ok, lines = vocoder_phase(svs, counters, by_path, dev, tmp, smi)
             ph.done(" | ".join(lines))
             if not ok:
                 return 1

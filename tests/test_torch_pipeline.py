@@ -319,7 +319,9 @@ def test_port_imports_nothing_of_jax():
     JAX package and __graft_entry__, every module of the port (the score
     front end, the server, the CLI, the data pipeline, the training
     modules, the GAN vocoder's task, weight norm, PQMF, STFT, wrapper and
-    trainer tool, the card-vs-CPU step check and the YAML reader among them)
+    trainer tool, the card-vs-CPU step check, the YAML reader, the vocoder
+    registry, PWG, MelGAN, the host vocoder utilities and the checkpoint
+    importers among them)
     and chip_smoke (without running it) import, and a YAML config of the
     repo loads with its cascade."""
     code = textwrap.dedent("""
@@ -367,4 +369,8 @@ def test_port_imports_nothing_of_jax():
             "bisinger_tpu_torch.training.vocoder_task", "bisinger_tpu_torch.training.weight_norm",
             "bisinger_tpu_torch.models.pqmf", "bisinger_tpu_torch.ops.stft",
             "bisinger_tpu_torch.vocoders.hifigan", "bisinger_tpu_torch.tools.train_vocoder",
-            "bisinger_tpu_torch.tools.step_parity", "bisinger_tpu_torch.yaml_subset"} <= names
+            "bisinger_tpu_torch.tools.step_parity", "bisinger_tpu_torch.yaml_subset",
+            "bisinger_tpu_torch.models.pwg", "bisinger_tpu_torch.models.melgan",
+            "bisinger_tpu_torch.vocoders.base_vocoder", "bisinger_tpu_torch.vocoders.pwg",
+            "bisinger_tpu_torch.vocoders.vocoder_utils", "bisinger_tpu_torch.vocoders.torch_import",
+            "bisinger_tpu_torch.compat.torch_params"} <= names
