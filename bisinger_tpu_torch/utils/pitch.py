@@ -1,7 +1,7 @@
 """f0 utilities (counterpart of `bisinger_tpu/utils/pitch.py`): the
 host-side numpy functions of the binarizer and the dataset (`_np`), and
 the torch ones of the pitch-conditioned FastSpeech2 (`f0_to_coarse`,
-`norm_f0`, `denorm_f0`)."""
+`norm_f0`, `denorm_f0`); `freq_to_midi` of the corpus tools."""
 
 from __future__ import annotations
 
@@ -85,3 +85,13 @@ def norm_interp_f0_np(f0: np.ndarray, pitch_norm: str = "log", f0_mean: float = 
     elif uv.sum() > 0:
         f0_norm[uv] = np.interp(np.where(uv)[0], np.where(~uv)[0], f0_norm[~uv])
     return f0_norm.astype(np.float32), uv.astype(np.float32)
+
+
+def freq_to_midi(frequency: float) -> int:
+    """Hz -> nearest MIDI note number (0 for unvoiced/invalid), as
+    `pitch.py:103-111`; tools/db4_meta.py and tools/pitch_shift.py use it."""
+    import math
+
+    if frequency <= 0:
+        return 0
+    return int(round(69 + 12 * math.log2(frequency / 440.0)))

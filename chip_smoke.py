@@ -118,8 +118,8 @@ and seconds (a failed phase exits non-zero):
      trainer, resume the diffusion stage to step 12 through run.main, and
      take one fp32 step of the diffusion stage against the same step in one
      process (tools/step_parity's bounds, the 1-process step's ReLU sides
-     pinned); then one rank under NCCL (`--dp-nccl`) trains the diffusion
-     stage, its step-1 loss within 1e-3 of phase 10's. Gates: finite
+     pinned); at the same time one rank under NCCL (`--dp-nccl`) trains
+     the diffusion stage, its step-1 loss within 1e-3 of phase 10's. Gates: finite
      losses, the ranks' state digests equal after each stage, one
      checkpoint then the resume's, the 2-rank-trained weights served at B=4,
      T=512 through K1-bf16 and K2-bf16 (`launches_by_path["data
@@ -144,15 +144,42 @@ and seconds (a failed phase exits non-zero):
      discriminators in fp32 on the card against the CPU (relative max
      1e-4). Each part's seconds are reported; the trainer's log goes to
      checkpoints/chip_smoke/vocoders.log;
+  16. (run before 9) the BiSinger paper's recipe: (a) the port's corpus
+     tools on the host: a 64-item M4Singer corpus in its original layout
+     converted to system 1's meta by `python -m
+     bisinger_tpu_torch.tools.meta` and, through M4Singer and MFA
+     TextGrids written from its durations, to system 2's by
+     tools.proportional; a 32-item DB-4 speech set through
+     tools.db4_meta, tools.pitch_shift and tools.mfa_prep; a 32-item
+     bilingual singing set merged with both by tools.merge (gates: item
+     counts, one length for phs, notes and ph_dur, the speechsing tags 0,
+     1 and 2); (b) each meta binarized by `run --binarize`, then
+     configs/usr/m4singer/fs2.yaml and system1.yaml (warm-started from
+     it) on system 1's meta, the same with system2.yaml on system 2's,
+     and configs/usr/les-m4-nus/fs2.yaml and diff.yaml on the merged
+     meta, 10 steps each through run's trainer at the configs' widths in
+     bf16 (gates: finite losses, no kernel launched, no esm/, lang_embed
+     or style_embed key in the monolingual checkpoints); (c) a bilingual
+     score served from each diffusion work dir through `run --infer` with
+     the flagship's PE and vocoder: 201 K1-bf16 and 4 K2-bf16 launches
+     (`launches_by_path["16 served ..."]`), a finite waveform, and for
+     systems 1 and 2 the English phones through the system's EN->CN
+     table. Steps/s, peak memory and the phase's seconds are reported;
+     the log goes to checkpoints/chip_smoke/paper.log;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
-     buckets of phases 5, 8, 10-15 (the mb4 stages and the
+     buckets of phases 5, 8, 10-16 (the mb4 stages and the
      plain generator's 8·8·2·2 stages among them).
+The host's share of phases 10, 12, 13 and 16 (the corpora, phase 16's
+corpus tools, and the binarizations) runs from the start in one process of
+its own at the lowest CPU priority (`--prepare`, PREP_PARTS; its log
+checkpoints/chip_smoke/prep.log), while the card runs phases 2-8; each of
+those phases waits for its part and reports when it ran.
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5, 8 and 10-15. Without a CUDA device it exits 1 and prints
+path of phases 5, 8 and 10-16. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -170,6 +197,7 @@ import torch
 
 BUDGET_S = 600.0  # the run fails past 10 minutes, builds included
 T_START = time.perf_counter()
+T_START_WALL = time.time()  # beside the background preparation's clock
 FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 # fp32 accuracy on the TF32 tensor cores (495 TFLOP/s dense, data sheet) takes
 # three products per product (3xTF32): the fp32 routes' bound
@@ -487,7 +515,7 @@ def _grad_checks(model):
     return finite, nonzero
 
 
-def training_phase(svs, counters, by_path, dev, tmp, record):
+def training_phase(svs, counters, by_path, dev, tmp, record, prep):
     """Phase 10: the acoustic training path on the card at the flagship's
     widths in bf16 (20 x 256 DiffNet, hidden 256) and its batch shape
     (16 tokens, 512 frames, 48 sentences): the port's synthetic corpus (64
@@ -504,8 +532,7 @@ def training_phase(svs, counters, by_path, dev, tmp, record):
     import numpy as np
 
     from bisinger_tpu_torch import run
-    from bisinger_tpu_torch.config import load_hparams_json, make_hparams
-    from bisinger_tpu_torch.data.synthetic import make_synthetic_corpus
+    from bisinger_tpu_torch.config import make_hparams
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
     from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
     from bisinger_tpu_torch.tools.step_parity import step_parity
@@ -524,32 +551,14 @@ def training_phase(svs, counters, by_path, dev, tmp, record):
     cwd = os.getcwd()
     try:
         os.chdir(tmp)
-        # ---- 1. corpus, binarized by the CLI in a process of its own ----
-        make_synthetic_corpus(os.path.join(tmp, "raw"), n_items=TRAIN_ITEMS, seed=0)
-        data = dict(raw_data_dir=os.path.join(tmp, "raw"),
-                    binary_data_dir=os.path.join(tmp, "binary"), max_updates=TRAIN_STEPS,
-                    val_check_interval=1000, log_interval=1, num_ckpt_keep=2)
-        for stage, over in (("fs2", {}), ("diff", dict(
-                fs2_ckpt=os.path.join(FLAGSHIP_DIR, "diff_params.npz")))):
-            hp = load_hparams_json(os.path.join(FLAGSHIP_DIR, f"hparams_{stage}.json"),
-                                   dict(data, **over))
-            with open(os.path.join(tmp, f"{stage}.json"), "w") as f:
-                json.dump(hp, f)
-        env = dict(os.environ, N_PROC="8",
-                   PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "bisinger_tpu_torch.run", "--config",
-                               "fs2.json", "--binarize"], env=env, capture_output=True,
-                              text=True, timeout=300)
-        binarize_s = time.perf_counter() - t0
+        # ---- 1. the corpus and its binarization (`prep_training`) ----
+        res = prep.wait("training")
         with open(log_fn, "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        checks["binarize rc 0"] = proc.returncode == 0
-        if proc.returncode != 0:
-            return False, [f"binarize failed: {proc.stderr[-2000:]}"]
-        counts_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("| binarized")]
-        lines.append(f"binarize: {binarize_s:.1f} s with 8 processes ({'; '.join(counts_line)}"
-                     f"{'; Praat-AC fallback warned' if 'parselmouth not installed' in proc.stdout else ''})")
+            f.write(res["stdout"] + res["stderr"])
+        checks["binarize rc 0"] = res["rc"] == 0
+        if res["rc"] != 0:
+            return False, [f"binarize failed: {res['stderr'][-2000:]}"]
+        lines.append(prep.binarize_line(res, "", 8))
 
         stats = {}
         with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
@@ -925,7 +934,7 @@ POPCS_SCORE = dict(  # phoneme level: the synthetic PopCS corpus's phone set
     is_slur_seq=" ".join(["0"] * 12), lang_seq=" ".join(["1"] * 12))
 
 
-def popcs_phase(counters, by_path, dev, tmp, card):
+def popcs_phase(counters, by_path, dev, tmp, card, prep):
     """Phase 12: DiffSinger's PopCS family from the repo's own YAML configs,
     trained and served on the card in bf16 (the configs' compute_dtype) at
     their own widths and batching; only the steps are cut. The synthetic
@@ -951,7 +960,6 @@ def popcs_phase(counters, by_path, dev, tmp, card):
     from bisinger_tpu_torch import run
     from bisinger_tpu_torch.config import apply_overrides, load_hparams
     from bisinger_tpu_torch.data.dataset import DataLoader, M4SingerDataset, batch_to_device
-    from bisinger_tpu_torch.data.synthetic import make_synthetic_corpus
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
     from bisinger_tpu_torch.tools.step_parity import step_parity
     from bisinger_tpu_torch.training.checkpoints import CheckpointManager
@@ -963,37 +971,21 @@ def popcs_phase(counters, by_path, dev, tmp, card):
            for name in ("popcs_fs2", "popcs_ds_beta6", "popcs_ds_beta6_offline")}
     log_fn = os.path.join(repo, "checkpoints", "chip_smoke", "popcs.log")
     root = os.path.join(tmp, "popcs")
-    os.makedirs(root)
     lines, checks, stats = [], {}, {}
 
     reset, read = launch_counts(counters, by_path)
 
-    # the synthetic items are named "<singer>#song<i % 3>#<i:04d>": the
-    # configs' PopCS song names match none; 4 items are held out
-    data = (f'raw_data_dir={root}/raw,binary_data_dir={root}/binary,'
-            f'test_prefixes=["song0#000"]')
-    common = f"{data},log_interval=1,val_check_interval=1000,num_ckpt_keep=2"
+    common = f"{popcs_data(root)},log_interval=1,val_check_interval=1000,num_ckpt_keep=2"
+    res = prep.wait("popcs")  # the corpus and its binarization (`prep_popcs`)
     cwd = os.getcwd()
     try:
         os.chdir(root)
-        make_synthetic_corpus(os.path.join(root, "raw"), n_items=POPCS_ITEMS, seed=0,
-                              fmt="popcs")
-        env = dict(os.environ, N_PROC="8",
-                   PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "bisinger_tpu_torch.run", "--config",
-                               cfg["popcs_fs2"], "--binarize", "--hparams", data], env=env,
-                              capture_output=True, text=True, timeout=300)
-        binarize_s = time.perf_counter() - t0
         with open(log_fn, "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        checks["binarize rc 0"] = proc.returncode == 0
-        if proc.returncode != 0:
-            return False, [f"binarize failed: {proc.stderr[-2000:]}"]
-        counts_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("| binarized")]
-        lines.append(f"binarize (MidiSingingBinarizer): {binarize_s:.1f} s with 8 processes "
-                     f"({'; '.join(counts_line)}"
-                     f"{'; Praat-AC fallback warned' if 'parselmouth not installed' in proc.stdout else ''})")
+            f.write(res["stdout"] + res["stderr"])
+        checks["binarize rc 0"] = res["rc"] == 0
+        if res["rc"] != 0:
+            return False, [f"binarize failed: {res['stderr'][-2000:]}"]
+        lines.append(prep.binarize_line(res, " (MidiSingingBinarizer)", 8))
 
         def train(name, extra="", steps=TRAIN_STEPS):
             """`name`'s config for `steps` steps in work dir `name`: (trainer, launches)."""
@@ -1174,14 +1166,17 @@ def textgrid_text(dur, tiers):
     return "\n".join(lines) + "\n"
 
 
-def write_textgrid_corpus(root, n_items, seed=0, sample_rate=22050, dur_range=(2.0, 4.0)):
+def write_textgrid_corpus(root, n_items, seed=0, sample_rate=22050, dur_range=(2.0, 4.0),
+                          lexicon=None, prefix="LJ"):
     """An MFA-style speech corpus: per item a 16-bit WAV, a TextGrid with a
     words tier and a phones tier (the last, which the aligner reads; silence
     intervals empty) and a line of `meta.json` {item_name, wav_fn, tg_fn,
-    txt, ph, spk}. Words of 2-4 phones from `ARPABET`, silences at both ends
-    and between some words; the audio is a harmonic voice whose f0 glides
-    through 90-220 Hz, noise on the fricatives, near-silence in the pauses.
-    tests/torch_port_helpers.py holds a copy for the CPU tests."""
+    txt, ph, spk}. Words of 2-4 phones from `ARPABET` (named w0, w1, ...), or
+    drawn from `lexicon` {word: phones}; silences at both ends and between
+    some words; the audio is a harmonic voice whose f0 glides through 90-220
+    Hz, noise on the fricatives, near-silence in the pauses. Items are named
+    `<prefix>001-0001`, ... tests/torch_port_helpers.py holds a copy for the
+    CPU tests."""
     import numpy as np
     from scipy.io import wavfile
 
@@ -1191,7 +1186,12 @@ def write_textgrid_corpus(root, n_items, seed=0, sample_rate=22050, dur_range=(2
     for i in range(n_items):
         total = r.uniform(*dur_range)
         n_words = max(2, int(round((total - 0.45) / 0.31)))  # ~0.31 s a word
-        words = [list(r.choice(ARPABET, r.randint(2, 5))) for _ in range(n_words)]
+        if lexicon is None:
+            words = [list(r.choice(ARPABET, r.randint(2, 5))) for _ in range(n_words)]
+            texts = ["w%d" % w for w in range(n_words)]
+        else:
+            texts = [sorted(lexicon)[k] for k in r.randint(0, len(lexicon), n_words)]
+            words = [list(lexicon[w]) for w in texts]
         pauses = [r.rand() < 0.3 for _ in range(n_words - 1)]
         # durations: phones ~ U(0.05, 0.12) s, pauses 0.1-0.25 s, edges 0.15-0.3 s
         segs = [("", r.uniform(0.15, 0.3))]
@@ -1218,13 +1218,13 @@ def write_textgrid_corpus(root, n_items, seed=0, sample_rate=22050, dur_range=(2
                 wav[lo:hi] = 0.05 * noise[lo:hi]
             else:
                 wav[lo:hi] = 0.2 * voice[lo:hi]
-        name = f"LJ{i // 50 + 1:03d}-{i % 50 + 1:04d}"
+        name = f"{prefix}{i // 50 + 1:03d}-{i % 50 + 1:04d}"
         wav_fn = os.path.join(root, f"{name}.wav")
         wavfile.write(wav_fn, sample_rate, (np.clip(wav, -1, 1) * 32767).astype(np.int16))
         phone_tier = [(a, b, ph) for (ph, _), a, b in zip(segs, bounds[:-1], bounds[1:])]
         word_tier, k = [(0.0, bounds[1], "")], 1
         for w, word in enumerate(words):
-            word_tier.append((bounds[k], bounds[k + len(word)], "w%d" % w))
+            word_tier.append((bounds[k], bounds[k + len(word)], texts[w]))
             k += len(word)
             if segs[k][0] == "":
                 word_tier.append((bounds[k], bounds[k + 1], ""))
@@ -1239,7 +1239,7 @@ def write_textgrid_corpus(root, n_items, seed=0, sample_rate=22050, dur_range=(2
                 ph.append("<SP>")
         ph.append("<SP>")
         meta.append(dict(item_name=name, wav_fn=wav_fn, tg_fn=tg_fn,
-                         txt=" ".join("w%d" % w for w in range(len(words))), ph=" ".join(ph),
+                         txt=" ".join(texts), ph=" ".join(ph),
                          spk="LJSpeech"))
     with open(os.path.join(root, "meta.json"), "w") as f:
         for m in meta:
@@ -1247,7 +1247,7 @@ def write_textgrid_corpus(root, n_items, seed=0, sample_rate=22050, dur_range=(2
     return meta
 
 
-def tts_phase(counters, by_path, dev, tmp, card):
+def tts_phase(counters, by_path, dev, tmp, card, prep):
     """Phase 13: DiffSpeech TTS from the repo's LJSpeech configs, trained and
     served on the card in bf16 at the configs' widths and batching; only the
     steps are cut. A TextGrid corpus written here (64 items of 2-4 s at
@@ -1291,35 +1291,22 @@ def tts_phase(counters, by_path, dev, tmp, card):
         ("hifigan", "tts/hifigan.yaml"))}
     log_fn = os.path.join(repo, "checkpoints", "chip_smoke", "tts.log")
     root = os.path.join(tmp, "tts")
-    os.makedirs(root)
     lines, checks, stats = [], {}, {}
 
     reset, read = launch_counts(counters, by_path)
 
-    data = (f"raw_data_dir={root}/raw,raw_json_fn=meta.json,binary_data_dir={root}/binary")
-    common = f"{data},log_interval=1,val_check_interval=1000,num_ckpt_keep=2"
+    common = f"{tts_data(root)},log_interval=1,val_check_interval=1000,num_ckpt_keep=2"
+    res = prep.wait("tts")  # the corpus and its binarization (`prep_tts`)
     cwd = os.getcwd()
     try:
         os.chdir(root)
-        write_textgrid_corpus(os.path.join(root, "raw"), TTS_ITEMS, seed=0)
-        env = dict(os.environ, N_PROC="8",
-                   PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "bisinger_tpu_torch.run", "--config",
-                               cfg["lj_fs2"], "--binarize", "--hparams",
-                               f"{data},binarizer_cls=bisinger_tpu.data.binarizer.ZhBinarizer"],
-                              env=env, capture_output=True, text=True, timeout=300)
-        binarize_s = time.perf_counter() - t0
         with open(log_fn, "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        checks["binarize rc 0"] = proc.returncode == 0
-        if proc.returncode != 0:
-            return False, [f"binarize failed: {proc.stderr[-2000:]}"]
-        counts_line = [ln for ln in proc.stdout.splitlines() if ln.startswith("| binarized")]
-        warned = "; Praat-AC fallback warned" if "parselmouth not installed" in proc.stdout else ""
-        lines.append(f"binarize (TextGridBinarizer, with_f0cwt): {binarize_s:.1f} s with 8 "
-                     f"processes ({'; '.join(counts_line)}{warned})")
-        stats["binarize"] = dict(seconds=binarize_s)
+            f.write(res["stdout"] + res["stderr"])
+        checks["binarize rc 0"] = res["rc"] == 0
+        if res["rc"] != 0:
+            return False, [f"binarize failed: {res['stderr'][-2000:]}"]
+        lines.append(prep.binarize_line(res, " (TextGridBinarizer, with_f0cwt)", 8))
+        stats["binarize"] = dict(seconds=res["seconds"])
 
         def train(name, extra=""):
             """`name`'s config for 20 steps in work dir `name`: the trainer."""
@@ -1624,9 +1611,9 @@ def dp_phase(svs, counters, by_path, dev, tmp, record):
     diff_params.npz) and the PitchExtractor DP_STEPS steps each through run's
     trainer, resume the diffusion stage to DP_STEPS + 2 through run.main, and
     take one fp32 step of the diffusion stage (4 x 64 frames, halves of
-    unequal valid frames) held against the same step in this process; then
-    one rank under NCCL (torchrun --nproc_per_node 1) trains the diffusion
-    stage, whose step-1 loss must equal phase 10's (the same seed, weights
+    unequal valid frames) held against the same step in this process; at
+    the same time one rank under NCCL (torchrun --nproc_per_node 1) trains
+    the diffusion stage, whose step-1 loss must equal phase 10's (the same seed, weights
     and batch) within 1e-3 of its value (a bf16 forward). Gates: finite
     losses; the ranks' digests of the whole state equal after each stage; the
     fp32 step within tools/step_parity's bounds; one checkpoint after
@@ -1684,17 +1671,33 @@ def dp_phase(svs, counters, by_path, dev, tmp, record):
 
     # ---- the ranks: 2 over gloo on the card, then 1 under NCCL ----
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    # both launches at once: their imports and set-up overlap
+    runs = (("dp", 2, "--dp-gloo"), ("dp_nccl", 1, "--dp-nccl"))
+    t0 = time.perf_counter()
+    procs = {}
+    for tag, n, flag in runs:
+        with open(os.path.join(tmp, f"{tag}.out"), "w") as out:
+            procs[tag] = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", str(n), os.path.join(repo, "chip_smoke.py"), flag, tmp],
+                env=env, stdout=out, stderr=subprocess.STDOUT)
     results, secs = {}, {}
-    for tag, n, flag in (("dp", 2, "--dp-gloo"), ("dp_nccl", 1, "--dp-nccl")):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                               "--nproc_per_node", str(n), os.path.join(repo, "chip_smoke.py"),
-                               flag, tmp], env=env, capture_output=True, text=True,
-                              timeout=240)
-        secs[tag] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            return False, [f"{tag} ranks failed (rc {proc.returncode}): "
-                           f"{(proc.stdout + proc.stderr)[-3000:]}"]
+    try:
+        while len(secs) < len(procs) and time.perf_counter() - t0 < 240:
+            for tag, proc in procs.items():
+                if tag not in secs and proc.poll() is not None:
+                    secs[tag] = time.perf_counter() - t0
+            time.sleep(0.05)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for tag, n, _ in runs:
+        if tag not in secs or procs[tag].returncode != 0:
+            with open(os.path.join(tmp, f"{tag}.out")) as f:
+                return False, [f"{tag} ranks failed (rc {procs[tag].returncode}"
+                               f"{'' if tag in secs else ', past 240 s'}): {f.read()[-3000:]}"]
         results[tag] = []
         for i in range(n):
             with open(os.path.join(tmp, f"{tag}_rank{i}.json")) as f:
@@ -1731,8 +1734,10 @@ def dp_phase(svs, counters, by_path, dev, tmp, record):
                  f"steps/s, gradient all-reduce {d['allreduce_ms']:.2f} ms a step, peak "
                  f"{d['mem_gib']:.2f} GiB, loss step 1 {d['losses'][0]:.6f} (phase 10 "
                  f"{ref1:.6f}, {abs(d['losses'][0] - ref1) / abs(ref1):.2e} of it)")
-    lines.append("launches (torchrun, imports and set-up included): " + ", ".join(
-        f"{k} {v:.1f} s" for k, v in secs.items()))
+    lines.append("launches (torchrun, both at once, so each run's steps/s and all-reduce time "
+                 "are read while the other shares the card; seconds from the start to each "
+                 "one's end, imports and set-up included): " + ", ".join(
+                     f"{k} {v:.1f} s" for k, v in secs.items()))
 
     # ---- serve what the 2 ranks trained ----
     ckpt = CheckpointManager(os.path.join(tmp, "checkpoints", "dp_diffusion", "ckpt"))
@@ -2045,10 +2050,596 @@ def vocoder_phase(svs, counters, by_path, dev, tmp, card):
     return not bad, lines
 
 
+# ---- phase 16: the BiSinger paper's recipe -----------------------------------
+PAPER_STEPS = 10
+PAPER_M4_ITEMS = 64
+PAPER_DB4_ITEMS = 32
+PAPER_NUS_ITEMS = 32
+# the DB-4 stand-in: Mandarin speech aligned in the CMU phones of its pinyin
+# (data/text/pinyin.py, the convention of the recipe's MFA lexicon)
+DB4_SYLLABLES = ("ai", "de", "hao", "li", "ma", "ni", "qing", "shang", "wo", "wu", "xin", "yang")
+# the synthetic songs are "<singer>#song<i % 3>": configs/usr/m4singer's own
+# held-out songs match none of them, so these hold 4 items out
+M4_TEST_PREFIXES = ["Alto-1#song0#000", "Tenor-1#song1#000"]
+# a bilingual score: pinyin, and an English word whose phones the EN->CN
+# tables of systems 1 and 2 rewrite (yeah: Y AE -> IY AE)
+PAPER_SCORE = dict(item_name="paper", text="SP hao xin yeah ma SP",
+                   notes="rest | C4 | D4 | E4 | G4 | rest",
+                   notes_duration="0.15 | 0.3 | 0.3 | 0.4 | 0.3 | 0.15")
+# (meta, config, overrides) of each system's two stages in training order; the
+# work dirs are <meta>_fs2 and <meta>_diff, the second warm-started from the
+# first. les-m4-nus/diff.yaml names its diffusion task itself: its second base
+# (./base.yaml) merges the FFT-Singer's task_cls back over the first's, in JAX's
+# cascade and in the port's (ROADMAP Queue 3, fault 6)
+PAPER_RUNS = (("system1", "usr/m4singer/fs2.yaml", ""),
+              ("system1", "usr/m4singer/system1.yaml", ""),
+              ("system2", "usr/m4singer/fs2.yaml", ""),
+              ("system2", "usr/m4singer/system2.yaml", ""),
+              ("les", "usr/les-m4-nus/fs2.yaml", ""),
+              ("les", "usr/les-m4-nus/diff.yaml",
+               ",task_cls=bisinger_tpu.training.tasks.DiffSingerMIDITask"))
+
+
+def m4_textgrids(item, r):
+    """An original M4Singer item -> (its M4Singer TextGrid, its MFA TextGrid),
+    the two that tools/proportional reads, from the item's own durations: a
+    phone interval for each slur group (M4Singer's pinyin initials and
+    finals), a word for each initial + final pair or lone group; the MFA
+    grid has the same words, each group's time shared by its CMU phones in
+    ratios drawn from `r` (a numpy RandomState), as an aligner places them."""
+    import numpy as np
+
+    from bisinger_tpu_torch.data.text.pinyin import FINALS, INITIALS
+    from bisinger_tpu_torch.tools.meta import slur_runs
+
+    groups = slur_runs(item["is_slur"])
+    phs = [item["phs"][g[0]] for g in groups]
+    bounds = [0.0]
+    for g in groups:
+        bounds.append(bounds[-1] + sum(item["ph_dur"][i] for i in g))
+    words, k = [], 0  # (first group, last group, pinyin; "" for a silence)
+    while k < len(groups):
+        if phs[k] in INITIALS and k + 1 < len(groups) and phs[k + 1] in FINALS:
+            words.append((k, k + 1, phs[k] + phs[k + 1]))
+            k += 2
+        else:
+            words.append((k, k, "" if phs[k] in ("<SP>", "<AP>") else phs[k]))
+            k += 1
+    mfa_phones = []
+    for a, b, text in words:
+        if not text:
+            mfa_phones.append((bounds[a], bounds[b + 1], ""))
+            continue
+        for g in range(a, b + 1):
+            cmu = INITIALS.get(phs[g]) or FINALS[phs[g]]
+            cuts = np.cumsum(r.uniform(0.5, 1.5, len(cmu)))
+            edges = ([bounds[g]] + [bounds[g] + (bounds[g + 1] - bounds[g]) * c / cuts[-1]
+                                    for c in cuts[:-1]] + [bounds[g + 1]])
+            mfa_phones += list(zip(edges[:-1], edges[1:], cmu))
+    m4 = textgrid_text(bounds[-1], [
+        ("words", [(bounds[a], bounds[b + 1], text or "<SP>") for a, b, text in words]),
+        ("phones", [(bounds[g], bounds[g + 1], ph) for g, ph in enumerate(phs)])])
+    mfa = textgrid_text(bounds[-1], [
+        ("words", [(bounds[a], bounds[b + 1], text) for a, b, text in words]),
+        ("phones", mfa_phones)])
+    return m4, mfa
+
+
+def paper_corpora(root, n_m4=PAPER_M4_ITEMS, n_db4=PAPER_DB4_ITEMS, n_nus=PAPER_NUS_ITEMS,
+                  seed=0):
+    """Phase 16 (a): the port's corpus tools on the host, as the paper's
+    recipe runs them. An M4Singer corpus in its original layout (synthetic,
+    fmt "m4_original": pinyin phones, no word boundary or lang; its meta the
+    JSON list M4Singer ships) -> system 1's meta by `python -m
+    bisinger_tpu_torch.tools.meta`; its M4Singer and MFA TextGrids
+    (`m4_textgrids`) -> system 2's meta by tools.proportional.pipeline; a
+    DB-4 speech set (wav and TextGrid pairs, `write_textgrid_corpus` over
+    DB4_SYLLABLES) -> tools.db4_meta.extract_corpus ->
+    tools.pitch_shift.shift_meta_file, and tools.mfa_prep.prepare_corpus on
+    its wavs; a bilingual singing set (the synthetic BiSinger-format corpus
+    under NUS-48E's singer names) merged with the DB-4 and the shifted metas
+    by tools.merge.merge_meta_jsons. pyworld is absent on the card's
+    machine, so each shifted item's wav is a copy of its speech wav, the
+    file the resynthesis would write. Returns (metas {system1, system2, les:
+    (raw_data_dir, raw_json_fn)}, lines, checks)."""
+    import shutil
+
+    import numpy as np
+
+    from bisinger_tpu_torch.data.synthetic import make_synthetic_corpus
+    from bisinger_tpu_torch.data.text.pinyin import pinyin_to_cmu
+    from bisinger_tpu_torch.tools import db4_meta, merge, mfa_prep, pitch_shift, proportional
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    lines, checks, t0 = [], {}, time.perf_counter()
+
+    # M4Singer, original layout -> system 1 (even split) and system 2 (MFA ratios)
+    m4 = os.path.join(root, "m4")
+    make_synthetic_corpus(m4, n_items=n_m4, seed=seed, fmt="m4_original")
+    with open(os.path.join(m4, "meta.json"), encoding="utf-8") as f:
+        original = [json.loads(ln) for ln in f if ln.strip()]
+    with open(os.path.join(m4, "meta_list.json"), "w", encoding="utf-8") as f:
+        json.dump(original, f, ensure_ascii=False)
+    proc = subprocess.run([sys.executable, "-m", "bisinger_tpu_torch.tools.meta",
+                           os.path.join(m4, "meta_list.json"),
+                           os.path.join(m4, "meta_system1.json")],
+                          env=env, capture_output=True, text=True, timeout=120)
+    checks["tools.meta rc 0"] = proc.returncode == 0
+    lines.append(f"python -m bisinger_tpu_torch.tools.meta: "
+                 f"{proc.stdout.strip() or proc.stderr[-500:]}")
+    r = np.random.RandomState(seed)
+    for item in original:
+        singer, song, sent = item["item_name"].split("#")
+        m4_tg, mfa_tg = m4_textgrids(item, r)
+        for path, text in ((os.path.join(m4, "tg_m4", f"{singer}#{song}", f"{sent}.TextGrid"),
+                            m4_tg),
+                           (os.path.join(m4, "tg_mfa", singer, f"{song}#{sent}.TextGrid"),
+                            mfa_tg)):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(text)
+    ok, failed = proportional.pipeline(os.path.join(m4, "meta.json"),
+                                       os.path.join(m4, "meta_system2.json"),
+                                       os.path.join(m4, "tg_m4"), os.path.join(m4, "tg_mfa"))
+    checks[f"tools.proportional: {n_m4} items, none skipped"] = (ok, failed) == (n_m4, 0)
+    lines.append(f"tools.proportional.pipeline: {ok} written, {failed} skipped")
+
+    # DB-4 speech -> meta -> pitch-shifted pseudo-singing; MFA's corpus layout
+    les = os.path.join(root, "les")
+    db4_dir = os.path.join(les, "db4#cn")
+    corpus = write_textgrid_corpus(db4_dir, n_db4, seed=seed + 1, sample_rate=24000,
+                                   dur_range=(1.5, 3.0), prefix="DB",
+                                   lexicon={s: pinyin_to_cmu(s) for s in DB4_SYLLABLES})
+    transcripts = {m["item_name"]: m["txt"] for m in corpus}
+    db4_fn, shift_fn = os.path.join(les, "meta_db4.json"), os.path.join(les, "meta_shift.json")
+    n = db4_meta.extract_corpus(db4_dir, db4_dir, db4_fn, lang=1, singer="db4", song="cn",
+                                transcripts=transcripts)
+    n_shift = pitch_shift.shift_meta_file(db4_fn, shift_fn)
+    try:
+        pitch_shift.shift_item_audio(np.zeros(2400, np.float32), 24000, [0.1], [220.0])
+        resynth = "pyworld present, not used"
+    except RuntimeError as e:
+        resynth = f"shift_item_audio: {e}"
+    os.makedirs(os.path.join(les, "db4#cn-shift"))
+    for item_id in transcripts:
+        shutil.copy(os.path.join(db4_dir, f"{item_id}.wav"),
+                    os.path.join(les, "db4#cn-shift", f"{item_id}.wav"))
+    n_mfa = mfa_prep.prepare_corpus(db4_dir, transcripts, os.path.join(root, "mfa_db4"), "db4")
+    checks[f"db4: {n_db4} extracted, shifted and paired for MFA"] = n == n_shift == n_mfa == n_db4
+    lines.append(f"db4: extract_corpus {n} items, shift_meta_file {n_shift}, the shifted "
+                 f"items' wavs copies of the speech wavs ({resynth}), prepare_corpus {n_mfa} "
+                 "wav/lab pairs")
+
+    # the bilingual singing set, merged with the speech and the pseudo-singing
+    nus_fn = make_synthetic_corpus(les, n_items=n_nus, seed=seed + 2, json_fn="meta_nus.json",
+                                   singers=["ADIZ", "JLEE"])
+    n_les = merge.merge_meta_jsons([nus_fn, db4_fn, shift_fn],
+                                   os.path.join(les, "meta_les-m4-nus.json"))
+    metas = {"system1": (m4, "meta_system1.json"), "system2": (m4, "meta_system2.json"),
+             "les": (les, "meta_les-m4-nus.json")}
+    by_name = {o["item_name"]: o for o in original}
+    tags = set()
+    for name, (raw, fn) in metas.items():
+        with open(os.path.join(raw, fn), encoding="utf-8") as f:
+            items = [json.loads(ln) for ln in f if ln.strip()]
+        checks[f"{name}: {len(items)} items"] = len(items) == (
+            n_nus + 2 * n_db4 if name == "les" else n_m4)
+        checks[f"{name}: phs, notes, ph_dur of one length"] = all(
+            len(it["phs"]) == len(it["notes"]) == len(it["ph_dur"]) for it in items)
+        if name == "les":
+            tags = {it["speechsing"] for it in items}
+        else:  # a conversion keeps each item's length
+            checks[f"{name}: durations kept"] = all(
+                abs(sum(it["ph_dur"]) - sum(by_name[it["item_name"]]["ph_dur"])) < 5e-3
+                for it in items)
+    checks["speechsing tags 0, 1, 2 after the merge"] = tags == {0, 1, 2}
+    lines.append(f"tools.merge: {n_les} items, speechsing tags {sorted(tags)}; the tools "
+                 f"{time.perf_counter() - t0:.1f} s")
+    return metas, lines, checks
+
+
+def paper_phase(counters, by_path, dev, tmp, card, prep):
+    """Phase 16: the BiSinger paper's recipe. (a) `paper_corpora`: the corpus
+    tools write system 1's, system 2's and the merged les-m4-nus meta. (b)
+    Each meta binarized (these two in the background, `prep_paper`) by `run --binarize` with its config's binarizer
+    (M4SingerBinarizer; the three at once, 3 processes each), then the
+    paper's systems trained from their own YAML in bf16 at the configs'
+    widths and max_tokens, only the steps cut (PAPER_STEPS a stage): the
+    monolingual FastSpeech2MIDI (configs/usr/m4singer/fs2.yaml: no ESM,
+    lang or style embedding) and system1.yaml warm-started from it on
+    system 1's meta, the same two with system2.yaml on system 2's meta, and
+    les-m4-nus/fs2.yaml then diff.yaml on the merged meta (num_spk 20).
+    Gates: every meta's phones in its binarized phone set, finite losses, no
+    kernel launched in training, the warm starts, no esm/, lang_embed or
+    style_embed key in a monolingual checkpoint. (c) Each diffusion work
+    dir serves PAPER_SCORE through `run --infer` in bf16 with the flagship's
+    PE and vocoder (artifacts/flagship): 201 K1-bf16 and 4 K2-bf16 launches
+    a request, a finite waveform of whole 128-sample frames; for systems 1
+    and 2 the English word's phones hold no key of the system's
+    EN_PHONE_SUBST table and hold the phones it substitutes. `card` goes
+    beside the times. Returns (ok, lines)."""
+    import contextlib
+
+    import numpy as np
+
+    from bisinger_tpu_torch import run
+    from bisinger_tpu_torch.config import load_hparams_json
+    from bisinger_tpu_torch.data.text.frontend import ENGLISH, EN_PHONE_SUBST, BilingualFrontend
+    from bisinger_tpu_torch.inference import pipeline
+    from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+    from bisinger_tpu_torch.utils.text_encoder import build_phone_encoder
+    from bisinger_tpu_torch.weights import load_npz
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    log_fn = os.path.join(repo, "checkpoints", "chip_smoke", "paper.log")
+    root = os.path.join(tmp, "paper")
+    reset, read = launch_counts(counters, by_path)
+    t_phase = time.perf_counter()
+    # ---- (a) the tools and (b) the three binarizations (`prep_paper`) ----
+    res = prep.wait("paper")
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        metas = {name: tuple(v) for name, v in res["metas"].items()}
+        lines, checks, outs, stats = res["lines"], res["checks"], res["outs"], {}
+        data = paper_data(root, metas)
+        with open(log_fn, "w") as f:
+            f.write("".join(outs.values()))
+        for name, rc in res["rcs"].items():
+            checks[f"binarize {name} rc 0"] = rc == 0
+            if rc != 0:
+                return False, lines + [f"binarize {name} failed: {outs[name][-2000:]}"]
+            raw, fn = metas[name]
+            with open(os.path.join(raw, fn), encoding="utf-8") as f:
+                phones = {ph for ln in f if ln.strip() for ph in json.loads(ln)["phs"]}
+            with open(os.path.join(root, f"bin_{name}", "phone_set.json")) as f:
+                checks[f"{name}: every phone in the binarized phone set"] = phones <= set(
+                    json.load(f))
+        counts_lines = {name: "; ".join(ln[2:] for ln in out.splitlines()
+                                         if ln.startswith("| binarized"))
+                        for name, out in outs.items()}
+        lines.append(f"binarize (M4SingerBinarizer, 3 runs at once, 3 processes each): "
+                     f"{res['binarize_s']:.1f} s{prep.when(res)} ({json.dumps(counts_lines)})")
+        stats["binarize"] = dict(seconds=res["binarize_s"])
+
+        common = "log_interval=1,val_check_interval=1000,num_ckpt_keep=2"
+        for meta, config, over in PAPER_RUNS:
+            stage1 = config.endswith("/fs2.yaml")
+            name = f"{meta}_{'fs2' if stage1 else 'diff'}"
+            fs2_dir = os.path.join(root, "checkpoints", f"{meta}_fs2")
+            extra = over + ("" if stage1 else f",fs2_ckpt={fs2_dir}")
+            tr = run.trainer_from_args(run.parse_args(
+                ["--config", os.path.join(repo, "configs", config), "--exp_name", name,
+                 "--hparams", f"{data[meta]},{common},max_updates={PAPER_STEPS}{extra}"]))
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
+                tr.fit()
+            counts = read(f"16 train {name}")
+            log = tr.train_log
+            t1, tn = log[0][1], log[-1][1]
+            hp = tr.task.hp
+            st = stats[name] = dict(
+                first_s=t1 - tr.loop_started, steps_per_s=(len(log) - 1) / (tn - t1),
+                mem=torch.cuda.max_memory_allocated() / 2 ** 30,
+                loss1=log[0][2]["total_loss"], loss_last=log[-1][2]["total_loss"])
+            checks[f"{name} losses finite"] = all(
+                np.isfinite(v) for _, _, m in log for v in m.values())
+            checks[f"{name} {PAPER_STEPS} steps"] = tr.global_step == PAPER_STEPS
+            checks[f"{name} no kernel launched in training"] = not any(counts.values())
+            ckpt = CheckpointManager(os.path.join(root, "checkpoints", name, "ckpt"))
+            keys = load_npz(os.path.join(ckpt.directory, str(ckpt.latest_step()),
+                                         "params.npz"))
+            lang_keys = [k for k in keys if k.split("/")[0 if stage1 else 1]
+                         in ("esm", "lang_embed", "style_embed")]
+            if meta == "les":
+                checks[f"{name} has the ESM, lang and style embeddings"] = bool(lang_keys)
+            else:
+                checks[f"{name}: no esm/, lang_embed or style_embed key"] = not lang_keys
+            if not stage1:
+                with open(log_fn) as f:
+                    checks[f"{name} warm-started from {os.path.basename(fs2_dir)}"] = (
+                        f"| warm-started fs2 from {fs2_dir}" in f.read())
+            lines.append(
+                f"{name} ({config}: {hp['task_cls'].rsplit('.', 1)[-1]}, use_lang_embed "
+                f"{hp['use_lang_embed']}, hidden {hp['hidden_size']}, {hp['enc_layers']} + "
+                f"{hp['dec_layers']} FFT layers, "
+                + (f"DiffNet {hp['residual_layers']} x {hp['residual_channels']}, "
+                   if not stage1 else "")
+                + f"max_tokens {hp['max_tokens']}, num_spk {hp['num_spk']}, bf16): first step "
+                f"{st['first_s']:.2f} s, then {st['steps_per_s']:.2f} steps/s; peak memory "
+                f"{st['mem']:.2f} GiB; loss step 1 {st['loss1']:.4f}, step {PAPER_STEPS} "
+                f"{st['loss_last']:.4f}; {len(keys)} parameter arrays")
+
+        # ---- (c) serve the bilingual score from each diffusion work dir ----
+        req_fn = os.path.join(root, "score.json")
+        with open(req_fn, "w") as f:
+            json.dump([PAPER_SCORE], f)
+        want = {"fused_residual_stack": 0, "fused_residual_stack_bf16": 201,
+                "fused_mrf_stage": 0, "fused_mrf_stage_bf16": 4}
+        written = {}
+        save_wav = pipeline.save_wav
+
+        def keep(wav, path, sr, **kw):  # the float waveform behind the 16-bit file
+            written[path] = np.array(wav, np.float32)
+            return save_wav(wav, path, sr, **kw)
+
+        for meta in metas:
+            name = f"{meta}_diff"
+            hp = load_hparams_json(os.path.join(root, "checkpoints", name, "config.json"))
+            encoder = build_phone_encoder(hp["binary_data_dir"])
+            ret = BilingualFrontend(encoder, phone_subst=hp.get("en_phone_subst")
+                                    ).preprocess_word_level(PAPER_SCORE)
+            raw = BilingualFrontend(encoder).preprocess_word_level(PAPER_SCORE)
+            raw_en = [ph for ph, lg in zip(raw["ph_seq"].split(), raw["lang"]) if lg == ENGLISH]
+            served_en = [ph for ph, lg in zip(ret["ph_seq"].split(), ret["lang"])
+                         if lg == ENGLISH]
+            table = EN_PHONE_SUBST.get(hp.get("en_phone_subst"), {})
+            if table:
+                subst = {table[ph] for ph in raw_en if ph in table}
+                checks[f"{name}: English phones {served_en} hold no key of "
+                       f"{hp['en_phone_subst']}'s table and hold {sorted(subst)}"] = (
+                    bool(subst) and not set(served_en) & set(table) and subst <= set(served_en))
+            checks[f"{name}: every served phone in its phone set"] = all(
+                i != encoder.unk_index for i in encoder.encode(ret["ph_seq"]))
+            out_dir = os.path.join(root, f"out_{name}")
+            pipeline.save_wav = keep
+            reset()
+            t0 = time.perf_counter()
+            try:
+                with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
+                    rc = run.main(["--infer", "--exp_name", name, "--input", req_fn,
+                                   "--out", out_dir, "--device", "cuda"])
+            finally:
+                pipeline.save_wav = save_wav
+            serve_s = time.perf_counter() - t0
+            counts = read(f"16 served {name}")
+            wav = written.get(os.path.join(out_dir, "paper.wav"), np.zeros(0, np.float32))
+            checks[f"{name} run --infer rc 0"] = rc == 0
+            checks[f"{name} served: K1-bf16 201, K2-bf16 4, fp32 0 launches"] = counts == want
+            checks[f"{name} served: finite, non-silent, whole 128-sample frames"] = (
+                len(wav) > 0 and bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 1e-3
+                and len(wav) % 128 == 0)
+            stats[f"{name} served"] = dict(seconds=serve_s, audio_s=len(wav) / 24000)
+            lines.append(f"{name} served through run --infer (en_phone_subst "
+                         f"{hp.get('en_phone_subst')}; phones {ret['ph_seq']}): {len(wav)} "
+                         f"samples, |wav| max {float(np.abs(wav).max(initial=0)):.3f}, "
+                         f"{serve_s:.2f} s with the loading, launches {counts}")
+        lines.append(f"binarize s, steps/s (first step apart), peak GiB, losses, served s on "
+                     f"{card}: " + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()}
+                                               for k, v in stats.items()}))
+        lines.append(f"phase 16 {time.perf_counter() - t_phase:.1f} s, and its host part ((a) "
+                     f"and the binarizations) {res['ended'] - res['started']:.1f} s in the "
+                     "background")
+    finally:
+        os.chdir(cwd)
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
+# ---- the host's share, in the background ----------------------------------------
+# Phases 10, 12, 13 and 16 each start from a corpus binarized on the host (16
+# from the corpus tools' metas). One process of its own (`--prepare`, at the
+# lowest CPU priority) writes them all from the start of the run, in the order
+# the phases need them, while the card runs phases 2-8; each phase waits for
+# its part.
+def popcs_data(root):
+    """Phase 12's data keys. The synthetic items are named
+    "<singer>#song<i % 3>#<i:04d>": the configs' PopCS song names match none;
+    4 items are held out."""
+    return (f'raw_data_dir={root}/raw,binary_data_dir={root}/binary,'
+            f'test_prefixes=["song0#000"]')
+
+
+def tts_data(root):
+    return f"raw_data_dir={root}/raw,raw_json_fn=meta.json,binary_data_dir={root}/binary"
+
+
+def paper_data(root, metas):
+    """Phase 16's data keys for each of its metas."""
+    data = {}
+    for name, (raw, fn) in metas.items():
+        data[name] = f"raw_data_dir={raw},raw_json_fn={fn},binary_data_dir={root}/bin_{name}"
+        if name != "les":
+            data[name] += ",test_prefixes=" + json.dumps(M4_TEST_PREFIXES).replace(" ", "")
+    return data
+
+
+def _binarize_env(n_proc):
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, N_PROC=str(n_proc),
+                PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+
+
+def binarize_cli(argv, cwd, n_proc):
+    """`run <argv> --binarize` in a process of its own with `n_proc`
+    workers: its rc, output and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bisinger_tpu_torch.run", *argv, "--binarize"],
+                          cwd=cwd, env=_binarize_env(n_proc), capture_output=True, text=True,
+                          timeout=300)
+    return dict(rc=proc.returncode, stdout=proc.stdout, stderr=proc.stderr,
+                seconds=time.perf_counter() - t0)
+
+
+def prep_training(tmp):
+    """Phase 10's corpus (TRAIN_ITEMS synthetic items, seed 0), its two stages'
+    configs (tmp/fs2.json, tmp/diff.json) and its binarization."""
+    from bisinger_tpu_torch.config import load_hparams_json
+    from bisinger_tpu_torch.data.synthetic import make_synthetic_corpus
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR
+
+    make_synthetic_corpus(os.path.join(tmp, "raw"), n_items=TRAIN_ITEMS, seed=0)
+    data = dict(raw_data_dir=os.path.join(tmp, "raw"),
+                binary_data_dir=os.path.join(tmp, "binary"), max_updates=TRAIN_STEPS,
+                val_check_interval=1000, log_interval=1, num_ckpt_keep=2)
+    for stage, over in (("fs2", {}), ("diff", dict(
+            fs2_ckpt=os.path.join(FLAGSHIP_DIR, "diff_params.npz")))):
+        hp = load_hparams_json(os.path.join(FLAGSHIP_DIR, f"hparams_{stage}.json"),
+                               dict(data, **over))
+        with open(os.path.join(tmp, f"{stage}.json"), "w") as f:
+            json.dump(hp, f)
+    return binarize_cli(["--config", "fs2.json"], tmp, 8)
+
+
+def prep_popcs(tmp):
+    """Phase 12's PopCS corpus (POPCS_ITEMS items, seed 0) and its
+    binarization (MidiSingingBinarizer)."""
+    from bisinger_tpu_torch.data.synthetic import make_synthetic_corpus
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "popcs")
+    os.makedirs(root)
+    make_synthetic_corpus(os.path.join(root, "raw"), n_items=POPCS_ITEMS, seed=0, fmt="popcs")
+    return binarize_cli(["--config", os.path.join(repo, "configs", "usr", "popcs_fs2.yaml"),
+                         "--hparams", popcs_data(root)], root, 8)
+
+
+def prep_tts(tmp):
+    """Phase 13's TextGrid corpus (TTS_ITEMS items, seed 0) and its
+    binarization (the TextGrid binarizer, with_f0cwt)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "tts")
+    os.makedirs(root)
+    write_textgrid_corpus(os.path.join(root, "raw"), TTS_ITEMS, seed=0)
+    return binarize_cli(["--config", os.path.join(repo, "configs", "tts", "lj", "fs2.yaml"),
+                         "--hparams", f"{tts_data(root)},binarizer_cls="
+                         "bisinger_tpu.data.binarizer.ZhBinarizer"], root, 8)
+
+
+def prep_paper(tmp):
+    """Phase 16 (a) and the start of (b): `paper_corpora`, then each of its
+    metas binarized by `run --binarize` with its config's binarizer
+    (M4SingerBinarizer), the three at once, 3 processes each."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "paper")
+    os.makedirs(root)
+    os.chdir(root)
+    metas, lines, checks = paper_corpora(root)
+    data = paper_data(root, metas)
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "bisinger_tpu_torch.run", "--config",
+         os.path.join(repo, "configs", "usr", "m4singer/fs2.yaml" if name != "les"
+                      else "les-m4-nus/fs2.yaml"), "--binarize", "--hparams", data[name]],
+        cwd=root, env=_binarize_env(3), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for name in metas}
+    outs = {name: p.communicate(timeout=300)[0] for name, p in procs.items()}
+    return dict(metas=metas, lines=lines, checks=checks, outs=outs,
+                rcs={name: p.returncode for name, p in procs.items()},
+                binarize_s=time.perf_counter() - t0)
+
+
+PREP_PARTS = (("training", prep_training), ("popcs", prep_popcs), ("tts", prep_tts),
+              ("paper", prep_paper))
+
+
+def prepare(tmp: str) -> int:
+    """`chip_smoke.py --prepare TMP`: PREP_PARTS in their order, each part's
+    result to TMP/prep_<part>.json (its error instead, and the rest left
+    out, where one raises)."""
+    import traceback
+
+    os.nice(19)
+    for part, fn in PREP_PARTS:
+        started = time.time()
+        try:
+            res = fn(tmp)
+        except Exception:
+            res = dict(error=traceback.format_exc()[-3000:])
+        res.update(started=started, ended=time.time())
+        path = os.path.join(tmp, f"prep_{part}.json")
+        with open(path + ".part", "w") as f:
+            json.dump(res, f)
+        os.replace(path + ".part", path)
+        if "error" in res:
+            return 1
+    return 0
+
+
+class Prep:
+    """The `--prepare` process, started at once in a process group of its
+    own (its log: checkpoints/chip_smoke/prep.log)."""
+
+    def __init__(self, tmp):
+        repo = os.path.dirname(os.path.abspath(__file__))
+        out_dir = os.path.join(repo, "checkpoints", "chip_smoke")  # gitignored
+        os.makedirs(out_dir, exist_ok=True)
+        self.tmp, self.log_fn = tmp, os.path.join(out_dir, "prep.log")
+        with open(self.log_fn, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--prepare", tmp],
+                env=_binarize_env(1), stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+
+    def wait(self, part, timeout=600.0):
+        """`part`'s result, once written; `waited_s` the seconds this took."""
+        fn = os.path.join(self.tmp, f"prep_{part}.json")
+        t0 = time.perf_counter()
+        while not os.path.exists(fn):
+            if self.proc.poll() is not None and not os.path.exists(fn):
+                with open(self.log_fn) as f:
+                    raise RuntimeError(f"the host preparation ended (rc {self.proc.returncode})"
+                                       f" before {part}: {f.read()[-2000:]}")
+            if time.perf_counter() - t0 > timeout:
+                raise RuntimeError(f"the host preparation of {part} took over {timeout:.0f} s")
+            time.sleep(0.05)
+        with open(fn) as f:
+            res = json.load(f)
+        if "error" in res:
+            raise RuntimeError(f"the host preparation of {part} failed: {res['error']}")
+        res["waited_s"] = time.perf_counter() - t0
+        return res
+
+    @staticmethod
+    def when(res):
+        return (f", in the background from {res['started'] - T_START_WALL:.1f} s to "
+                f"{res['ended'] - T_START_WALL:.1f} s of the run, waited {res['waited_s']:.1f} s")
+
+    def binarize_line(self, res, label, n_proc):
+        counts = [ln for ln in res["stdout"].splitlines() if ln.startswith("| binarized")]
+        warned = ("; Praat-AC fallback warned" if "parselmouth not installed" in res["stdout"]
+                  else "")
+        return (f"binarize{label}: {res['seconds']:.1f} s with {n_proc} processes"
+                f"{self.when(res)} ({'; '.join(counts)}{warned})")
+
+    def stop(self):
+        """Ends the process and whatever it started."""
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    prep = Prep(tmp)
+    try:
+        return run_phases(tmp, prep)
+    finally:
+        prep.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(tmp: str, prep: Prep) -> int:
+    """Phases 1-16 in their order; `tmp` holds the corpora `prep` writes."""
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
     from bisinger_tpu_torch import full_fp32
     from bisinger_tpu_torch.ops import _build, _tf32, diffnet_stack, mrf_stage
@@ -2445,44 +3036,42 @@ def main() -> int:
         if not ok:
             return 1
 
-    import shutil
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     record = {}  # phase 10's step-1 losses, for phase 14
-    try:
-        with Phase("10 training") as ph:
-            ok, lines = training_phase(svs, counters, by_path, dev, tmp, record)
-            ph.done(" | ".join(lines))
-            if not ok:
-                return 1
-        with Phase("11 cascade training") as ph:
-            ok, lines = cascade_phase(svs, counters, by_path, dev, tmp)
-            ph.done(" | ".join(lines))
-            if not ok:
-                return 1
-        with Phase("12 PopCS family from the YAML configs") as ph:
-            ok, lines = popcs_phase(counters, by_path, dev, tmp, smi)
-            ph.done(" | ".join(lines))
-            if not ok:
-                return 1
-        with Phase("13 TTS: DiffSpeech from the LJSpeech configs") as ph:
-            ok, lines = tts_phase(counters, by_path, dev, tmp, smi)
-            ph.done(" | ".join(lines))
-            if not ok:
-                return 1
-        with Phase("14 data parallel") as ph:
-            ok, lines = dp_phase(svs, counters, by_path, dev, tmp, record)
-            ph.done(" | ".join(lines))
-            if not ok:
-                return 1
-        with Phase("15 vocoder family") as ph:
-            ok, lines = vocoder_phase(svs, counters, by_path, dev, tmp, smi)
-            ph.done(" | ".join(lines))
-            if not ok:
-                return 1
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    with Phase("10 training") as ph:
+        ok, lines = training_phase(svs, counters, by_path, dev, tmp, record, prep)
+        ph.done(" | ".join(lines))
+        if not ok:
+            return 1
+    with Phase("11 cascade training") as ph:
+        ok, lines = cascade_phase(svs, counters, by_path, dev, tmp)
+        ph.done(" | ".join(lines))
+        if not ok:
+            return 1
+    with Phase("12 PopCS family from the YAML configs") as ph:
+        ok, lines = popcs_phase(counters, by_path, dev, tmp, smi, prep)
+        ph.done(" | ".join(lines))
+        if not ok:
+            return 1
+    with Phase("13 TTS: DiffSpeech from the LJSpeech configs") as ph:
+        ok, lines = tts_phase(counters, by_path, dev, tmp, smi, prep)
+        ph.done(" | ".join(lines))
+        if not ok:
+            return 1
+    with Phase("14 data parallel") as ph:
+        ok, lines = dp_phase(svs, counters, by_path, dev, tmp, record)
+        ph.done(" | ".join(lines))
+        if not ok:
+            return 1
+    with Phase("15 vocoder family") as ph:
+        ok, lines = vocoder_phase(svs, counters, by_path, dev, tmp, smi)
+        ph.done(" | ".join(lines))
+        if not ok:
+            return 1
+    with Phase("16 the paper's recipe") as ph:
+        ok, lines = paper_phase(counters, by_path, dev, tmp, smi, prep)
+        ph.done(" | ".join(lines))
+        if not ok:
+            return 1
 
     with Phase("9 kernels at every shape launched") as ph:
         # the input shapes any phase launched a kernel on (phases 5 and 8 at
@@ -2549,6 +3138,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--prepare":
+        sys.exit(prepare(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] in ("--dp-gloo", "--dp-nccl"):
         sys.exit(dp_ranks(sys.argv[2], nccl=sys.argv[1] == "--dp-nccl"))
     sys.exit(main())

@@ -320,8 +320,9 @@ def test_port_imports_nothing_of_jax():
     front end, the server, the CLI, the data pipeline, the training
     modules, the GAN vocoder's task, weight norm, PQMF, STFT, wrapper and
     trainer tool, the card-vs-CPU step check, the YAML reader, the vocoder
-    registry, PWG, MelGAN, the host vocoder utilities and the checkpoint
-    importers among them)
+    registry, PWG, MelGAN, the host vocoder utilities, the checkpoint
+    importers, the corpus tools, the text processors and `freq_to_midi`
+    among them)
     and chip_smoke (without running it) import, and a YAML config of the
     repo loads with its cascade."""
     code = textwrap.dedent("""
@@ -347,6 +348,8 @@ def test_port_imports_nothing_of_jax():
         from bisinger_tpu_torch.config import load_hparams
         hp = load_hparams("configs/usr/popcs_ds_beta6_offline.yaml")
         assert hp["K_step"] == 51 and hp["use_midi"] is False and hp["hop_size"] == 128
+        from bisinger_tpu_torch.utils.pitch import freq_to_midi
+        assert freq_to_midi(440.0) == 69
         loaded = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
         assert not loaded, loaded
         print(" ".join(names))
@@ -373,4 +376,8 @@ def test_port_imports_nothing_of_jax():
             "bisinger_tpu_torch.models.pwg", "bisinger_tpu_torch.models.melgan",
             "bisinger_tpu_torch.vocoders.base_vocoder", "bisinger_tpu_torch.vocoders.pwg",
             "bisinger_tpu_torch.vocoders.vocoder_utils", "bisinger_tpu_torch.vocoders.torch_import",
-            "bisinger_tpu_torch.compat.torch_params"} <= names
+            "bisinger_tpu_torch.compat.torch_params", "bisinger_tpu_torch.tools.merge",
+            "bisinger_tpu_torch.tools.meta", "bisinger_tpu_torch.tools.proportional",
+            "bisinger_tpu_torch.tools.db4_meta", "bisinger_tpu_torch.tools.pitch_shift",
+            "bisinger_tpu_torch.tools.mfa_prep", "bisinger_tpu_torch.data.text.text_norm",
+            "bisinger_tpu_torch.data.text.processors", "bisinger_tpu_torch.utils.pitch"} <= names
