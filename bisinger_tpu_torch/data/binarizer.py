@@ -26,10 +26,15 @@ alias `SingingBinarizer`, `TextGridBinarizer`, alias `ZhBinarizer`, and
 
 f0: `pitch_extractor: parselmouth` (the flagship's) uses parselmouth when
 it imports and otherwise, with a warning, the in-repo Praat AC tracker
-(`utils/praat_pitch.py`); `autocorr` is the quick numpy tracker. Options
-not ported raise: speaker embeddings (`with_spk_embed`), silence trimming
-and loudness normalisation. `N_PROC` worker processes (default 1; one
-spawned pool for all the splits) extract the items.
+(`utils/praat_pitch.py`); `autocorr` is the quick numpy tracker. Before the
+features, `binarization_args.trim_long_sil` collapses long silences (not
+for TextGrid items, whose alignment is of the untrimmed audio) and
+`loud_norm` scales the audio to -22 LUFS (`utils/audio.py`);
+`binarization_args.with_spk_embed` adds a 256-d speaker vector
+(`extract_spk_embed`: the JAX package's mel-statistics stand-in for
+resemblyzer, which the port does not import; with the same warning).
+`N_PROC` worker processes (default 1; one spawned pool for all the splits)
+extract the items.
 """
 
 from __future__ import annotations
@@ -49,13 +54,10 @@ from bisinger_tpu_torch.data.textgrid import (
     is_sil_phoneme,
     textgrid_to_mel2ph,
 )
-from bisinger_tpu_torch.utils.audio import wav2spec
+from bisinger_tpu_torch.utils.audio import loudness_normalize, trim_long_silences, wav2spec
 from bisinger_tpu_torch.utils.cwt import f0_to_cwt_spec, get_cont_lf0
 from bisinger_tpu_torch.utils.pitch import f0_to_coarse_np
 from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder
-
-_UNPORTED_ARGS = ("with_spk_embed", "trim_long_sil")
-
 
 class BinarizationError(Exception):
     pass
@@ -132,6 +134,38 @@ def _warn_fallback(key: str, msg: str):
         print(f"| WARNING: {msg}", flush=True)
 
 
+def extract_spk_embed(wav: np.ndarray, sample_rate: int, mel: Optional[np.ndarray] = None
+                      ) -> np.ndarray:
+    """A 256-d unit speaker vector from mel statistics
+    (`bisinger_tpu/data/binarizer.py:144-200`, the branch without
+    resemblyzer): the linear mel's per-bin mean and std and four moments
+    (the spectral centroid's mean and std, the mel's mean and std), each
+    block scaled to unit norm, concatenated, cut or padded to 256. `mel` is
+    the item's log10 mel, else computed from the wav."""
+    _warn_fallback(
+        "spk_embed",
+        "resemblyzer not installed — speaker embeddings fall back to "
+        "mel-statistics vectors (discriminative but NOT a trained "
+        "voice encoder; cross-corpus speaker similarity will be "
+        "poor)",
+    )
+    if mel is None:
+        mel = wav2spec(wav, sample_rate=sample_rate, fft_size=512, hop_size=128, win_size=512,
+                       num_mels=80, fmin=30, fmax=sample_rate // 2, eps=1e-6)[1]
+    lin = np.power(10.0, mel)
+    centroid = (lin * np.arange(lin.shape[1])[None, :]).sum(1) / np.maximum(lin.sum(1), 1e-8)
+    extra = np.array([centroid.mean(), centroid.std(), lin.mean(), lin.std()], np.float32)
+
+    def unit(v):
+        return v / max(np.linalg.norm(v), 1e-8)
+
+    emb = np.concatenate([unit(lin.mean(0)), unit(lin.std(0)), unit(extra)])[:256].astype(
+        np.float32)
+    if len(emb) < 256:
+        emb = np.pad(emb, (0, 256 - len(emb)))
+    return emb / max(np.linalg.norm(emb), 1e-6)
+
+
 def extract_f0(wav: np.ndarray, n_frames: int, hp) -> np.ndarray:
     extractor = hp.get("pitch_extractor", "parselmouth")
     if extractor == "autocorr":
@@ -196,12 +230,6 @@ class M4SingerBinarizer:
     """BiSinger binarizer over the `raw_json_fn` metadata format."""
 
     def __init__(self, hp):
-        args = hp["binarization_args"]
-        for key in _UNPORTED_ARGS:
-            if args.get(key):
-                raise NotImplementedError(f"binarization_args.{key} is not ported")
-        if hp.get("loud_norm"):
-            raise NotImplementedError("loud_norm is not ported")
         self.hp = hp
         self.items: Dict[str, Dict[str, Any]] = {}
         self.item_names: List[str] = []
@@ -290,6 +318,10 @@ class M4SingerBinarizer:
         hp = self.hp
         try:
             wav = load_wav(item["wav_fn"], hp["audio_sample_rate"])
+            if hp["binarization_args"].get("trim_long_sil") and "tg_fn" not in item:
+                wav, _ = trim_long_silences(wav, hp["audio_sample_rate"])
+            if hp.get("loud_norm"):
+                wav = loudness_normalize(wav, hp["audio_sample_rate"])
             wav, mel = wav2spec(
                 wav, sample_rate=hp["audio_sample_rate"], fft_size=hp["fft_size"],
                 hop_size=hp["hop_size"], win_size=hp["win_size"],
@@ -307,6 +339,8 @@ class M4SingerBinarizer:
             }
             if hp["binarization_args"].get("with_wav"):
                 res["wav"] = wav.astype(np.float32)
+            if hp["binarization_args"].get("with_spk_embed"):
+                res["spk_embed"] = extract_spk_embed(wav, hp["audio_sample_rate"], mel=mel)
             if hp["binarization_args"].get("with_f0", True):
                 f0 = extract_f0(wav, n_frames, hp)
                 if f0.sum() == 0:

@@ -10,11 +10,13 @@
   - each epoch's order comes from `RandomState(seed + epoch)`, so the
     port's batches are the JAX package's at the same seed.
 
-Everything is numpy on the host. Beside the binarized fields an item
-carries the frame energy (`use_energy_embed`), the offline task's
-recorded fs2 mel (`fs2_mel_dir/<item_name>.npy`) and, with `pitch_type:
-cwt`, the binarized CWT spectrogram (`cwt_spec`) with the log-f0's mean and
-std (`f0_mean`, `f0_std`). The speaker-embedding features are not ported.
+Everything is numpy on the host. Beside the binarized fields (the speaker
+vector `spk_embed` among them, where the binarizer wrote one) an item
+carries the frame energy (`use_energy_embed`; `energy_convention` "ref",
+the reference's e**mel, else 10**mel), the offline task's recorded fs2 mel
+(`fs2_mel_dir/<item_name>.npy`) and, with `pitch_type: cwt`, the binarized
+CWT spectrogram (`cwt_spec`) with the log-f0's mean and std (`f0_mean`,
+`f0_std`).
 """
 
 from __future__ import annotations
@@ -84,12 +86,11 @@ class M4SingerDataset:
             "spk_id": int(item.get("spk_id", 0)),
         }
         if hp.get("use_energy_embed"):
-            # the frame energy of the log-mel (`dataset.py:102-111`): e**mel, as
-            # the reference's energy ids were trained on
-            if hp.get("energy_convention", "ref") != "ref":
-                raise NotImplementedError(
-                    "energy_convention other than 'ref' is not ported")
-            sample["energy"] = np.sqrt((np.exp(mel) ** 2).sum(-1)).astype(np.float32)
+            # the frame energy of the log-mel (`dataset.py:85-97`): e**mel by
+            # default, as the reference's energy ids were trained on; any other
+            # convention the dimensionally consistent 10**mel
+            lin = np.exp(mel) if hp.get("energy_convention", "ref") == "ref" else 10.0 ** mel
+            sample["energy"] = np.sqrt((lin ** 2).sum(-1)).astype(np.float32)
         if hp["binarization_args"].get("with_f0", True) and "f0" in item:
             if hp["pitch_norm"] == "standard" and not hp.get("f0_mean"):
                 raise ValueError("pitch_norm: standard requires f0_mean/f0_std in the config")
@@ -107,6 +108,8 @@ class M4SingerDataset:
             sample["f0_std"] = float(item["cwt_std"])
         if "speechsing" in item:
             sample["speechsing"] = int(np.asarray(item["speechsing"]).reshape(-1)[0])
+        if "spk_embed" in item:
+            sample["spk_embed"] = np.asarray(item["spk_embed"], np.float32)
         if hp.get("fs2_mel_dir"):
             # offline shallow diffusion: the fs2 stage's mel of this item, cut
             # or zero-padded to its frames (`dataset.py:117-130`)
@@ -193,6 +196,8 @@ def collate_batch(samples: List[Dict[str, Any]], hp, static_shapes: bool = True
         batch["fs2_mels"] = pad_2d([s["fs2_mel"] for s in samples], t_mel)
     if "energy" in samples[0]:
         batch["energy"] = pad_1d([s["energy"] for s in samples], t_mel).astype(np.float32)
+    if "spk_embed" in samples[0]:
+        batch["spk_embed"] = np.stack([s["spk_embed"] for s in samples])
     if "f0" in samples[0]:
         batch["f0"] = pad_1d([s["f0"] for s in samples], t_mel).astype(np.float32)
         batch["uv"] = pad_1d([s["uv"] for s in samples], t_mel).astype(np.float32)

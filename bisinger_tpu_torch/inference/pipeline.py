@@ -8,8 +8,12 @@ A score is a dict as the JAX package takes it (`text`, `notes`,
 bilingual front end (`data/text/frontend.py`) into items: per-token
 arrays (`ph_token`, `pitch_midi`, `midi_dur`, `is_slur`, `lang`) plus
 `spk_id`, `speechsing` and `total_sec`. An item made by hand may instead
-carry a frame map `mel2ph`. `items_to_batch` pads items into one batch at
-the configured buckets, and `synthesize` runs
+carry a frame map `mel2ph`. A model conditioned on speaker vectors
+(`use_spk_embed`) takes each score's `spk_embed` (256 floats), else zeros;
+the port's `score_items` carries the key from the score into its item (JAX's
+front end drops it, so JAX serves a score with zeros; ROADMAP Queue 3).
+`items_to_batch` pads items into one batch at the configured buckets, and
+`synthesize` runs
 
     FastSpeech2MIDI or FastSpeech2 (`use_midi`) -> diffusion sampler
     (DiffNet through K1) -> mel -> f0 -> vocoder -> wav.
@@ -166,15 +170,14 @@ class SVSInferTorch:
     @classmethod
     def from_work_dir(cls, work_dir: str, assets_dir: str = FLAGSHIP_DIR, device=None,
                       hp_overrides=None) -> "SVSInferTorch":
-        """The diffusion model of a port training run (a task that builds
-        `GaussianDiffusion`: the offline one needs recorded fs2 mels and is
-        refused): `config.json` and the latest `ckpt/<step>/params.npz` of
-        `work_dir`, the phone set and speakers its binarizer wrote
-        (`binary_data_dir`); the vocoder, and the PE when the run's
-        `pe_enable` is set, with their hyperparameters, from `assets_dir`
-        (laid out as `from_checkpoint` reads it: the vocoder is built from
-        the keys of `assets_dir/hparams_diff.json`, its own config's, not
-        from the acoustic run's). Without the PE, f0 is the model's own."""
+        """The diffusion model of a port training run (a task that builds `GaussianDiffusion`; the
+        offline one starts from recorded fs2 mels, which a score lacks, and is refused, as
+        JAX's fails): `config.json` and the latest `ckpt/<step>/params.npz` of `work_dir`,
+        the phone set and speakers its binarizer wrote (`binary_data_dir`); the vocoder,
+        and the PE when the run's `pe_enable` is set, with their hyperparameters, from
+        `assets_dir` (laid out as `from_checkpoint` reads it: the vocoder is built from the
+        keys of `assets_dir/hparams_diff.json`, its own config's, not from the acoustic
+        run's). Without the PE, f0 is the model's own."""
         from bisinger_tpu_torch.training.checkpoints import CheckpointManager
         from bisinger_tpu_torch.training.tasks import (
             DiffSingerMIDITask,
@@ -185,7 +188,12 @@ class SVSInferTorch:
         device = resolve_device(device)
         hp = load_hparams_json(os.path.join(work_dir, "config.json"), hp_overrides)
         task = task_class(hp.get("task_cls", ""))
-        if not issubclass(task, DiffSingerMIDITask) or issubclass(task, DiffSingerOfflineTask):
+        if issubclass(task, DiffSingerOfflineTask):
+            # JAX's SVSInfer.from_work_dir raises KeyError 'fs2_mels' here (ROADMAP Queue 3)
+            raise NotImplementedError(
+                f"a {task.__name__} work dir cannot serve a score: its sampler starts from the "
+                "recorded fs2 mels (fs2_mels, from fs2_mel_dir), which a score does not have")
+        if not issubclass(task, DiffSingerMIDITask):
             raise NotImplementedError(f"serving a {task.__name__} work dir is not ported (the "
                                       "port serves the online diffusion tasks)")
         restored = CheckpointManager(os.path.join(work_dir, "ckpt")).restore()
@@ -223,7 +231,9 @@ class SVSInferTorch:
         speaker 0, singing). `t_txt` and `t_mel` override the buckets. A
         batch either gives every item's `mel2ph` (then `t_mel` defaults to
         the longest) or none (then durations are predicted within `n_frames`
-        frames). Training targets are not made."""
+        frames). With `use_spk_embed`, `spk_embed` [B, 256] holds each item's
+        speaker vector, else zeros (and zeros on the padding rows), as
+        `pipeline.py:219-229`. Training targets are not made."""
         hp = self.hp
         max_tok = max(len(it["ph_token"]) for it in items)
         t_txt = t_txt or pick_bucket(max_tok, hp["bucket_tokens"])
@@ -267,6 +277,10 @@ class SVSInferTorch:
         }
         if all(given):
             batch["mel2ph"] = pad("mel2ph", np.int64, t_mel)
+        if hp.get("use_spk_embed"):
+            batch["spk_embed"] = np.stack(
+                [np.asarray(it.get("spk_embed", np.zeros(256)), np.float32) for it in items]
+                + [np.zeros(256, np.float32)] * n_pad)
         return batch
 
     @torch.no_grad()
@@ -282,6 +296,8 @@ class SVSInferTorch:
         mel2ph = batch.get("mel2ph")
         cond = {k: as_t(k) for k in ("pitch_midi", "midi_dur", "is_slur", "lang", "speechsing")
                 } if self.hp.get("use_midi") else {}
+        if "spk_embed" in batch:
+            cond["spk_embed"] = as_t("spk_embed").float()
         ret = self.model(
             as_t("txt_tokens"),
             mel2ph=None if mel2ph is None else torch.as_tensor(mel2ph, device=dev),
@@ -300,9 +316,17 @@ class SVSInferTorch:
 
     # ---- score entry points ------------------------------------------------
     def score_items(self, inputs: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """Scores -> items through the front end; a score's `spk_embed` (a
+        speaker vector) rides along into its item."""
         if self.frontend is None:
             raise RuntimeError("no phone encoder: build with from_checkpoint or pass encoder=")
-        return [self.frontend(inp, self.spk_map) for inp in inputs]
+        items = []
+        for inp in inputs:
+            item = self.frontend(inp, self.spk_map)
+            if inp.get("spk_embed") is not None:
+                item["spk_embed"] = np.asarray(inp["spk_embed"], np.float32)
+            items.append(item)
+        return items
 
     @torch.no_grad()
     def infer_batch(self, inputs: List[Dict[str, Any]],

@@ -25,6 +25,7 @@ reference that `tools/step_parity` holds an fp32 train step against.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -117,6 +118,22 @@ def gelu_tanh(x):
 def softplus(x):
     """jax.nn.softplus, max(x, 0) + log1p(exp(-|x|)), op by op in x's dtype."""
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def silu(x):
+    """jax.nn.silu, x * sigmoid(x): in bf16 the sigmoid rounded, then the
+    product, as XLA runs the two ops."""
+    return x * torch.sigmoid(x)
+
+
+def relu(x):
+    """F.relu, looked up at each call (tools/step_parity pins its kinks by
+    patching F.relu)."""
+    return F.relu(x)
+
+
+# the FFN activations of `ffn_act` (`bisinger_tpu/models/common.py:180-185`)
+ACTIVATIONS = {"gelu": gelu_tanh, "relu": relu, "swish": silu}
 
 
 def layer_norm(ln: nn.LayerNorm, x):
@@ -256,6 +273,21 @@ def sinusoidal_positions(nonpad_mask, dim: int, padding_idx: int = 0):
     return table[positions]
 
 
+@functools.lru_cache(maxsize=16)
+def rel_positional_encoding(t: int, dim: int, max_len: int = 5000) -> torch.Tensor:
+    """ESPnet's legacy RelPositionalEncoding table [1, t, dim]
+    (`common.py:84-95`): interleaved sin/cos over the reversed positions
+    max_len - 1 .. 0, built in float64 and rounded to fp32; on the CPU, built
+    once a shape, as JAX builds it once a trace, not at every step."""
+    max_len = max(max_len, t)
+    position = np.arange(max_len - 1, -1, -1.0, dtype=np.float64)[:, None]
+    div_term = np.exp(np.arange(0, dim, 2, dtype=np.float64) * -(math.log(10000.0) / dim))
+    pe = np.zeros((max_len, dim), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return torch.from_numpy(pe[None, :t].astype(np.float32))
+
+
 class MultiHeadAttention(nn.Module):
     """q/k/v/out projections in `dtype`, q scaled by head_dim^-0.5, key
     padding mask filled with fp32's minimum (`common.py:110-154`): logits
@@ -289,20 +321,28 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerFFN(nn.Module):
-    """SAME Conv(k) -> * k^-0.5 -> GELU -> Dense (`common.py:157-194`, the
-    flagship's `ffn_padding: SAME`, `ffn_act: gelu`)."""
+    """Conv(k) -> * k^-0.5 -> act -> Dense (`common.py:157-194`). `padding`
+    "SAME" (the flagship's) or "LEFT": k - 1 zeros before the frames, then a
+    VALID conv (causal); `act` "gelu" (tanh form), "relu" or "swish"."""
 
     def __init__(self, hidden: int, filter_size: int, kernel_size: int = 9,
-                 dtype=torch.float32, dropout: float = 0.0):
+                 dtype=torch.float32, dropout: float = 0.0, padding: str = "SAME",
+                 act: str = "gelu"):
         super().__init__()
-        self.kernel_size = kernel_size
-        self.Conv_0 = Conv(hidden, filter_size, kernel_size, dtype=dtype)
+        if padding not in ("SAME", "LEFT") or act not in ACTIVATIONS:
+            raise ValueError(f"ffn padding {padding!r} / act {act!r}: the FFN has SAME or LEFT, "
+                             f"{', '.join(ACTIVATIONS)}")
+        self.kernel_size, self.left, self.act = kernel_size, padding == "LEFT", ACTIVATIONS[act]
+        self.Conv_0 = Conv(hidden, filter_size, kernel_size, dtype=dtype,
+                           padding=0 if self.left else None)
         self.dropout = Dropout(dropout)
         self.Dense_0 = Linear(filter_size, hidden, dtype=dtype)
 
     def forward(self, x):
+        if self.left:
+            x = F.pad(x, (0, 0, self.kernel_size - 1, 0))
         x = scale(self.Conv_0(x), self.kernel_size ** -0.5)
-        return self.Dense_0(self.dropout(gelu_tanh(x)))  # jax.nn.gelu's default
+        return self.Dense_0(self.dropout(self.act(x)))
 
 
 class EncSALayer(nn.Module):
@@ -311,12 +351,13 @@ class EncSALayer(nn.Module):
     compute in fp32."""
 
     def __init__(self, hidden: int, num_heads: int, kernel_size: int = 9, dtype=torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, padding: str = "SAME", act: str = "gelu"):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(hidden, eps=1e-5)
         self.self_attn = MultiHeadAttention(hidden, num_heads, bias=False, dtype=dtype)
         self.layer_norm2 = nn.LayerNorm(hidden, eps=1e-5)
-        self.ffn = TransformerFFN(hidden, 4 * hidden, kernel_size, dtype=dtype, dropout=dropout)
+        self.ffn = TransformerFFN(hidden, 4 * hidden, kernel_size, dtype=dtype, dropout=dropout,
+                                  padding=padding, act=act)
         self.attn_dropout = Dropout(dropout)
         self.ffn_dropout = Dropout(dropout)
 
@@ -362,11 +403,12 @@ class ESM(nn.Module):
 class FFTBlocks(nn.Module):
     """EncSALayer stack with optional sinusoidal positions and a final LN
     (`common.py:304-345`): the stack runs in `dtype`, the final LN in
-    fp32, and the output is cast back to the input's dtype."""
+    fp32, and the output is cast back to the input's dtype. `padding` and
+    `act` are the FFNs' (`ffn_padding`, `ffn_act`)."""
 
     def __init__(self, hidden: int, num_layers: int, ffn_kernel_size: int = 9,
                  num_heads: int = 2, use_pos_embed: bool = True, dtype=torch.float32,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, padding: str = "SAME", act: str = "gelu"):
         super().__init__()
         self.hidden, self.num_layers, self.use_pos_embed = hidden, num_layers, use_pos_embed
         self.dtype_ = dtype
@@ -375,7 +417,7 @@ class FFTBlocks(nn.Module):
             self.pos_dropout = Dropout(dropout)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", EncSALayer(hidden, num_heads, ffn_kernel_size, dtype,
-                                                     dropout))
+                                                     dropout, padding, act))
         self.final_ln = nn.LayerNorm(hidden, eps=1e-5)
 
     def forward(self, x, padding_mask=None):

@@ -1,4 +1,5 @@
-"""DiffNet denoiser (counterpart of `bisinger_tpu/models/diffnet.py:32-200`).
+"""The denoisers (counterpart of `bisinger_tpu/models/diffnet.py:32-268`):
+the DiffNet (`diff_decoder_type: wavenet`) and the FFT denoiser (`fft`).
 
 in-proj 1x1 (80 -> C) -> ReLU -> L gated residual layers -> skip sum /
 sqrt(L) -> 1x1 -> ReLU -> 1x1 (C -> 80). The conditioner projections are
@@ -23,7 +24,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bisinger_tpu_torch.models.common import Conv, Linear, compute_dtype, div, softplus
+from bisinger_tpu_torch.models.common import (
+    Conv,
+    FFTBlocks,
+    Linear,
+    compute_dtype,
+    div,
+    softplus,
+)
 from bisinger_tpu_torch.ops.diffnet_stack import residual_stack, residual_stack_bf16
 
 
@@ -132,3 +140,53 @@ class DiffNet(nn.Module):
             skip_sum = skip if skip_sum is None else skip_sum + skip
         y = div(skip_sum, math.sqrt(self.n_layers))
         return self.output_projection(F.relu(self.skip_projection(y)))
+
+
+class FFTDenoiser(nn.Module):
+    """The transformer-decoder denoiser (`diffnet.py:202-262`, the
+    reference's `candidate_decoder.py`): in-proj 1x1 (80 -> C) and the
+    step's Mish MLP (C -> 4C -> C), then decode_x(x) + decode_cond(cond) +
+    decode_time(step) -> FFT blocks (`dec_layers`, the conditioner's FFN
+    padding and activation, in compute_dtype) -> get_mel_out (H -> 80).
+    Every projection computes in fp32, as flax's. The decoder runs without
+    dropout in training too, as flax's runs it with `deterministic=True`
+    (`diffnet.py:259`). The conditioner's part is step-invariant:
+    `cond_projections` gives it once per utterance as [1, B, T, H]. No
+    kernel: the K1 stack is the DiffNet's."""
+
+    def __init__(self, hp: dict, in_dims: int = 80):
+        super().__init__()
+        dim, h = hp["residual_channels"], hp["hidden_size"]
+        self.channels = dim
+        self.input_projection = Linear(in_dims, dim, conv1x1=True)
+        self.mlp_0 = Linear(dim, 4 * dim)
+        self.mlp_1 = Linear(4 * dim, dim)
+        self.decode_x = Linear(dim, h)
+        self.decode_cond = Linear(h, h, bias=False)
+        self.decode_time = Linear(dim, h, bias=False)
+        self.decoder = FFTBlocks(h, hp["dec_layers"], hp["dec_ffn_kernel_size"], hp["num_heads"],
+                                 use_pos_embed=True, dtype=compute_dtype(hp), dropout=0.0,
+                                 padding=hp["ffn_padding"], act=hp["ffn_act"])
+        self.get_mel_out = Linear(h, in_dims)
+
+    def cond_projections(self, cond):
+        """[B, T, H] -> [1, B, T, H]."""
+        return self.decode_cond(cond)[None]
+
+    def stack_weights(self):
+        return None  # the samplers' per-loop weights: none beyond the module's
+
+    def forward(self, spec, diffusion_step, cond_proj=None, stack=None, cond=None):
+        """spec [B, T, M], diffusion_step [B] and cond_proj [1, B, T, H] (or
+        cond [B, T, H]) -> predicted noise [B, T, M]."""
+        if cond is not None:
+            cond_proj = self.cond_projections(cond)
+        x = self.input_projection(spec)
+        s = self.mlp_0(diffusion_step_embedding(diffusion_step, self.channels))
+        s = self.mlp_1(s * torch.tanh(softplus(s)))  # Mish
+        inp = self.decode_x(x) + cond_proj[0] + self.decode_time(s)[:, None, :]
+        return self.get_mel_out(self.decoder(inp))
+
+
+# the denoiser classes by `diff_decoder_type` (`diffusion.py:103`)
+DIFF_DECODERS = {"wavenet": DiffNet, "fft": FFTDenoiser}

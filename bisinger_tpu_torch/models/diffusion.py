@@ -7,9 +7,10 @@ mel2ph (speaker, f0, uv, energy, the MIDI ones) pass through as keywords.
 
 Training (`train_forward`, `diffusion.py:128-140, 356-401`): fs2 up to the
 decoder input (skip_decoder) -> cond; t ~ U[0, K_step); the target mel,
-normalised, noised to t (`q_sample_t`); the DiffNet's noise prediction on
-its layer-by-layer path (`cond=`, never K1) against the noise under the
-l1 (nonpadding-weighted) or l2 loss. `t` and `noise` may be handed in.
+normalised, noised to t (`q_sample_t`); the denoiser's noise prediction,
+the DiffNet's on its layer-by-layer path (`cond=`, never K1), against the
+noise under the l1 (nonpadding-weighted) or l2 loss. `t` and `noise` may
+be handed in.
 
 Inference:
 fs2 -> cond (decoder input) -> the start: pure noise (`gaussian_start`)
@@ -19,7 +20,8 @@ of three samplers, picked as `_dispatch_sampler` picks it:
 - PLMS with stride `pndm_speedup` when it is set (the 2-call warmup, then
   Adams-Bashforth 2/3/4; K/stride + 1 calls);
 - ancestral DDPM otherwise (K calls, fresh noise at each step).
--> denormalised mel. Every denoiser call runs the residual layers in K1.
+-> denormalised mel. Every call of the DiffNet runs its residual layers in
+K1; the FFT denoiser (`diff_decoder_type: fft`) runs no kernel.
 
 `OfflineGaussianDiffusion` (`diffusion.py:436-501`) trains on the
 conditioner's decoder input alone and, at inference, starts from a recorded
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from bisinger_tpu_torch.models.diffnet import DiffNet
+from bisinger_tpu_torch.models.diffnet import DIFF_DECODERS
 from bisinger_tpu_torch.models.fs2 import FastSpeech2, FastSpeech2MIDI
 from bisinger_tpu_torch.parallel.mesh import draw_rows, global_count, global_mean, local_rows
 
@@ -62,19 +64,18 @@ def make_betas(hp: dict) -> np.ndarray:
 
 
 class GaussianDiffusion(nn.Module):
-    """Owns the fs2 conditioner and the DiffNet denoiser."""
+    """Owns the fs2 conditioner and the denoiser `diff_decoder_type` names
+    (`DIFF_DECODERS`: the DiffNet through K1, or the FFT denoiser)."""
 
     fs2_decoder = True  # the conditioner runs its decoder (the fs2 mel) at inference
 
     def __init__(self, hp: dict, vocab_size: int, out_dims: int = 80):
         super().__init__()
-        if hp.get("diff_decoder_type", "wavenet") != "wavenet":
-            raise NotImplementedError("the port's denoiser is the DiffNet (wavenet)")
         self.hp = hp
         self.K_step = int(hp["K_step"])
         self.fs2 = (FastSpeech2MIDI if hp.get("use_midi") else FastSpeech2)(
             hp, vocab_size, with_decoder=self.fs2_decoder)
-        self.denoise_fn = DiffNet(hp, out_dims)
+        self.denoise_fn = DIFF_DECODERS[hp.get("diff_decoder_type", "wavenet")](hp, out_dims)
         # float32 as the reference's buffers (`DiffusionBuffers`, computed in
         # float64 and then rounded); alphas_cumprod is kept on the device so
         # that PLMS's per-step reads need no host-to-device copy. The DDPM

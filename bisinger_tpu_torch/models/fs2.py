@@ -25,9 +25,18 @@ then the speaker embedding; FFT decoder -> `mel_out`.
 midi-duration and slur embeddings and ESM(token emb, lang emb) to the
 encoder input and a style embedding to the decoder input.
 
-Options not ported raise: speaker vectors
-(`use_spk_embed`), split speaker ids, the MoG/CRF duration heads,
-relative positions, LEFT-padded or non-GELU FFNs. The FFT stacks, the ESM
+The variants of `bisinger_tpu/models/fs2.py`: the speaker a learned
+embedding of its id (`use_spk_id`; with `use_split_spk_id` the duration and
+pitch predictors get embeddings of their own, `spk_embed_dur` and
+`spk_embed_f0`) or a projection of a 256-d speaker vector
+(`use_spk_embed`, the Dense `spk_embed_proj`); the duration head by
+`dur_loss` (log durations, the 5-Gaussian mixture, or the 32-state CRF,
+whose transition matrix `ret["crf_transitions"]` carries to the loss);
+ESPnet's relative positions (`rel_pos`: x * sqrt(H) + the reversed-position
+table, after `encode` has already scaled the token embedding by sqrt(H), as
+`fs2.py:184-195` does, the plain model too); the FFNs' and predictors'
+`ffn_padding` (SAME or LEFT, causal) and `ffn_act` (gelu, relu, swish).
+`pitch_type` other than frame, ph or cwt raises, as in JAX. The FFT stacks, the ESM
 and the predictors' convs run in `compute_dtype` (`fs2.py:66-115,
 387-391`); the embeddings, the heads and every output stay fp32. In train
 mode dropout (`dropout`) runs where flax's does; the predictors run
@@ -56,9 +65,11 @@ from bisinger_tpu_torch.models.common import (
     FFTBlocks,
     compute_dtype,
     grad_scale,
+    rel_positional_encoding,
     sinusoidal_positions,
 )
 from bisinger_tpu_torch.models.predictors import (
+    DUR_ODIMS,
     DurationPredictor,
     EnergyPredictor,
     PitchPredictor,
@@ -67,47 +78,41 @@ from bisinger_tpu_torch.utils.cwt import cwt2f0_norm
 from bisinger_tpu_torch.utils.pitch import denorm_f0, f0_to_coarse
 from bisinger_tpu_torch.utils.seq import gather_phoneme_states, length_regulator
 
-_UNPORTED = {
-    "use_spk_embed": "use_spk_embed=true (speaker vectors) is not ported",
-    "use_split_spk_id": "use_split_spk_id=true (per-predictor speaker ids) is not ported",
-}
-
-
 class FastSpeech2(nn.Module):
     def __init__(self, hp: dict, vocab_size: int, out_dims: Optional[int] = None,
                  padding_idx: int = 0, with_decoder: bool = True):
         super().__init__()
-        for key, msg in _UNPORTED.items():
-            if hp.get(key):
-                raise NotImplementedError(msg)
         if hp.get("use_pitch_embed") and hp["pitch_type"] not in ("frame", "ph", "cwt"):
-            raise NotImplementedError(f"pitch_type={hp['pitch_type']} is not ported (the port "
-                                      "runs frame, ph and cwt)")
-        if hp.get("dur_loss", "mse") not in ("mse", "huber"):
-            raise NotImplementedError(f"dur_loss={hp['dur_loss']} is not ported")
-        if hp["ffn_padding"] != "SAME" or hp["ffn_act"] != "gelu" or (
-                hp["use_pos_embed"] and hp.get("rel_pos")):
-            raise NotImplementedError("the port runs SAME/gelu FFNs and sinusoidal positions")
+            raise NotImplementedError(f"pitch_type={hp['pitch_type']}")  # JAX's refusal
         self.hp, self.padding_idx = hp, padding_idx
         h = hp["hidden_size"]
         dtype = compute_dtype(hp)
         drop = hp.get("dropout", 0.0)
+        ffn = dict(padding=hp["ffn_padding"], act=hp["ffn_act"])
         self.token_embed = Embedding(vocab_size, h, padding_idx)
         self.embed_dropout = Dropout(drop)
         self.encoder = FFTBlocks(h, hp["enc_layers"], hp["enc_ffn_kernel_size"],
-                                 hp["num_heads"], use_pos_embed=False, dtype=dtype, dropout=drop)
+                                 hp["num_heads"], use_pos_embed=False, dtype=dtype, dropout=drop,
+                                 **ffn)
         self.with_decoder = with_decoder
         if with_decoder:
             self.decoder = FFTBlocks(h, hp["dec_layers"], hp["dec_ffn_kernel_size"],
                                      hp["num_heads"], use_pos_embed=True, dtype=dtype,
-                                     dropout=drop)
+                                     dropout=drop, **ffn)
             self.mel_out = nn.Linear(h, out_dims or hp["audio_num_mel_bins"])
         ph = hp["predictor_hidden"] if hp["predictor_hidden"] > 0 else h
         pdrop = hp.get("predictor_dropout", 0.0)
+        pad = hp["ffn_padding"]
         self.dur_predictor = DurationPredictor(h, hp["dur_predictor_layers"], ph,
-                                               hp["dur_predictor_kernel"], dtype, pdrop)
+                                               hp["dur_predictor_kernel"], dtype, pdrop, pad,
+                                               DUR_ODIMS[hp.get("dur_loss", "mse")])
         if hp["use_spk_id"]:
             self.spk_embed_proj = Embedding(hp["num_spk"] + 1, h)
+            if hp["use_split_spk_id"]:
+                self.spk_embed_f0 = Embedding(hp["num_spk"] + 1, h)
+                self.spk_embed_dur = Embedding(hp["num_spk"] + 1, h)
+        elif hp["use_spk_embed"]:
+            self.spk_embed_proj = nn.Linear(256, h)  # fp32, as flax's Dense
         if hp.get("use_pitch_embed"):
             self.pitch_embed = Embedding(300, h, padding_idx)
             if hp["pitch_type"] == "cwt":  # the Dense layers compute in fp32, as flax's
@@ -115,18 +120,18 @@ class FastSpeech2(nn.Module):
                 self.cwt_in_proj = nn.Linear(h, ch)
                 self.cwt_predictor = PitchPredictor(
                     ch, hp["predictor_layers"], ph, 10 + (1 if hp["use_uv"] else 0),
-                    hp["predictor_kernel"], dtype, pdrop)
+                    hp["predictor_kernel"], dtype, pdrop, pad)
                 self.cwt_stats_0 = nn.Linear(h, ch)
                 self.cwt_stats_1 = nn.Linear(ch, ch)
                 self.cwt_stats_2 = nn.Linear(ch, 2)
             else:
                 self.pitch_predictor = PitchPredictor(
                     h, hp["predictor_layers"], ph, 2 if hp["pitch_type"] == "frame" else 1,
-                    hp["predictor_kernel"], dtype, pdrop)
+                    hp["predictor_kernel"], dtype, pdrop, pad)
         if hp.get("use_energy_embed"):
             self.energy_embed = Embedding(256, h, padding_idx)
             self.energy_predictor = EnergyPredictor(h, hp["predictor_layers"], ph, 1,
-                                                    hp["predictor_kernel"], dtype, pdrop)
+                                                    hp["predictor_kernel"], dtype, pdrop, pad)
 
     def encode(self, txt_tokens, **cond):
         """The FFT encoder's output [B, T_txt, H]; `cond` is what the MIDI
@@ -135,10 +140,30 @@ class FastSpeech2(nn.Module):
         return self.encoder(self._positions(x, txt_tokens), txt_tokens == self.padding_idx)
 
     def _positions(self, x, txt_tokens):
-        if self.hp["use_pos_embed"]:
-            x = x + sinusoidal_positions((txt_tokens != self.padding_idx).long(),
-                                         self.hp["hidden_size"])
+        h = self.hp["hidden_size"]
+        if self.hp["use_pos_embed"] and self.hp.get("rel_pos"):
+            # ESPnet's RelPositionalEncoding scales x by sqrt(H) itself
+            x = x * math.sqrt(h) + rel_positional_encoding(x.shape[1], h).to(x.device)
+        elif self.hp["use_pos_embed"]:
+            x = x + sinusoidal_positions((txt_tokens != self.padding_idx).long(), h)
         return self.embed_dropout(x)
+
+    def speaker(self, spk_id=None, spk_embed=None, spk_dur_id=None, spk_f0_id=None):
+        """The speaker terms (all, duration predictor's, pitch predictor's),
+        each [B, 1, H] or 0 (`fs2.py:277-293`): an embedding of the id, with
+        `use_split_spk_id` the predictors' own embeddings of their ids
+        (default the speaker's), or the projected speaker vector."""
+        hp = self.hp
+        if hp["use_spk_id"]:
+            e = self.spk_embed_proj(spk_id)[:, None, :]
+            if not hp["use_split_spk_id"]:
+                return e, e, e
+            return (e, self.spk_embed_dur(spk_id if spk_dur_id is None else spk_dur_id)[:, None],
+                    self.spk_embed_f0(spk_id if spk_f0_id is None else spk_f0_id)[:, None])
+        if hp["use_spk_embed"]:
+            e = self.spk_embed_proj(spk_embed)[:, None, :]
+            return e, e, e
+        return 0.0, 0.0, 0.0
 
     def style(self, speechsing=None, **unused):
         return 0.0
@@ -191,32 +216,37 @@ class FastSpeech2(nn.Module):
 
     def forward(self, txt_tokens, mel2ph=None, spk_id=None, f0=None, uv=None, energy=None,
                 max_frames: Optional[int] = None, ref_mels=None, skip_decoder: bool = False,
-                **cond):
-        """-> dict with decoder_inp, mel2ph, (dur), (pitch_pred, f0_denorm),
-        (energy_pred), and mel_out unless `skip_decoder`. `cond` holds the
-        MIDI subclass's inputs (pitch_midi, midi_dur, is_slur, lang,
-        speechsing); the plain model ignores them, as flax's does."""
+                spk_embed=None, spk_dur_id=None, spk_f0_id=None, **cond):
+        """-> dict with decoder_inp, mel2ph, (dur, crf_transitions),
+        (pitch_pred, f0_denorm), (energy_pred), and mel_out unless
+        `skip_decoder`. The speaker is `spk_id` [B] (`use_spk_id`; with
+        `use_split_spk_id` also `spk_dur_id`, `spk_f0_id`) or the vector
+        `spk_embed` [B, 256] (`use_spk_embed`). `cond` holds the MIDI
+        subclass's inputs (pitch_midi, midi_dur, is_slur, lang, speechsing);
+        the plain model ignores them, as flax's does."""
         hp = self.hp
         ret = {}
         encoder_out = self.encode(txt_tokens, **cond)
         src_padding = txt_tokens == self.padding_idx
         src_nonpadding = (txt_tokens > 0).to(encoder_out.dtype)[:, :, None]
-        spk = self.spk_embed_proj(spk_id)[:, None, :] if hp["use_spk_id"] else 0.0
+        spk, spk_dur, spk_f0 = self.speaker(spk_id, spk_embed, spk_dur_id, spk_f0_id)
         if mel2ph is None or ref_mels is not None:
-            dur_inp = grad_scale((encoder_out + spk) * src_nonpadding,
+            dur_inp = grad_scale((encoder_out + spk_dur) * src_nonpadding,
                                  hp.get("predictor_grad", 1.0))
             ret["dur"] = self.dur_predictor(dur_inp, src_padding)
+            if self.dur_predictor.odims == 32:
+                ret["crf_transitions"] = self.dur_predictor.crf_transitions
         if mel2ph is None:
-            dur = self.dur_predictor.out2dur(ret["dur"])
+            dur = self.dur_predictor.out2dur(ret["dur"], padding=src_padding)
             mel2ph = length_regulator(dur, src_padding,
                                       max_frames=max_frames or hp["max_frames"])
         ret["mel2ph"] = mel2ph
         decoder_inp = gather_phoneme_states(encoder_out, mel2ph)
         tgt_nonpadding = (mel2ph > 0).to(encoder_out.dtype)[:, :, None]
-        pitch_inp = (decoder_inp + spk) * tgt_nonpadding
+        pitch_inp = (decoder_inp + spk_f0) * tgt_nonpadding
         if hp.get("use_pitch_embed"):
             decoder_inp = decoder_inp + self.add_pitch(
-                pitch_inp, (encoder_out + spk) * src_nonpadding, f0, uv, mel2ph, ret)
+                pitch_inp, (encoder_out + spk_f0) * src_nonpadding, f0, uv, mel2ph, ret)
         if hp.get("use_energy_embed"):
             decoder_inp = decoder_inp + self.add_energy(pitch_inp, energy, ret)
         decoder_inp = (decoder_inp + spk + self.style(**cond)) * tgt_nonpadding

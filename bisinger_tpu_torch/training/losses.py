@@ -1,11 +1,12 @@
 """Training losses (counterpart of `bisinger_tpu/training/losses.py:26-288`):
-the mel l1 and SSIM losses, the MIDI tasks' phone, word and sentence
-duration losses, the frame-level f0 loss (L1 or L2 on the voiced frames
-plus the uv logits' BCE) of the PitchExtractor and of FastSpeech2's pitch
-predictor, its phone-level f0 loss, the CWT pitch head's loss, and the
-energy loss. Every reduction is masked over static shapes (but the CWT
-spectrogram's, a plain mean over every element, padding included, as
-JAX's); the word-duration loss sums into a fixed `max_words` segments.
+the mel l1 and SSIM losses, the MIDI tasks' phone, word and sentence duration
+losses (the log-MSE, the mixture head's NLL or the CRF's), the frame-level f0
+loss (L1 or L2 on the voiced frames plus the uv logits' BCE) of the
+PitchExtractor and of FastSpeech2's pitch predictor, its phone-level f0 loss,
+the CWT pitch head's loss, and the energy loss. Every reduction is masked over
+static shapes (but the CWT spectrogram's, a plain mean over every element,
+padding included, as JAX's); the word-duration loss sums into a fixed
+`max_words` segments.
 
 Under data parallelism each loss is this rank's share of the loss over
 the global batch, as JAX computes it on the globally sharded array: the
@@ -24,6 +25,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bisinger_tpu_torch.models.predictors import (
+    crf_log_likelihood,
+    mog_expected_log_dur,
+    mog_log_nll,
+)
 from bisinger_tpu_torch.parallel.mesh import global_count, global_mean
 
 
@@ -115,16 +121,35 @@ def _masked_mean(x, mask):
     return (x * mask).sum() / torch.clamp_min(global_count(mask.sum()), 1.0)
 
 
-def add_dur_loss_midi(dur_pred_log, mel2ph, txt_tokens, word_boundary, losses: Dict, hp):
-    """Phone (log-MSE), word (summed between word boundaries) and sentence
-    duration losses (reference `usr/diffsinger_task.py:518-564`)."""
-    if hp.get("dur_loss", "mse") not in ("mse", "huber"):
-        raise NotImplementedError(f"dur_loss={hp['dur_loss']} is not ported")
+def add_dur_loss_midi(dur_pred_log, mel2ph, txt_tokens, word_boundary, losses: Dict, hp,
+                      crf_transitions=None):
+    """Phone, word (summed between word boundaries) and sentence duration
+    losses (`losses.py:106-178`, reference `usr/diffsinger_task.py:518-564`).
+    The phone term by the head (`dur_loss`): the log-MSE of the [B, T] log
+    durations; for the mixture head [B, T, 15] its NLL, the word and sentence
+    terms on round-free decodes exp(E[log dur]) - 1; for the CRF head
+    [B, T, 32] the NLL of the durations capped at 31 frames (the states)
+    under `crf_transitions`, over the tokens, and the states' expectation
+    under the softmax of the emissions for the other terms."""
     nonpadding = (txt_tokens != 0).float()
     dur_gt = mel2ph_to_dur(mel2ph, txt_tokens.shape[1]) * nonpadding
-    pdur = (dur_pred_log - torch.log(dur_gt + 1.0)) ** 2
-    losses["pdur"] = _masked_mean(pdur, nonpadding) * hp["lambda_ph_dur"]
-    dur_pred = torch.clamp_min(torch.exp(dur_pred_log) - 1.0, 0.0)
+    head = hp.get("dur_loss", "mse") if dur_pred_log.ndim == 3 else "mse"
+    if head == "mog":
+        losses["pdur"] = _masked_mean(mog_log_nll(dur_pred_log, dur_gt), nonpadding) \
+            * hp["lambda_ph_dur"]
+        dur_pred = torch.clamp_min(torch.exp(mog_expected_log_dur(dur_pred_log)) - 1.0, 0.0)
+    elif head == "crf":
+        n_states = dur_pred_log.shape[-1]
+        tags = torch.clamp(dur_gt.long(), 0, n_states - 1)
+        ll = crf_log_likelihood(dur_pred_log, crf_transitions, tags, mask=nonpadding)
+        losses["pdur"] = -ll.sum() / torch.clamp_min(global_count(nonpadding.sum()), 1.0) \
+            * hp["lambda_ph_dur"]
+        states = torch.arange(n_states, dtype=torch.float32, device=dur_pred_log.device)
+        dur_pred = (torch.softmax(dur_pred_log, dim=-1) * states).sum(-1)
+    else:
+        pdur = (dur_pred_log - torch.log(dur_gt + 1.0)) ** 2
+        losses["pdur"] = _masked_mean(pdur, nonpadding) * hp["lambda_ph_dur"]
+        dur_pred = torch.clamp_min(torch.exp(dur_pred_log) - 1.0, 0.0)
     if hp["lambda_word_dur"] > 0 and word_boundary is not None:
         idx = F.pad(torch.cumsum(word_boundary.long(), dim=1), (1, 0))[:, :-1]
         n_words = hp.get("max_words", 128)

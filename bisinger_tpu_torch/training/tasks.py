@@ -50,7 +50,7 @@ from torch import nn
 
 from bisinger_tpu_torch import resolve_device
 from bisinger_tpu_torch.models.common import Embedding, set_dropout_generator
-from bisinger_tpu_torch.models.diffnet import DiffNet
+from bisinger_tpu_torch.models.diffnet import DiffNet, FFTDenoiser
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion, OfflineGaussianDiffusion
 from bisinger_tpu_torch.models.fs2 import FastSpeech2, FastSpeech2MIDI
 from bisinger_tpu_torch.models.pe import PitchExtractor
@@ -64,8 +64,9 @@ from bisinger_tpu_torch.weights import export_flax_params, load_flax_params
 
 def model_kwargs(batch: Dict[str, torch.Tensor], hp, drop_f0: bool = False
                  ) -> Dict[str, Any]:
-    """A batch as the model's keywords (`tasks.py:42-72`): f0, uv and energy
-    (f0 and uv left out with `drop_f0`), and the MIDI inputs with
+    """A batch as the model's keywords (`tasks.py:42-72`): the speaker (its
+    id, or with `use_spk_embed` the batch's speaker vectors), f0, uv and
+    energy (f0 and uv left out with `drop_f0`), and the MIDI inputs with
     `use_midi`. With `pitch_type: cwt` the f0 is the inverse of the
     batch's recorded CWT spectrogram (`cwt2f0_norm`)."""
     f0 = None if drop_f0 else batch.get("f0")
@@ -75,6 +76,8 @@ def model_kwargs(batch: Dict[str, torch.Tensor], hp, drop_f0: bool = False
     kw = dict(txt_tokens=batch["txt_tokens"], mel2ph=batch["mel2ph"],
               spk_id=batch["spk_ids"], f0=f0, uv=None if drop_f0 else batch.get("uv"),
               energy=batch.get("energy"))
+    if not hp["use_spk_id"]:
+        kw["spk_embed"] = batch.get("spk_embed")
     if hp.get("use_midi"):
         kw.update(pitch_midi=batch.get("pitch_midi"), midi_dur=batch.get("midi_dur"),
                   is_slur=batch.get("is_slur"), lang=batch.get("lang"),
@@ -101,15 +104,16 @@ def flax_init_(model: nn.Module, seed: int, xavier=XAVIER) -> nn.Module:
     """Initialise `model` as its flax counterpart initialises its
     parameters: Dense and Conv kernels lecun-normal; the projections
     named in `xavier` (a module's name or its path; by default the
-    attention and FFN projections) xavier-uniform; the DiffNet's convs
-    He-normal and its output projection zero; embeddings normal(dim^-0.5);
-    biases zero, norms one."""
+    attention and FFN projections) xavier-uniform; the DiffNet's convs and
+    the FFT denoiser's input projection He-normal, the DiffNet's output
+    projection zero; embeddings normal(dim^-0.5); biases zero, norms one."""
     gen = torch.Generator().manual_seed(int(seed))
     he = ("input_projection", "skip_projection", "dilated_conv", "conditioner_projection",
           "output_projection")
     diffnets = [m for m in model.modules() if isinstance(m, DiffNet)]
     in_diffnets = {id(sub) for d in diffnets for sub in d.modules()}
     zero = {id(d.output_projection) for d in diffnets}
+    he_ids = {id(m.input_projection) for m in model.modules() if isinstance(m, FFTDenoiser)}
     for name, m in model.named_modules():
         leaf = name.rsplit(".", 1)[-1]
         in_diffnet = id(m) in in_diffnets
@@ -121,7 +125,7 @@ def flax_init_(model: nn.Module, seed: int, xavier=XAVIER) -> nn.Module:
             w = m.weight
             if id(m) in zero:
                 nn.init.zeros_(w)
-            elif in_diffnet and leaf in he:
+            elif (in_diffnet and leaf in he) or id(m) in he_ids:
                 with torch.no_grad():
                     w.copy_(torch.randn(w.shape, generator=gen)
                             * math.sqrt(2.0 / w[0].numel()))
@@ -147,8 +151,12 @@ class AuxDecoderMIDITask:
     freeze_fs2 = False
 
     def __init__(self, hp, vocab_size: int, device=None):
-        if hp.get("dur_loss", "mse") not in ("mse", "huber"):
-            raise NotImplementedError(f"dur_loss={hp['dur_loss']} is not ported")
+        if hp.get("dur_loss") == "crf" and hp.get("use_midi", True):
+            # JAX's refusal (`tasks.py:78-88`)
+            raise ValueError(
+                "dur_loss: crf caps durations at 31 frames (torchcrf "
+                "parity) and is speech-only; singing/MIDI configs must "
+                "use dur_loss: mse or mog")
         self.hp = hp
         self.vocab_size = vocab_size
         self.device = resolve_device(device)
@@ -186,12 +194,12 @@ class AuxDecoderMIDITask:
 
     def _dur_losses(self, ret, batch, losses):
         wdb = batch.get("word_boundary")
-        if wdb is None and "ph_is_sil" in batch:
+        if wdb is None and "ph_is_sil" in batch and ret["dur"].ndim == 2:
             L.add_dur_loss_sil(ret["dur"], batch["mel2ph"], batch["txt_tokens"],
                                batch["ph_is_sil"].float(), losses, self.hp)
-        else:
+        else:  # the MIDI tasks' losses, and any head but log durations (`tasks.py:155-165`)
             L.add_dur_loss_midi(ret["dur"], batch["mel2ph"], batch["txt_tokens"], wdb, losses,
-                                self.hp)
+                                self.hp, ret.get("crf_transitions"))
 
     def _variance_losses(self, ret, batch, losses):
         if self.hp.get("use_pitch_embed"):

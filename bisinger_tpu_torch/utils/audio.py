@@ -1,6 +1,6 @@
 """Host-side audio DSP for the binarizer: STFT, mel filterbank, wav <-> spec,
-and WAV output (the port's copy of `bisinger_tpu/utils/audio.py:26-150`,
-numpy and scipy only).
+WAV output, loudness normalisation and the trimming of long silences (the
+port's copy of `bisinger_tpu/utils/audio.py:26-275`, numpy and scipy only).
 
   - STFT: center-padded (``n_fft//2`` both sides, constant 0), periodic Hann
     window, magnitude spectrogram;
@@ -146,3 +146,90 @@ def save_wav(wav: np.ndarray, path: str, sr: int, norm: bool = False):
     if norm and np.abs(wav).max() > 0:
         wav = wav / np.abs(wav).max()
     wavfile.write(path, sr, (wav * 32767).astype(np.int16))
+
+
+# ---- loudness normalisation and the trimming of long silences ----------------
+def _k_weighting_sos(sr: int):
+    """BS.1770's K-weighting as two biquads (a high shelf, then a high-pass),
+    designed for `sr` by the bilinear transform (`audio.py:157-183`)."""
+    import math
+
+    db, f0, q = 3.999843853973347, 1681.974450955533, 0.7071752369554196
+    k = math.tan(math.pi * f0 / sr)
+    vh = 10 ** (db / 20.0)
+    vb = vh ** 0.4996667741545416
+    a0 = 1.0 + k / q + k * k
+    b1 = [(vh + vb * k / q + k * k) / a0, 2.0 * (k * k - vh) / a0,
+          (vh - vb * k / q + k * k) / a0]
+    a1 = [1.0, 2.0 * (k * k - 1.0) / a0, (1.0 - k / q + k * k) / a0]
+    f0, q = 38.13547087602444, 0.5003270373238773
+    k = math.tan(math.pi * f0 / sr)
+    den = 1.0 + k / q + k * k
+    a2 = [1.0, 2.0 * (k * k - 1.0) / den, (1.0 - k / q + k * k) / den]
+    b2 = [1.0, -2.0, 1.0]
+    return (b1, a1), (b2, a2)
+
+
+def integrated_loudness(wav: np.ndarray, sr: int) -> float:
+    """Gated integrated loudness in LUFS (BS.1770-4, mono; `audio.py:186-213`,
+    the JAX package's stand-in for pyloudnorm's Meter): 400 ms blocks every
+    100 ms, the absolute gate at -70 LUFS, then the relative one 10 LU under."""
+    from scipy.signal import lfilter
+
+    (b1, a1), (b2, a2) = _k_weighting_sos(sr)
+    x = lfilter(b2, a2, lfilter(b1, a1, wav.astype(np.float64)))
+    block, hop = int(0.4 * sr), int(0.1 * sr)
+    if len(x) < block:
+        return -0.691 + 10.0 * np.log10(np.mean(x ** 2) + 1e-12)
+    n_blocks = 1 + (len(x) - block) // hop
+    idx = np.arange(block)[None, :] + hop * np.arange(n_blocks)[:, None]
+    ms = np.mean(x[idx] ** 2, axis=1) + 1e-12
+    lk = -0.691 + 10.0 * np.log10(ms)
+    keep = lk > -70.0
+    if not keep.any():
+        return -70.0
+    rel = -0.691 + 10.0 * np.log10(np.mean(ms[keep])) - 10.0
+    keep &= lk > rel
+    if not keep.any():
+        return -70.0
+    return -0.691 + 10.0 * np.log10(np.mean(ms[keep]))
+
+
+def loudness_normalize(wav: np.ndarray, sr: int, target_lufs: float = -22.0) -> np.ndarray:
+    """`wav` scaled to `target_lufs`, then down to a peak of 1 if it clips
+    (`audio.py:216-225`)."""
+    out = wav * 10.0 ** ((target_lufs - integrated_loudness(wav, sr)) / 20.0)
+    peak = np.abs(out).max()
+    if peak > 1.0:
+        out = out / peak
+    return out.astype(np.float32)
+
+
+def trim_long_silences(wav: np.ndarray, sr: int, vad_max_silence_length: int = 12,
+                       window_ms: int = 30, moving_average_width: int = 8):
+    """Long silences collapsed (`audio.py:228-275`): (trimmed wav, keep mask).
+    Voice flags from an energy VAD over `window_ms` windows (RMS above a
+    tenth of the median of the windows over the 20th percentile, at least
+    1e-4), a moving average of `moving_average_width` windows rounded, and
+    the voiced runs dilated by `vad_max_silence_length` windows; the tail
+    under a window is kept. This is the JAX package's branch when webrtcvad
+    does not import, which it does on neither the CPU machine nor the card's
+    (the reference's webrtcvad convention, `audio.py:276-331`, is not ported).
+    A wav of near-constant energy comes back whole."""
+    from scipy.ndimage import binary_dilation
+
+    spw = (window_ms * sr) // 1000
+    n_win = len(wav) // spw
+    if n_win == 0:
+        return wav, np.ones(len(wav), bool)
+    rms = np.sqrt(np.mean(wav[: n_win * spw].reshape(n_win, spw) ** 2, axis=1) + 1e-12)
+    above = rms[rms > np.percentile(rms, 20)]
+    if above.size == 0:
+        return wav, np.ones(len(wav), bool)
+    flags = (rms > max(1e-4, 0.1 * float(np.median(above)))).astype(float)
+    width = moving_average_width
+    mask_w = np.round(np.convolve(flags, np.ones(width) / width, mode="same")).astype(bool)
+    mask_w = binary_dilation(mask_w, np.ones(vad_max_silence_length + 1, bool))
+    mask = np.repeat(mask_w, spw)
+    mask = np.concatenate([mask, np.ones(len(wav) - len(mask), bool)])
+    return wav[mask], mask

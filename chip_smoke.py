@@ -166,12 +166,28 @@ and seconds (a failed phase exits non-zero):
      systems 1 and 2 the English phones through the system's EN->CN
      table. Steps/s, peak memory and the phase's seconds are reported;
      the log goes to checkpoints/chip_smoke/paper.log;
+  17. (run before 9) the model and data variants, in bf16 at the configs'
+     widths and batching, 10 steps a stage (`variants_phase`): (a) phase
+     13's TextGrid corpus binarized with speaker vectors and loud_norm,
+     lj/fs2 and lj_ds_beta6 with the CRF duration head, speaker vectors,
+     LEFT relu FFNs and the energy embedding under energy_convention pow10,
+     one request with a speaker vector served (16 K1-bf16, 4 K2-bf16:
+     `launches_by_path["17 served (a) ..."]`); (b) phase 10's corpus with
+     long silences trimmed, the flagship's FFT-Singer and diffusion stages
+     with the mixture duration head, split speaker ids, relative positions
+     and swish FFNs, and a PitchExtractor with LEFT convs and standard f0,
+     a bilingual score served through that PE (201, 4); (c) the diffusion
+     stage with the FFT denoiser, the score served with no K1 launch (0,
+     4). Gates: finite losses, non-zero gradients, no kernel launched in a
+     train step, the served launch counts, finite non-silent waveforms,
+     one fp32 step of each variant task on the card against the CPU. The
+     log goes to checkpoints/chip_smoke/variants.log;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
-     buckets of phases 5, 8, 10-16 (the mb4 stages and the
+     buckets of phases 5, 8, 10-17 (the mb4 stages and the
      plain generator's 8·8·2·2 stages among them).
-The host's share of phases 10, 12, 13 and 16 (the corpora, phase 16's
+The host's share of phases 10, 12, 13, 16 and 17 (the corpora, phase 16's
 corpus tools, and the binarizations) runs from the start in one process of
 its own at the lowest CPU priority (`--prepare`, PREP_PARTS; its log
 checkpoints/chip_smoke/prep.log), while the card runs phases 2-8; each of
@@ -179,7 +195,7 @@ those phases waits for its part and reports when it ran.
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5, 8 and 10-16. Without a CUDA device it exits 1 and prints
+path of phases 5, 8 and 10-17. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -2419,12 +2435,322 @@ def paper_phase(counters, by_path, dev, tmp, card, prep):
     return not bad, lines
 
 
+# ---- phase 17: the model and data variants ----------------------------------------
+VARIANT_STEPS = 10
+# (a) the speech variant: a CRF duration head, speaker vectors, causal relu FFNs and
+# the energy embedding under the log10 energy convention (10**mel)
+SPEECH_VARIANT = ("dur_loss=crf,use_spk_embed=true,ffn_padding=LEFT,ffn_act=relu,"
+                  "use_energy_embed=true,energy_convention=pow10")
+# (b) the singing variant: the mixture duration head, split speaker ids, ESPnet's
+# relative positions, swish FFNs
+SING_VARIANT = "dur_loss=mog,use_split_spk_id=true,rel_pos=true,ffn_act=swish"
+VARIANT_SCORE = dict(  # phoneme level, bilingual: the synthetic corpus's phones (lang 1 English)
+    item_name="variant", input_type="phoneme", spk_name="Alto-1",
+    ph_seq="<SP> sh ang HH AH L OW x in <SP>",
+    note_seq="rest C4 C4 D4 D4 E4 E4 G4 G4 rest",
+    note_dur_seq="0.1 0.15 0.15 0.15 0.15 0.15 0.15 0.2 0.2 0.1",
+    is_slur_seq=" ".join(["0"] * 10), lang_seq="0 0 0 1 1 1 1 0 0 0")
+
+
+def variant_data(tmp):
+    """Phase 17's data keys: (a) phase 13's TextGrid corpus binarized with
+    speaker vectors and loudness normalisation; (b) phase 10's corpus with
+    the long silences trimmed."""
+    root = os.path.join(tmp, "variants")
+    return dict(
+        speech=(f"raw_data_dir={tmp}/tts/raw,raw_json_fn=meta.json,binary_data_dir={root}/"
+                "speech_bin,binarization_args.with_spk_embed=true,loud_norm=true"),
+        sing=(f"raw_data_dir={tmp}/raw,binary_data_dir={root}/sing_bin,"
+              "binarization_args.trim_long_sil=true"))
+
+
+def variants_phase(counters, by_path, dev, tmp, card, prep):
+    """Phase 17: the model and data variants trained and served on the card
+    in bf16 at the configs' widths and batching, only the steps cut
+    (VARIANT_STEPS a stage). (a) Phase 13's TextGrid corpus binarized with
+    speaker vectors (`with_spk_embed`) and `loud_norm`; lj/fs2 and then
+    lj_ds_beta6 (warm-started from it) with SPEECH_VARIANT; one request with a
+    corpus speaker's vector served from the DiffSpeech work dir and phase
+    13's assets dir: 16 K1-bf16, 4 K2-bf16 launches. (b) Phase 10's corpus
+    binarized with `trim_long_sil`; the FFT-Singer and diffusion stages of
+    the flagship (hparams_fs2.json, hparams_diff.json, B=48, 512 frames) with
+    SING_VARIANT, the second warm-started from the first; a PitchExtractor
+    with LEFT convs and `pitch_norm: standard` (f0_mean and f0_std the
+    corpus's); VARIANT_SCORE served from the diffusion work dir through that
+    PE and the flagship's vocoder: 201 K1-bf16, 4 K2-bf16. (c) The flagship's
+    diffusion stage with the FFT denoiser (`diff_decoder_type: fft`,
+    warm-started from diff_params.npz); VARIANT_SCORE served through the
+    flagship's PE and vocoder: no K1 launch, 4 K2-bf16. Gates: finite losses,
+    non-zero gradients (the encoder's and the denoiser's; every PE
+    parameter's), no kernel launched in any train step, the launch counts of
+    each served request (counters zeroed just before it), finite non-silent
+    waveforms, one fp32 step of each variant task on the card against the CPU
+    (tools/step_parity), webrtcvad absent (the trim takes the energy VAD).
+    `card` goes beside the times. Returns (ok, lines)."""
+    import contextlib
+    import importlib.util
+
+    import numpy as np
+
+    from bisinger_tpu_torch import run
+    from bisinger_tpu_torch.config import apply_overrides, load_hparams, load_hparams_json
+    from bisinger_tpu_torch.data.dataset import DataLoader, M4SingerDataset, batch_to_device
+    from bisinger_tpu_torch.data.records import RecordReader
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
+    from bisinger_tpu_torch.tools.step_parity import step_parity
+    from bisinger_tpu_torch.training.checkpoints import CheckpointManager
+    from bisinger_tpu_torch.training.tasks import (
+        AuxDecoderMIDITask,
+        DiffSingerMIDITask,
+        PitchExtractionTask,
+    )
+    from bisinger_tpu_torch.weights import load_npz
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg = {name: os.path.join(repo, "configs", path) for name, path in (
+        ("lj_fs2", "tts/lj/fs2.yaml"), ("lj_ds_beta6", "usr/lj_ds_beta6.yaml"))}
+    cfg.update(fs2=os.path.join(tmp, "fs2.json"), diff=os.path.join(tmp, "diff.json"))
+    log_fn = os.path.join(repo, "checkpoints", "chip_smoke", "variants.log")
+    root = os.path.join(tmp, "variants")
+    data = variant_data(tmp)
+    lines, checks, stats = [], {}, {}
+    reset, read = launch_counts(counters, by_path)
+    t_phase = time.perf_counter()
+    res = prep.wait("variants")  # the two binarizations (`prep_variants`)
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        with open(log_fn, "w") as f:
+            f.write("".join(r["stdout"] + r["stderr"] for r in res["runs"].values()))
+        labels = {"speech": " (a) (TextGridBinarizer, with_spk_embed, loud_norm)",
+                  "sing": " (b) (M4SingerBinarizer, trim_long_sil)"}
+        for name, r in res["runs"].items():
+            checks[f"binarize {name} rc 0"] = r["rc"] == 0
+            if r["rc"] != 0:
+                return False, [f"binarize {name} failed: {r['stderr'][-2000:]}"]
+            lines.append(prep.binarize_line(dict(r, started=res["started"], ended=res["ended"],
+                                                 waited_s=res["waited_s"]), labels[name], 4))
+        checks["webrtcvad absent: the trim takes the energy VAD"] = (
+            importlib.util.find_spec("webrtcvad") is None)
+        speech_item = RecordReader(os.path.join(root, "speech_bin", "train"))[0]
+        checks["speaker vectors binarized (256, unit norm)"] = (
+            speech_item["spk_embed"].shape == (256,)
+            and abs(float(np.linalg.norm(speech_item["spk_embed"])) - 1.0) < 1e-5)
+        sing_hp = load_hparams_json(cfg["fs2"], data["sing"])
+        trimmed = float(sum(np.load(os.path.join(root, "sing_bin", f"{s}_lengths.npy")).sum()
+                            for s in ("train", "test")))
+        untrimmed = float(sum(np.load(os.path.join(tmp, "binary", f"{s}_lengths.npy")).sum()
+                              for s in ("train", "test")))
+        lines.append(f"the trim: {trimmed:.0f} frames of {untrimmed:.0f} kept "
+                     f"({sing_hp['hop_size']}-sample frames)")
+        checks["trimmed corpus no longer than the untrimmed"] = trimmed <= untrimmed
+
+        def train(name, config, extra):
+            """`config` for VARIANT_STEPS steps in work dir `name`: the trainer."""
+            tr = run.trainer_from_args(run.parse_args(
+                ["--config", config, "--exp_name", name, "--hparams",
+                 f"{extra},max_updates={VARIANT_STEPS},log_interval=1,val_check_interval=1000,"
+                 "num_ckpt_keep=2"]))
+            grads = {}
+
+            def on_step(step, metrics):
+                if step <= 2:  # a DiffNet's zero output projection passes no gradient at step 1
+                    grads[step] = _grad_checks(tr.task.model)
+
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
+                tr.fit(on_step=on_step)
+            counts = read(f"17 train {name}")
+            log = tr.train_log
+            t1, tn = log[0][1], log[-1][1]
+            hp = tr.task.hp
+            st = stats[name] = dict(first_s=t1 - tr.loop_started,
+                                    steps_per_s=(len(log) - 1) / (tn - t1),
+                                    mem=torch.cuda.max_memory_allocated() / 2 ** 30,
+                                    loss1=log[0][2]["total_loss"],
+                                    loss_last=log[-1][2]["total_loss"])
+            checks[f"{name} losses finite"] = all(
+                np.isfinite(v) for _, _, m in log for v in m.values())
+            checks[f"{name} grads finite, encoder's and denoiser's non-zero"] = (
+                all(g[0] for g in grads.values()) and grads[2][1])
+            checks[f"{name} {VARIANT_STEPS} steps"] = tr.global_step == VARIANT_STEPS
+            checks[f"{name} no kernel launched in training"] = not any(counts.values())
+            lines.append(
+                f"{name} ({hp['task_cls'].rsplit('.', 1)[-1]}; dur_loss {hp['dur_loss']}, "
+                f"use_spk_embed {hp['use_spk_embed']}, use_split_spk_id "
+                f"{hp['use_split_spk_id']}, rel_pos {hp['rel_pos']}, ffn "
+                f"{hp['ffn_padding']}/{hp['ffn_act']}, diff_decoder_type "
+                f"{hp.get('diff_decoder_type')}; hidden {hp['hidden_size']}, bf16): first step "
+                f"{st['first_s']:.2f} s, then {st['steps_per_s']:.2f} steps/s; peak memory "
+                f"{st['mem']:.2f} GiB; loss step 1 {st['loss1']:.4f}, step {VARIANT_STEPS} "
+                f"{st['loss_last']:.4f}; launches {counts}")
+            return tr
+
+        def serve(label, svs, request, want):
+            """One warm request, then `request` timed with the counters zeroed."""
+            svs.infer_once(request)
+            reset()
+            t0 = time.perf_counter()
+            wav = svs.infer_once(request)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read(f"17 served {label}")
+            hop = svs.hp["hop_size"]
+            checks[f"{label} served: finite, non-silent, whole {hop}-sample frames"] = (
+                bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 1e-3
+                and len(wav) % hop == 0)
+            checks[f"{label} served: K1-bf16 {want[0]}, K2-bf16 {want[1]}, fp32 0"] = (
+                counts == {"fused_residual_stack": 0, "fused_residual_stack_bf16": want[0],
+                           "fused_mrf_stage": 0, "fused_mrf_stage_bf16": want[1]})
+            stats[f"{label} served"] = dict(request_s=secs,
+                                            audio_s=len(wav) / svs.hp["audio_sample_rate"])
+            lines.append(f"{label} served (warm request): {len(wav)} samples, |wav| max "
+                         f"{float(np.abs(wav).max()):.3f}, {secs:.3f} s, launches {counts}")
+
+        # ---- (a) speech: CRF head, speaker vectors, LEFT relu FFNs, energy 10**mel ----
+        speech = f"{data['speech']},{SPEECH_VARIANT}"
+        tr_a = train("v_lj_fs2", cfg["lj_fs2"], speech)
+        fs2_a = os.path.join(root, "checkpoints", "v_lj_fs2")
+        train("v_lj_ds", cfg["lj_ds_beta6"], f"{speech},fs2_ckpt={fs2_a}")
+        svs = SVSInferTorch.from_work_dir(os.path.join(root, "checkpoints", "v_lj_ds"),
+                                          os.path.join(tmp, "tts", "assets"), device=dev)
+        k, speedup = svs.hp["K_step"], int(svs.hp["pndm_speedup"])
+        request = dict(TTS_REQUEST, spk_embed=speech_item["spk_embed"].tolist())
+        serve("(a) v_lj_ds, a corpus speaker's vector", svs,
+              request, (2 + len(np.arange(0, k, speedup)) - 1, 4))
+        with torch.no_grad():  # the vector reaches the conditioner
+            b = svs.items_to_batch(svs.score_items([request, dict(request, spk_embed=None)]))
+            ret = svs.model.fs2(torch.as_tensor(b["txt_tokens"], device=dev),
+                                spk_embed=torch.as_tensor(b["spk_embed"], device=dev),
+                                max_frames=b["n_frames"], skip_decoder=True)
+        checks["(a) the speaker vector moves the conditioner"] = bool(
+            (ret["decoder_inp"][0] - ret["decoder_inp"][1]).abs().max() > 0)
+        del svs
+
+        # ---- (b) singing: mixture head, split ids, rel_pos, swish; a LEFT/standard PE ----
+        sing = f"{data['sing']},{SING_VARIANT}"
+        train("v_fs2", cfg["fs2"], sing)
+        fs2_b = os.path.join(root, "checkpoints", "v_fs2")
+        train("v_diff", cfg["diff"], f"{sing},fs2_ckpt={fs2_b}")
+        f0_mean, f0_std = (float(x) for x in np.load(os.path.join(root, "sing_bin",
+                                                                  "train_f0s_mean_std.npy")))
+        pe_keys = (f"{data['sing']},task_cls=tasks.tts.pe.PitchExtractionTask,pitch_type=frame,"
+                   f"pitch_loss=l1,use_uv=true,ffn_padding=LEFT,pitch_norm=standard,"
+                   f"f0_mean={f0_mean},f0_std={f0_std}")
+        tr_pe = run.trainer_from_args(run.parse_args(
+            ["--config", cfg["diff"], "--exp_name", "v_pe", "--hparams",
+             f"{pe_keys},max_updates={VARIANT_STEPS},log_interval=1,val_check_interval=1000,"
+             "num_ckpt_keep=2"]))
+        pe_grads = {}
+
+        def pe_step(step, metrics):
+            if step == 1:
+                pe_grads["ok"] = all(p.grad is not None and bool((p.grad != 0).any())
+                                     and bool(torch.isfinite(p.grad).all())
+                                     for p in tr_pe.task.model.parameters())
+
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
+            tr_pe.fit(on_step=pe_step)
+        counts = read("17 train v_pe")
+        log = tr_pe.train_log
+        t1, tn = log[0][1], log[-1][1]
+        st = stats["v_pe"] = dict(first_s=t1 - tr_pe.loop_started,
+                                  steps_per_s=(len(log) - 1) / (tn - t1),
+                                  mem=torch.cuda.max_memory_allocated() / 2 ** 30,
+                                  loss1=log[0][2]["total_loss"], loss_last=log[-1][2]["total_loss"])
+        checks["v_pe losses finite"] = all(np.isfinite(v) for _, _, m in log for v in m.values())
+        checks["v_pe every parameter's gradient non-zero and finite"] = pe_grads.get("ok", False)
+        checks["v_pe no kernel launched in training"] = not any(counts.values())
+        lines.append(f"v_pe (PitchExtractor, LEFT convs, pitch_norm standard: f0_mean "
+                     f"{f0_mean:.2f}, f0_std {f0_std:.2f} Hz; B={tr_pe.task.hp['max_sentences']}, "
+                     f"bf16): first step {st['first_s']:.2f} s, then {st['steps_per_s']:.2f} "
+                     f"steps/s; peak memory {st['mem']:.2f} GiB; loss step 1 {st['loss1']:.4f}, "
+                     f"step {VARIANT_STEPS} {st['loss_last']:.4f}; launches {counts}")
+        assets = os.path.join(root, "pe_assets")  # the PE trained here, the flagship vocoder
+        tr_pe.task.export(assets)
+        os.symlink(os.path.join(FLAGSHIP_DIR, "vocoder"), os.path.join(assets, "vocoder"))
+        with open(os.path.join(assets, "hparams_diff.json"), "w") as f:
+            json.dump(tr_pe.task.hp, f)
+        svs = SVSInferTorch.from_work_dir(os.path.join(root, "checkpoints", "v_diff"), assets,
+                                          device=dev)
+        checks["(b) served through the LEFT/standard PE"] = (
+            svs.pe is not None and svs.pe.pitch_predictor.conv_0.left > 0)
+        serve("(b) v_diff", svs, VARIANT_SCORE, (201, 4))
+        del svs
+
+        # ---- (c) the FFT denoiser ----
+        train("v_fft", cfg["diff"], "diff_decoder_type=fft")
+        svs = SVSInferTorch.from_work_dir(os.path.join(root, "checkpoints", "v_fft"),
+                                          FLAGSHIP_DIR, device=dev)
+        serve("(c) v_fft", svs, VARIANT_SCORE, (0, 4))
+        del svs
+
+        # ---- fp32 card vs CPU: one step of each variant task ----
+        fp32 = dict(compute_dtype="float32", dropout=0.0, predictor_dropout=0.0)
+
+        def latest(name):
+            c = CheckpointManager(os.path.join(root, "checkpoints", name, "ckpt"))
+            return load_npz(os.path.join(c.directory, str(c.latest_step()), "params.npz"))
+
+        hp_a = apply_overrides(load_hparams(cfg["lj_fs2"], speech), fp32)
+        b_a = next(iter(DataLoader(M4SingerDataset(hp_a, "valid"), hp_a, shuffle=False,
+                                   max_sentences=4)))
+        b_a = {k: (v[:4, :256] if k in ("mels", "mel2ph", "f0", "uv", "cwt_spec", "energy")
+                   else v[:4]) if isinstance(v, np.ndarray) and v.ndim else v
+               for k, v in b_a.items()}
+        hp_b = apply_overrides(load_hparams_json(cfg["fs2"], sing), fp32)
+        hp_c = apply_overrides(load_hparams_json(cfg["diff"], "diff_decoder_type=fft"), fp32)
+        vocab_b = int(latest("v_fs2")["token_embed/embed/embedding"].shape[0])
+        vocab_c = int(latest("v_fft")["fs2/token_embed/embed/embedding"].shape[0])
+        b_b = make_batch(4, 16, 64, vocab_b, seed=17)
+        r = np.random.RandomState(17)
+        b_b.update(mels=(r.randn(4, 64, 80) * 0.5 - 3).astype(np.float32),
+                   word_boundary=r.randint(0, 2, (4, 16)))
+        b_b["mels"][b_b["mel2ph"] == 0] = 0.0
+        g = torch.Generator().manual_seed(17)
+        pins = dict(t=torch.randint(0, hp_c["K_step"], (4,), generator=g),
+                    noise=torch.randn((4, 64, 80), generator=g))
+        hp_pe = apply_overrides(tr_pe.task.hp, dict(compute_dtype="float32"))
+        _, valid_dl = tr_pe.build_dataloaders()
+        b_pe = {k: v[:4, :128].cpu().numpy() for k, v in batch_to_device(
+            next(iter(valid_dl)), "cpu").items() if k in ("mels", "mel2ph", "f0", "uv")}
+        vocab_a = tr_a.task.vocab_size
+        reset()
+        for label, make, params, batch, pin in (
+                ("(a) CRF + speaker vectors", lambda d: AuxDecoderMIDITask(hp_a, vocab_a, device=d),
+                 latest("v_lj_fs2"), b_a, {}),
+                ("(b) mixture + split ids + rel_pos", lambda d: AuxDecoderMIDITask(
+                    hp_b, vocab_b, device=d), latest("v_fs2"), b_b, {}),
+                ("(b) PE LEFT/standard", lambda d: PitchExtractionTask(hp_pe, device=d),
+                 latest("v_pe"), b_pe, {}),
+                ("(c) FFT denoiser", lambda d: DiffSingerMIDITask(hp_c, vocab_c, device=d),
+                 latest("v_fft"), b_b, pins)):
+            ok, text = step_parity(make, params, batch, pin, dev)
+            checks[f"{label} fp32 card vs CPU"] = ok
+            lines.append(f"{label} fp32 step card vs CPU ({batch['mels'].shape[0]} x "
+                         f"{batch['mels'].shape[1]} frames, every loss): {text}")
+        checks["no kernel launched in the parity steps"] = not any(read("17 parity").values())
+        lines.append(f"steps/s (first step apart), peak GiB, losses, served request s on {card}: "
+                     + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()}
+                                   for k, v in stats.items()}))
+        lines.append(f"phase 17 {time.perf_counter() - t_phase:.1f} s, and its binarizations "
+                     f"{res['ended'] - res['started']:.1f} s in the background")
+    finally:
+        os.chdir(cwd)
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
 # ---- the host's share, in the background ----------------------------------------
-# Phases 10, 12, 13 and 16 each start from a corpus binarized on the host (16
-# from the corpus tools' metas). One process of its own (`--prepare`, at the
-# lowest CPU priority) writes them all from the start of the run, in the order
-# the phases need them, while the card runs phases 2-8; each phase waits for
-# its part.
+# Phases 10, 12, 13, 16 and 17 each start from a corpus binarized on the host
+# (16 from the corpus tools' metas, 17 from 10's and 13's corpora). One process
+# of its own (`--prepare`, at the lowest CPU priority) writes them all from the
+# start of the run, in the order the phases need them, while the card runs
+# phases 2-8; each phase waits for its part.
 def popcs_data(root):
     """Phase 12's data keys. The synthetic items are named
     "<singer>#song<i % 3>#<i:04d>": the configs' PopCS song names match none;
@@ -2532,8 +2858,27 @@ def prep_paper(tmp):
                 binarize_s=time.perf_counter() - t0)
 
 
+def prep_variants(tmp):
+    """Phase 17's binarizations (`variant_data`): phase 13's TextGrid corpus
+    with speaker vectors and loud_norm, phase 10's corpus with trim_long_sil,
+    the two at once, 4 processes each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "variants")
+    os.makedirs(root)
+    data = variant_data(tmp)
+    argv = {"speech": ["--config", os.path.join(repo, "configs", "tts", "lj", "fs2.yaml"),
+                       "--hparams", f"{data['speech']},binarizer_cls="
+                       "bisinger_tpu.data.binarizer.ZhBinarizer"],
+            "sing": ["--config", os.path.join(tmp, "fs2.json"), "--hparams", data["sing"]]}
+    with ThreadPoolExecutor(2) as pool:
+        futures = {name: pool.submit(binarize_cli, a, root, 4) for name, a in argv.items()}
+        return dict(runs={name: f.result() for name, f in futures.items()})
+
+
 PREP_PARTS = (("training", prep_training), ("popcs", prep_popcs), ("tts", prep_tts),
-              ("paper", prep_paper))
+              ("paper", prep_paper), ("variants", prep_variants))
 
 
 def prepare(tmp: str) -> int:
@@ -2639,7 +2984,7 @@ def main() -> int:
 
 
 def run_phases(tmp: str, prep: Prep) -> int:
-    """Phases 1-16 in their order; `tmp` holds the corpora `prep` writes."""
+    """Phases 1-17 in their order; `tmp` holds the corpora `prep` writes."""
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
     from bisinger_tpu_torch import full_fp32
     from bisinger_tpu_torch.ops import _build, _tf32, diffnet_stack, mrf_stage
@@ -3069,6 +3414,11 @@ def run_phases(tmp: str, prep: Prep) -> int:
             return 1
     with Phase("16 the paper's recipe") as ph:
         ok, lines = paper_phase(counters, by_path, dev, tmp, smi, prep)
+        ph.done(" | ".join(lines))
+        if not ok:
+            return 1
+    with Phase("17 the model and data variants") as ph:
+        ok, lines = variants_phase(counters, by_path, dev, tmp, smi, prep)
         ph.done(" | ".join(lines))
         if not ok:
             return 1

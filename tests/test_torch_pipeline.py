@@ -315,8 +315,9 @@ def test_score_to_wav_matches_jax(tmp_path):
 
 def test_port_imports_nothing_of_jax():
     """In a fresh interpreter that refuses jax, flax, optax, orbax, yaml,
-    pypinyin, jieba, parselmouth, resemblyzer, tensorboard, matplotlib, the
-    JAX package and __graft_entry__, every module of the port (the score
+    pypinyin, jieba, parselmouth, resemblyzer, webrtcvad, pyloudnorm,
+    tensorboard, matplotlib, the JAX package and __graft_entry__, every
+    module of the port (the score
     front end, the server, the CLI, the data pipeline, the training
     modules, the GAN vocoder's task, weight norm, PQMF, STFT, wrapper and
     trainer tool, the card-vs-CPU step check, the YAML reader, the vocoder
@@ -328,8 +329,8 @@ def test_port_imports_nothing_of_jax():
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "pypinyin", "jieba",
-                   "parselmouth", "resemblyzer", "tensorboard", "matplotlib",
-                   "bisinger_tpu", "__graft_entry__")
+                   "parselmouth", "resemblyzer", "webrtcvad", "pyloudnorm", "tensorboard",
+                   "matplotlib", "bisinger_tpu", "__graft_entry__")
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):

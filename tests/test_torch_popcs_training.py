@@ -148,8 +148,8 @@ def test_batches_with_energy_and_fs2_mels_match_jax(env):
     the same seed over an epoch and a half: the same batches, every array
     equal (the frame energy of the log-mel, the recorded fs2 mels cut and
     padded to each item's frames); `pitch_norm: standard` without f0_mean
-    raises in both; the port refuses an energy_convention other than JAX's
-    default."""
+    raises in both; JAX's other energy_convention (10**mel) gives JAX's
+    energies."""
     jhp, php = env["jhp"]["popcs_ds_beta6_offline"], env["php"]["popcs_ds_beta6_offline"]
     assert jhp["use_energy_embed"] and php["fs2_mel_dir"]
     jdl = JDataLoader(JDataset(jhp, "train", shuffle=True), jhp, shuffle=True, endless=True,
@@ -171,9 +171,11 @@ def test_batches_with_energy_and_fs2_mels_match_jax(env):
         M4SingerDataset(bad, "train")[0]
     with pytest.raises(ValueError, match="f0_mean"):
         JDataset(jhp.replace(pitch_norm="standard", f0_mean=None), "train")[0]
-    # JAX's other energy convention (10**mel, which no config sets) is refused
-    with pytest.raises(NotImplementedError, match="energy_convention"):
-        M4SingerDataset(dict(php, energy_convention="pow10"), "train")[0]
+    # JAX's other energy convention (10**mel, which no config sets) as JAX computes it
+    for i in range(2):
+        np.testing.assert_array_equal(
+            M4SingerDataset(dict(php, energy_convention="pow10"), "train")[i]["energy"],
+            JDataset(jhp.replace(energy_convention="pow10"), "train")[i]["energy"])
 
 
 PAIRS = {
