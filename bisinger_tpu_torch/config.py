@@ -168,6 +168,9 @@ DEFAULTS: Dict[str, Any] = {
     # the (data, model) mesh: data -1 is every rank of a data-parallel run;
     # model > 1 (tensor parallelism) is not ported (parallel/mesh.py)
     "mesh_shape": {"data": -1, "model": 1},
+    # long-form synthesis: the mesh axis to split mel frames over ("" off;
+    # "seq" under `with make_seq_mesh(...):`, parallel/sequence.py)
+    "sequence_parallel_axis": "",
     # inference entry points
     "pe_enable": False,  # serve f0 from a PitchExtractor (else the model's own)
     "profile_infer": False,

@@ -11,6 +11,8 @@
 //   z      = g @ wo[l] + bo[l]
 //   x      = (x + z[:C]) / sqrt(2);   skip += z[C:]
 // all in fp32. Output: skip [B, T, C]; the caller scales it by 1/sqrt(L).
+// In the write-last mode the last layer's x is stored as well (a pipeline
+// stage hands it to the next stage); by default it is never formed.
 //
 // Bound. 16*C^2 FLOP per frame per layer (3 taps C->2C, a 1x1 C->2C):
 // 21.5 GFLOP per call at B=4, T=256, C=256, L=20 against ~85 MB of fp32
@@ -220,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_kernel(
     const float* x0, const float* __restrict__ cond, const float* __restrict__ step,
     const float* __restrict__ wd, const float* __restrict__ bd, const float* __restrict__ wo,
     const float* __restrict__ bo, float* xbuf, float* skip, int B, int T, int L, int dmax,
-    Dilations dil) {
+    Dilations dil, int write_last) {
   using P = Tile<R>;
   constexpr int NG = P::NG, C = kC, C2 = 2 * kC, LDA = P::LDA;
   extern __shared__ __align__(16) float smem[];
@@ -240,6 +242,9 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_kernel(
 
   for (int l = 0; l < L; ++l) {
     const int d = dil.d[l];
+    // the state after layer l is stored for layer l + 1, and after the last
+    // layer too in the write-last mode (a pipeline stage hands it on)
+    const bool keep_x = l + 1 < L || write_last;
     // x is written during the launch: plain loads, never the read-only path
     const float* src = (l == 0) ? x0 : xbuf + (size_t)((l - 1) & 1) * btc;
     float* dst = xbuf + (size_t)(l & 1) * btc;
@@ -353,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_kernel(
             const size_t idx = ((size_t)b * T + (t < T ? t : 0)) * C + cb;
 #pragma unroll
             for (int j = 0; j < NG; ++j) {
-              xm[h][j] = l + 1 < L ? *reinterpret_cast<const float2*>(src + idx + j * 8)
+              xm[h][j] = keep_x ? *reinterpret_cast<const float2*>(src + idx + j * 8)
                                    : make_float2(0.f, 0.f);
               sk[h][j] = l > 0 ? *reinterpret_cast<const float2*>(skip + idx + j * 8)
                                : make_float2(0.f, 0.f);
@@ -371,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_kernel(
               const float zr1 = acc[mt][j][2 * h + 1] + bol[ch + 1];
               const float zs0 = acc[mt][NG + j][2 * h] + bol[C + ch];
               const float zs1 = acc[mt][NG + j][2 * h + 1] + bol[C + ch + 1];
-              if (l + 1 < L)
+              if (keep_x)
                 *reinterpret_cast<float2*>(dst + idx + j * 8) =
                     make_float2((xm[h][j].x + zr0) * kRsqrt2, (xm[h][j].y + zr1) * kRsqrt2);
               *reinterpret_cast<float2*>(skip + idx + j * 8) =
@@ -389,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_kernel(
 template <int R>
 cudaError_t launch(const float* x0, const float* cond, const float* step, const float* wd,
                    const float* bd, const float* wo, const float* bo, float* xbuf, float* skip,
-                   int B, int T, int L, int dmax, const Dilations& dil, int sms,
+                   int B, int T, int L, int dmax, const Dilations& dil, int write_last, int sms,
                    cudaStream_t stream) {
   using P = Tile<R>;
   constexpr int CL = P::CL;
@@ -426,7 +431,7 @@ cudaError_t launch(const float* x0, const float* cond, const float* step, const 
   if (resident < 1) return cudaErrorInvalidConfiguration;
   cfg.gridDim = dim3((n_tiles < resident ? n_tiles : resident) * CL);
   err = cudaLaunchKernelEx(&cfg, kern, x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax,
-                           dil);
+                           dil, write_last);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -439,11 +444,13 @@ extern "C" {
 // wo [L,C,2C], bo [L,2C], all fp32 contiguous on `device`, with C = 256
 // (the flagship's width, which the tile shapes and shared-memory sizes
 // above are set for); dilations is a host array of L ints; xbuf [2,B,T,C]
-// scratch; skip [B,T,C] output. Returns a cudaError_t (0 on success).
+// scratch; skip [B,T,C] output. With write_last set, the state after the
+// last layer is stored too, in xbuf[(L - 1) % 2] (a pipeline stage's
+// output); else it is never formed. Returns a cudaError_t (0 on success).
 int diffnet_residual_stack(const float* x0, const float* cond, const float* step,
                            const float* wd, const float* bd, const float* wo, const float* bo,
                            const int* dilations, float* xbuf, float* skip, int B, int T, int C,
-                           int L, int device, void* stream) {
+                           int L, int write_last, int device, void* stream) {
   if (L < 1 || L > kMaxLayers || C != kC || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
   Dilations dil;
   int dmax = 0;
@@ -461,8 +468,10 @@ int diffnet_residual_stack(const float* x0, const float* cond, const float* step
   // 64-frame tiles where they still give every SM one, else 16-frame tiles
   // over clusters of two
   const bool wide = (long long)B * ((T + 63) / 64) >= sms;
-  err = wide ? launch<64>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil, sms, s)
-             : launch<16>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil, sms, s);
+  err = wide ? launch<64>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil,
+                          write_last, sms, s)
+             : launch<16>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil,
+                          write_last, sms, s);
   return (int)err;
 }
 

@@ -11,6 +11,8 @@
 //   z  = g @ wo[l] + bo[l]                                 (bf16 products, fp32 sum)
 //   x  = bf16((x + z[:C]) * rsqrt(2));   skip += z[C:]     (skip fp32)
 // Output: skip [B, T, C] fp32; the caller scales it by 1/sqrt(L).
+// In the write-last mode the last layer's x is stored as well (a pipeline
+// stage hands it to the next stage); by default it is never formed.
 //
 // Design. As diffnet_stack.cu, the hidden state goes through device
 // memory between layers (bf16 ping-pong buffers, L2-resident at the
@@ -188,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
     const bf16* x0, const bf16* __restrict__ cond, const bf16* __restrict__ step,
     const bf16* __restrict__ wd, const float* __restrict__ bd, const bf16* __restrict__ wo,
     const float* __restrict__ bo, bf16* xbuf, float* skip, int B, int T, int C, int L,
-    int dmax, Dilations dil) {
+    int dmax, Dilations dil, int write_last) {
   using P = Tile<R>;
   constexpr int NG = P::NG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -210,6 +212,9 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
 
   for (int l = 0; l < L; ++l) {
     const int d = dil.d[l];
+    // the state after layer l is stored for layer l + 1, and after the last
+    // layer too in the write-last mode (a pipeline stage hands it on)
+    const bool keep_x = l + 1 < L || write_last;
     // x is written during the launch: plain loads, never the read-only path
     const bf16* src = (l == 0) ? x0 : xbuf + (size_t)((l - 1) & 1) * btc;
     bf16* dst = xbuf + (size_t)(l & 1) * btc;
@@ -334,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
             const size_t idx = ((size_t)b * T + (t < T ? t : 0)) * C + cb;
 #pragma unroll
             for (int j = 0; j < NG; ++j) {
-              xm[h][j] = l + 1 < L ? *reinterpret_cast<const uint32_t*>(src + idx + j * 8) : 0u;
+              xm[h][j] = keep_x ? *reinterpret_cast<const uint32_t*>(src + idx + j * 8) : 0u;
               sk[h][j] = l > 0 ? *reinterpret_cast<const float2*>(skip + idx + j * 8)
                                : make_float2(0.f, 0.f);
             }
@@ -351,7 +356,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
               const float zr1 = acc[mt][j][2 * h + 1] + bol[ch + 1];
               const float zs0 = acc[mt][NG + j][2 * h] + bol[C + ch];
               const float zs1 = acc[mt][NG + j][2 * h + 1] + bol[C + ch + 1];
-              if (l + 1 < L) {
+              if (keep_x) {
                 const float2 x2 = unpack_bf16x2(xm[h][j]);
                 *reinterpret_cast<uint32_t*>(dst + idx + j * 8) =
                     pack_bf16x2((x2.x + zr0) * kRsqrt2, (x2.y + zr1) * kRsqrt2);
@@ -371,8 +376,8 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
 template <int R>
 cudaError_t launch(const bf16* x0, const bf16* cond, const bf16* step, const bf16* wd,
                    const float* bd, const bf16* wo, const float* bo, bf16* xbuf, float* skip,
-                   int B, int T, int C, int L, int dmax, const Dilations& dil, int sms,
-                   cudaStream_t stream) {
+                   int B, int T, int C, int L, int dmax, const Dilations& dil, int write_last,
+                   int sms, cudaStream_t stream) {
   constexpr int CL = Tile<R>::CL;
   const size_t smem =
       ((size_t)(2 * R + 2 * dmax) * (C + 8) + (size_t)Tile<R>::NS * Tile<R>::TILE) * sizeof(bf16);
@@ -407,7 +412,7 @@ cudaError_t launch(const bf16* x0, const bf16* cond, const bf16* step, const bf1
   if (resident < 1) return cudaErrorInvalidConfiguration;
   cfg.gridDim = dim3((n_tiles < resident ? n_tiles : resident) * CL);
   err = cudaLaunchKernelEx(&cfg, kern, x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, C, L,
-                           dmax, dil);
+                           dmax, dil, write_last);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -421,11 +426,13 @@ extern "C" {
 // [L,B,C] bf16, wd [L,3,C,2C] bf16, bd [L,2C] fp32, wo [L,C,2C] bf16, bo
 // [L,2C] fp32, all contiguous on
 // `device`; dilations is a host array of L ints; xbuf [2,B,T,C] bf16
-// scratch; skip [B,T,C] fp32 output. Returns a cudaError_t (0 on success).
+// scratch; skip [B,T,C] fp32 output. With write_last set, the state after
+// the last layer is stored too, in xbuf[(L - 1) % 2] (a pipeline stage's
+// output); else it is never formed. Returns a cudaError_t (0 on success).
 int diffnet_residual_stack_bf16(const void* x0, const void* cond, const void* step,
                                 const void* wd, const float* bd, const void* wo, const float* bo,
                                 const int* dilations, void* xbuf, float* skip, int B, int T,
-                                int C, int L, int device, void* stream) {
+                                int C, int L, int write_last, int device, void* stream) {
   if (L < 1 || L > kMaxLayers || C != 256 || B < 1 || T < 1)
     return (int)cudaErrorInvalidValue;
   Dilations dil;
@@ -448,8 +455,10 @@ int diffnet_residual_stack_bf16(const void* x0, const void* cond, const void* st
   // 128-frame tiles where they still give every SM one, else 16-frame tiles
   // over clusters of two
   const bool wide = (long long)B * ((T + 127) / 128) >= sms;
-  err = wide ? launch<128>(x0b, cb, sb, wdb, bd, wob, bo, xb, skip, B, T, C, L, dmax, dil, sms, s)
-             : launch<16>(x0b, cb, sb, wdb, bd, wob, bo, xb, skip, B, T, C, L, dmax, dil, sms, s);
+  err = wide ? launch<128>(x0b, cb, sb, wdb, bd, wob, bo, xb, skip, B, T, C, L, dmax, dil,
+                           write_last, sms, s)
+             : launch<16>(x0b, cb, sb, wdb, bd, wob, bo, xb, skip, B, T, C, L, dmax, dil,
+                          write_last, sms, s);
   return (int)err;
 }
 

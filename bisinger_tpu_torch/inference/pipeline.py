@@ -36,6 +36,15 @@ frame, phone or CWT pitch), else zeros
 f0 only when it was built with `use_nsf` (`pipeline.py:248-268`); the plain
 HiFi-GAN of the TTS configs takes none.
 
+Long-form synthesis (`sequence_parallel_axis`, `parallel/sequence.py`):
+on the ranks of an entered ('data', 'seq') mesh, every rank calls
+`synthesize` with the same global batch; each keeps its rows, runs the
+conditioner whole, and the sampler, the PE and the vocoder on its frames
+widened by their halos, and returns its rows' core frames (mel, f0,
+mel2ph) and their samples (wav); the pins are given at the global shape.
+`infer_batch` gathers every rank's part, so each rank returns all
+waveforms.
+
 The score entry points trim each waveform to its filled frames; with the
 vocoder's `use_denoise` each waveform of the batch is first denoised on the
 host (`BaseVocoder.postprocess`), as JAX's `spec2wav_batch` does. The
@@ -60,6 +69,7 @@ from bisinger_tpu_torch.config import apply_overrides, load_hparams_json
 from bisinger_tpu_torch.data.text.frontend import BilingualFrontend
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
 from bisinger_tpu_torch.models.pe import PitchExtractor
+from bisinger_tpu_torch.parallel import sequence
 from bisinger_tpu_torch.utils.audio import save_wav
 from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder, build_phone_encoder
 from bisinger_tpu_torch.vocoders.base_vocoder import as_vocoder, get_vocoder_cls, latest_generator
@@ -344,8 +354,13 @@ class SVSInferTorch:
         """One batch -> {"wav" [B, T*hop], "mel" [B, T, 80], "f0" [B, T],
         "mel2ph" [B, T]}, the vocoder's output before any post-denoising.
         Random draws (diffusion start, DDPM's steps, NSF phase and noise, a
-        PWG's z) come from `generator` unless given."""
+        PWG's z) come from `generator` unless given. Under `seq` (the mesh
+        `sequence.context` finds, passed to the model, the PE and the
+        vocoder) this rank's rows and core frames (module docstring)."""
         dev = self.device
+        m = sequence.context(self.hp)
+        if m is not None:  # this rank's rows; the conditioner takes every frame
+            batch = sequence.shard_longform_batch(batch, m, halo=None)
         as_t = lambda k: torch.as_tensor(batch[k], device=dev)  # noqa: E731
         mel2ph = batch.get("mel2ph")
         cond = {k: as_t(k) for k in ("pitch_midi", "midi_dur", "is_slur", "lang", "speechsing")
@@ -353,22 +368,28 @@ class SVSInferTorch:
         if "spk_embed" in batch:
             cond["spk_embed"] = as_t("spk_embed").float()
         if isinstance(self.model, GaussianDiffusion):
-            cond.update(start_noise=start_noise, step_noise=step_noise, generator=generator)
+            cond.update(start_noise=start_noise, step_noise=step_noise, generator=generator,
+                        seq=m)
         ret = self.model(
             as_t("txt_tokens"),
             mel2ph=None if mel2ph is None else torch.as_tensor(mel2ph, device=dev),
             spk_id=as_t("spk_ids"), max_frames=batch.get("n_frames") if mel2ph is None else None,
             **cond,
         )
-        mel = ret["mel_out"]
+        mel, mel2ph = ret["mel_out"], ret["mel2ph"]
+        if m is not None:  # the diffusion's mel is the core already; the conditioner's whole
+            mel2ph = sequence.core_of(mel2ph, m)
+            if not isinstance(self.model, GaussianDiffusion):
+                mel = sequence.core_of(mel, m)
         if self.pe is not None:
-            f0 = self.pe(mel)["f0_denorm_pred"]
+            f0 = self.pe(mel, seq=m)["f0_denorm_pred"]
         elif "f0_denorm" in ret:
-            f0 = ret["f0_denorm"]
+            f0 = ret["f0_denorm"] if m is None else sequence.core_of(ret["f0_denorm"], m)
         else:  # the NSF source runs unvoiced
             f0 = torch.zeros(mel.shape[:2], device=dev)
-        wav = self.voc.generate(mel, f0, generator, phase=nsf_phase, noise=nsf_noise, z=pwg_z)
-        return {"wav": wav, "mel": mel, "f0": f0, "mel2ph": ret["mel2ph"]}
+        wav = self.voc.generate(mel, f0, generator, phase=nsf_phase, noise=nsf_noise, z=pwg_z,
+                                seq=m)
+        return {"wav": wav, "mel": mel, "f0": f0, "mel2ph": mel2ph}
 
     # ---- score entry points ------------------------------------------------
     def score_items(self, inputs: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
@@ -398,6 +419,9 @@ class SVSInferTorch:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         out = self.synthesize(batch, generator=generator, **pins)
+        m = sequence.context(self.hp)
+        if m is not None:  # every rank's rows and frames
+            out = {k: sequence.gather_whole(out[k], m) for k in ("wav", "mel2ph")}
         wavs = self.voc.postprocess(out["wav"].float().cpu().numpy())  # one host fetch
         mel2ph = out["mel2ph"].cpu().numpy()
         filled = (mel2ph > 0).sum(axis=1)

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bisinger_tpu_torch.parallel import groups
 from bisinger_tpu_torch.parallel import mesh as dp
 
 
@@ -146,14 +147,26 @@ def layer_norm(ln: nn.LayerNorm, x):
     return (x - mean) * (torch.rsqrt(var + ln.eps) * ln.weight) + ln.bias
 
 
-def group_norm(gn: nn.GroupNorm, x):
+def group_norm(gn: nn.GroupNorm, x, seq=None):
     """flax's GroupNorm of x [B, T, C] (statistics over T and each group's
-    channels), in fp32, as `layer_norm`."""
+    channels), in fp32, as `layer_norm`. Under `seq` (mesh, window) x is a
+    rank's window of the frames: the sums of x and x^2 over its core are
+    summed over the `seq` ranks, so every rank takes the whole sequence's
+    statistics."""
     b, t, c = x.shape
     g = gn.num_groups
     xg = x.to(gn.weight.dtype).reshape(b, t, g, c // g)
-    mean = xg.mean((1, 3), keepdim=True)
-    var = torch.clamp_min((xg * xg).mean((1, 3), keepdim=True) - mean * mean, 0.0)
+    if seq is None:
+        mean = xg.mean((1, 3), keepdim=True)
+        sq = (xg * xg).mean((1, 3), keepdim=True)
+    else:
+        m, win = seq
+        core = win.core(xg)
+        sums = dp.all_reduce_sum(torch.stack([core.sum((1, 3), keepdim=True),
+                                              (core * core).sum((1, 3), keepdim=True)]),
+                                 group=m.group)
+        mean, sq = sums / (win.n_frames * (c // g))
+    var = torch.clamp_min(sq - mean * mean, 0.0)
     mul = torch.rsqrt(var + gn.eps) * gn.weight.reshape(g, c // g)
     return ((xg - mean) * mul).reshape(b, t, c) + gn.bias
 
@@ -263,14 +276,22 @@ def sinusoidal_table(num_positions: int, dim: int, padding_idx: Optional[int] = 
     return table.astype(np.float32)
 
 
-def sinusoidal_positions(nonpad_mask, dim: int, padding_idx: int = 0):
-    """[B, T] nonpadding mask -> [B, T, dim] position embeddings."""
+def sinusoidal_positions(nonpad_mask, dim: int, padding_idx: int = 0, seq=None):
+    """[B, T] nonpadding mask -> [B, T, dim] position embeddings. Under
+    `seq` (mesh, window) the mask is a rank's window of the frames: the
+    count starts from the earlier ranks' nonpadding core frames, less this
+    window's left halo."""
     t = nonpad_mask.shape[1]
+    mask = nonpad_mask.long()
+    positions = torch.cumsum(mask, dim=1)
+    if seq is not None:
+        m, win = seq
+        t = win.n_frames
+        before = groups.exclusive_prefix(win.core(mask).sum(1), m) - mask[:, :win.left].sum(1)
+        positions = positions + before[:, None]
     table = torch.from_numpy(sinusoidal_table(t + padding_idx + 1, dim, padding_idx)).to(
         nonpad_mask.device)
-    mask = nonpad_mask.long()
-    positions = torch.cumsum(mask, dim=1) * mask + padding_idx
-    return table[positions]
+    return table[positions * mask + padding_idx]
 
 
 @functools.lru_cache(maxsize=16)

@@ -69,22 +69,28 @@ class ResidualBlock(nn.Module):
 
 
 class DiffNet(nn.Module):
-    def __init__(self, hp: dict, in_dims: int = 80):
+    """`layers` (default all) are the residual layers this module holds,
+    under their own names `res_<i>` (a pipeline stage's,
+    `parallel/pipeline.py`); `dilations` are theirs, `n_layers` the whole
+    stack's."""
+
+    def __init__(self, hp: dict, in_dims: int = 80, layers=None):
         super().__init__()
         c = hp["residual_channels"]
         self.channels, self.n_layers = c, hp["residual_layers"]
         self.dtype_ = dt = compute_dtype(hp)
-        self.dilations = [2 ** (i % hp["dilation_cycle_length"]) for i in range(self.n_layers)]
+        self.layer_ids = list(range(self.n_layers) if layers is None else layers)
+        self.dilations = [2 ** (i % hp["dilation_cycle_length"]) for i in self.layer_ids]
         self.input_projection = Linear(in_dims, c, dtype=dt, conv1x1=True)
         self.mlp_0 = Linear(c, 4 * c, dtype=dt)
         self.mlp_1 = Linear(4 * c, c, dtype=dt)
-        for i, d in enumerate(self.dilations):
+        for i, d in zip(self.layer_ids, self.dilations):
             self.add_module(f"res_{i}", ResidualBlock(c, hp["hidden_size"], d, dt))
         self.skip_projection = Linear(c, c, dtype=dt, conv1x1=True)
         self.output_projection = Linear(c, in_dims, conv1x1=True)  # fp32: feeds the sampler
 
     def blocks(self):
-        return [getattr(self, f"res_{i}") for i in range(self.n_layers)]
+        return [getattr(self, f"res_{i}") for i in self.layer_ids]
 
     def cond_projections(self, cond):
         """[B, T, H] -> [L, B, T, 2C] in compute_dtype."""
@@ -114,16 +120,29 @@ class DiffNet(nn.Module):
         noise [B, T, M]."""
         if cond is not None:
             return self._forward_layers(spec, diffusion_step, self.cond_projections(cond))
-        wstep, bstep, wd, bd, wo, bo, proj = stack if stack is not None else self.stack_weights()
+        stack = stack if stack is not None else self.stack_weights()
+        x, step_proj = self.prologue(spec, diffusion_step, stack)
+        skip = self.stack_fn()(x.contiguous(), cond_proj, step_proj.contiguous(), *stack[2:6],
+                               self.dilations)
+        return self.epilogue(skip, stack[6])
+
+    def prologue(self, spec, diffusion_step, stack):
+        """The input projection and each held layer's step projection:
+        (x [B, T, C], step_proj [L, B, C]), in compute_dtype."""
+        wstep, bstep, proj = stack[0], stack[1], stack[6]
         x = F.relu(self.input_projection(spec, proj["input_projection"]))
         s = self.mlp_0(diffusion_step_embedding(diffusion_step, self.channels), proj["mlp_0"])
         s = self.mlp_1(s * torch.tanh(softplus(s)), proj["mlp_1"])  # Mish
         # each layer's diffusion_projection, batched: the product rounded,
         # then the bias added, in compute_dtype
-        step_proj = torch.einsum("bc,lcd->lbd", s, wstep) + bstep[:, None, :]
-        stack_fn = residual_stack_bf16 if self.dtype_ == torch.bfloat16 else residual_stack
-        skip = stack_fn(x.contiguous(), cond_proj, step_proj.contiguous(), wd, bd, wo, bo,
-                        self.dilations)
+        return x, torch.einsum("bc,lcd->lbd", s, wstep) + bstep[:, None, :]
+
+    def stack_fn(self):
+        """K1's route for compute_dtype."""
+        return residual_stack_bf16 if self.dtype_ == torch.bfloat16 else residual_stack
+
+    def epilogue(self, skip, proj):
+        """The whole stack's fp32 skip sum -> the predicted noise."""
         y = (skip * (1.0 / math.sqrt(self.n_layers))).to(self.dtype_)
         return self.output_projection(F.relu(self.skip_projection(y, proj["skip_projection"])))
 

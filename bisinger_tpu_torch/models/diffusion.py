@@ -29,6 +29,26 @@ fs2 mel (`fs2_mels`) and runs the full K-step DDPM loop whatever
 `pndm_speedup` says, unless `offline_fast_sampler` is set.
 `PlainGaussianDiffusion` (`diffusion.py:502-509`) diffuses over every step:
 K_step is `timesteps`.
+
+Long-form synthesis (`parallel/sequence.py`; JAX cuts at
+`diffusion.py:421-424`): `forward(..., seq=mesh)`, the mesh found by the
+entry point from `sequence_parallel_axis`. Each `seq` rank runs the conditioner
+whole on its rows (it is token-level, its frame-level attention spans the
+score, and it is 1.3-1.9% of a B=32 call), then keeps its chunk of the
+decoder input and of the fs2 mel: a departure from JAX in mechanism (JAX
+splits the decoder input's frames), not in result. The sampler's state
+lives on the rank's frames widened by K1's halo (the sum of the
+dilations); `cond_proj` is computed once for the widened chunk; before
+every denoiser call the halo frames of x are refreshed from the
+neighbours' cores, and K1 runs unchanged on the widened chunk. The PLMS,
+DDPM and DPM-Solver++ updates are frame-wise, so a stale halo frame is
+overwritten at the next exchange. The start noise and DDPM's step noise
+are drawn at the global shape (or pinned at it), each rank keeping its
+rows and frames; the shallow start noises the rank's slice of the fs2
+mel. `mel_out` is the rank's core frames (`sequence.gather_frames` gives
+the whole); the conditioner's outputs stay whole. The FFT denoiser
+attends over every frame: under `seq` it gathers x before each call,
+correct but no faster.
 """
 
 from __future__ import annotations
@@ -41,6 +61,7 @@ from torch import nn
 
 from bisinger_tpu_torch.models.diffnet import DIFF_DECODERS
 from bisinger_tpu_torch.models.fs2 import FastSpeech2, FastSpeech2MIDI
+from bisinger_tpu_torch.parallel import sequence
 from bisinger_tpu_torch.parallel.mesh import draw_rows, global_count, global_mean, local_rows
 
 
@@ -121,11 +142,12 @@ class GaussianDiffusion(nn.Module):
         )
         return x + x_delta
 
-    def plms_sample_loop(self, x, cond_proj, k: int, interval: int, stack=None):
+    def plms_sample_loop(self, x, cond_proj, k: int, interval: int, stack=None, seq=None):
         """PLMS reverse loop (`diffusion.py:227-277`): one denoiser call per
-        step after a 2-call warmup; k/interval + 1 calls in all."""
+        step after a 2-call warmup; k/interval + 1 calls in all. Each
+        sampler takes `seq` (mesh, window) under `seq` (`_sample`)."""
         ts = np.arange(0, k, interval)[::-1]
-        dn = lambda xx, tv: self._dn(xx, cond_proj, int(tv), stack)  # noqa: E731
+        dn = lambda xx, tv: self._dn(xx, cond_proj, int(tv), stack, seq)  # noqa: E731
         t0 = int(ts[0])
         t0_prev = max(t0 - interval, 0)
         noise_pred = dn(x, t0)
@@ -147,9 +169,17 @@ class GaussianDiffusion(nn.Module):
             history = [noise_pred, h0, h1]
         return x
 
-    def _dn(self, x, cond_proj, tv: int, stack):
+    def _dn(self, x, cond_proj, tv: int, stack, seq=None):
         tb = torch.full((x.shape[0],), tv, dtype=torch.long, device=x.device)
-        return self.denoise_fn(x, tb, cond_proj, stack)
+        if seq is None:
+            return self.denoise_fn(x, tb, cond_proj, stack)
+        m, win = seq
+        if sequence.denoiser_halo(self.hp) is None:
+            # the FFT denoiser: every frame, then this rank's window of its output
+            whole = sequence.gather_frames(win.core(x), m)
+            return win.of(self.denoise_fn(whole, tb, cond_proj, stack))
+        # the DiffNet: the halo frames from the neighbours' cores
+        return self.denoise_fn(sequence.refresh_halo(x, m, win), tb, cond_proj, stack)
 
     def q_sample_t(self, x_start, t, noise):
         """x_start [B, T, M] noised to the steps t [B] (`diffusion.py:120-126`)."""
@@ -209,11 +239,11 @@ class GaussianDiffusion(nn.Module):
         return (float(b["sqrt_recip_alphas_cumprod"][t]) * x_t
                 - float(b["sqrt_recipm1_alphas_cumprod"][t]) * noise)
 
-    def p_sample(self, x, t: int, cond_proj, noise, stack=None):
+    def p_sample(self, x, t: int, cond_proj, noise, stack=None, seq=None):
         """One ancestral step t -> t-1 with x0 clipped to [-1, 1]
         (`diffusion.py:166-186`); `noise` is this step's draw (unused at t=0)."""
         b = self.sched
-        x_recon = self.predict_start_from_noise(x, t, self._dn(x, cond_proj, t, stack))
+        x_recon = self.predict_start_from_noise(x, t, self._dn(x, cond_proj, t, stack, seq))
         x_recon = x_recon.clamp(-1.0, 1.0)
         mean = (float(b["posterior_mean_coef1"][t]) * x_recon
                 + float(b["posterior_mean_coef2"][t]) * x)
@@ -222,16 +252,23 @@ class GaussianDiffusion(nn.Module):
         return mean + float(np.exp(0.5 * b["posterior_log_variance_clipped"][t])) * noise
 
     def ddpm_sample_loop(self, x, cond_proj, k: int, stack=None, generator=None,
-                         step_noise=None):
+                         step_noise=None, seq=None):
         """Reverse DDPM from step k-1 down to 0 (`diffusion.py:188-209`): k
         denoiser calls. Step i's noise is `step_noise[i]` when given (the
         first step, t=k-1, at 0), else a draw from `generator`."""
-        if step_noise is not None and tuple(step_noise.shape) != (k, *x.shape):
-            raise ValueError(f"step_noise {tuple(step_noise.shape)} != {(k, *x.shape)}")
+        if seq is not None:  # drawn (or pinned) at the global shape
+            m, win = seq
+            shape = (x.shape[0] * m.shape["data"], win.n_frames, *x.shape[2:])
+        else:
+            shape = tuple(x.shape)
+        if step_noise is not None and tuple(step_noise.shape) != (k, *shape):
+            raise ValueError(f"step_noise {tuple(step_noise.shape)} != {(k, *shape)}")
         for i, tv in enumerate(range(k - 1, -1, -1)):
             noise = (step_noise[i] if step_noise is not None
-                     else torch.randn(x.shape, generator=generator, device=x.device))
-            x = self.p_sample(x, tv, cond_proj, noise, stack)
+                     else torch.randn(shape, generator=generator, device=x.device))
+            if seq is not None:  # this rank's part
+                noise = sequence.local_window(noise, m, win)
+            x = self.p_sample(x, tv, cond_proj, noise, stack, seq)
         return x
 
     def dpmpp_schedule(self, k: int, steps: int):
@@ -248,7 +285,7 @@ class GaussianDiffusion(nn.Module):
         h = np.diff(np.log(alpha / sigma))
         return ts, alpha, sigma, h
 
-    def dpmpp_sample_loop(self, x, cond_proj, k: int, steps: int, stack=None):
+    def dpmpp_sample_loop(self, x, cond_proj, k: int, steps: int, stack=None, seq=None):
         """DPM-Solver++(2M) (`diffusion.py:278-330`): deterministic, one
         denoiser call per step (`dpm_steps`, at most k): the first
         transition first order, then second order multistep, and the last
@@ -257,7 +294,7 @@ class GaussianDiffusion(nn.Module):
         n = len(ts)
 
         def x0_of(x, i):
-            eps = self._dn(x, cond_proj, int(ts[i]), stack)
+            eps = self._dn(x, cond_proj, int(ts[i]), stack, seq)
             return ((x - float(sigma[i]) * eps) / float(alpha[i])).clamp(-1.0, 1.0)
 
         x0_prev = x0_of(x, 0)
@@ -271,50 +308,72 @@ class GaussianDiffusion(nn.Module):
             x0_prev = x0
         return x0_of(x, n - 1)
 
-    def _dispatch_sampler(self, x, cond_proj, stack, generator=None, step_noise=None):
+    def _dispatch_sampler(self, x, cond_proj, stack, generator=None, step_noise=None,
+                          seq=None):
         """DPM-Solver++ when `diff_sampler` is "dpmpp", PLMS when
         `pndm_speedup` is set, ancestral DDPM otherwise
         (`diffusion.py:142-157`)."""
         hp, k = self.hp, self.K_step
         if hp.get("diff_sampler", "plms") == "dpmpp":
-            return self.dpmpp_sample_loop(x, cond_proj, k, int(hp.get("dpm_steps", 40)), stack)
+            return self.dpmpp_sample_loop(x, cond_proj, k, int(hp.get("dpm_steps", 40)), stack,
+                                          seq)
         if hp.get("pndm_speedup"):
-            return self.plms_sample_loop(x, cond_proj, k, int(hp["pndm_speedup"]), stack)
-        return self.ddpm_sample_loop(x, cond_proj, k, stack, generator, step_noise)
+            return self.plms_sample_loop(x, cond_proj, k, int(hp["pndm_speedup"]), stack, seq)
+        return self.ddpm_sample_loop(x, cond_proj, k, stack, generator, step_noise, seq)
 
     def forward(self, txt_tokens, mel2ph=None, max_frames: Optional[int] = None,
                 start_noise=None, step_noise=None, generator: Optional[torch.Generator] = None,
-                **cond):
+                seq=None, **cond):
         """Inference: -> dict with mel_out [B, T, 80], mel2ph, decoder_inp,
         fs2_mel (and the conditioner's f0_denorm when it predicts pitch).
         `start_noise` [B, T, 80] pins the start's draw (the gaussian start
         itself, or the noise `q_sample` adds to the fs2 mel), and
         `step_noise` [K, B, T, 80] DDPM's per-step draws; else they are drawn
-        from `generator`."""
+        from `generator`. `seq`: the ('data', 'seq') mesh of long-form
+        synthesis (module docstring), else None."""
         ret = self.fs2(txt_tokens, mel2ph=mel2ph, max_frames=max_frames, **cond)
         ret["fs2_mel"] = ret["mel_out"]
-        x = self._sample(ret, ret["mel_out"], start_noise, step_noise, generator)
-        if mel2ph is not None:
-            x = x * (ret["mel2ph"] > 0).to(x.dtype)[:, :, None]
-        ret["mel_out"] = x
+        ret["mel_out"] = self._sample(ret, ret["mel_out"], start_noise, step_noise, generator,
+                                      mask=None if mel2ph is None else ret["mel2ph"] > 0,
+                                      seq=seq)
         return ret
 
-    def _sample(self, ret, fs2_mels, start_noise, step_noise, generator, sampler=None):
+    def _sample(self, ret, fs2_mels, start_noise, step_noise, generator, sampler=None,
+                mask=None, seq=None):
         """The start (gaussian, or `fs2_mels` noised to step K-1), the sampler
         (`sampler`, else `_dispatch_sampler`) over the conditioner's
-        decoder input, the denormalised mel."""
-        shape = fs2_mels.shape
+        decoder input, the denormalised mel, times `mask` [B, T] if given.
+        Under `seq` (the mesh): on this rank's window, which the sampler
+        takes as `seq=(mesh, window)`, the draws and pins at the global
+        shape; the rank's core frames."""
+        m = seq
+        shape, win = tuple(fs2_mels.shape), None
+        if m is not None:
+            halo = sequence.halo_for(self.hp, "denoiser")
+            win = sequence.window(shape[1], m, halo or 0)
+            shape = (shape[0] * m.shape["data"], *shape[1:])
         if start_noise is None:
             start_noise = torch.randn(shape, generator=generator, device=fs2_mels.device)
-        elif tuple(start_noise.shape) != tuple(shape):
-            raise ValueError(f"start_noise {tuple(start_noise.shape)} != {tuple(shape)}")
+        elif tuple(start_noise.shape) != shape:
+            raise ValueError(f"start_noise {tuple(start_noise.shape)} != {shape}")
+        cond = ret["decoder_inp"]
+        if m is not None:
+            start_noise = sequence.local_window(start_noise, m, win)
+            fs2_mels = win.of(fs2_mels)
+            if halo is not None:  # the FFT denoiser's conditioner stays whole
+                cond = win.of(cond)
         x = start_noise
         if not self.hp.get("gaussian_start"):
             x = self.q_sample(self.norm_spec(fs2_mels), self.K_step - 1, start_noise)
-        cond_proj = self.denoise_fn.cond_projections(ret["decoder_inp"]).contiguous()
+        cond_proj = self.denoise_fn.cond_projections(cond).contiguous()
         stack = self.denoise_fn.stack_weights()
-        x = (sampler or self._dispatch_sampler)(x, cond_proj, stack, generator, step_noise)
-        return self.denorm_spec(x)
+        x = (sampler or self._dispatch_sampler)(x, cond_proj, stack, generator, step_noise,
+                                                None if m is None else (m, win))
+        x = self.denorm_spec(x)
+        if m is not None:
+            x = win.core(x)
+            mask = None if mask is None else sequence.core_of(mask, m)
+        return x if mask is None else x * mask.to(x.dtype)[:, :, None]
 
 
 class OfflineGaussianDiffusion(GaussianDiffusion):
@@ -329,14 +388,16 @@ class OfflineGaussianDiffusion(GaussianDiffusion):
     fs2_decoder = False
 
     def forward(self, txt_tokens, mel2ph=None, fs2_mels=None, start_noise=None,
-                step_noise=None, generator: Optional[torch.Generator] = None, **cond):
+                step_noise=None, generator: Optional[torch.Generator] = None, seq=None,
+                **cond):
         if mel2ph is None or fs2_mels is None:
             raise ValueError("the offline model needs mel2ph and the recorded fs2_mels")
         ret = self.fs2(txt_tokens, mel2ph=mel2ph, skip_decoder=True, **cond)
         sampler = None if self.hp.get("offline_fast_sampler") else (
-            lambda x, cond_proj, stack, generator, step_noise: self.ddpm_sample_loop(
-                x, cond_proj, self.K_step, stack, generator, step_noise))
-        ret["mel_out"] = self._sample(ret, fs2_mels, start_noise, step_noise, generator, sampler)
+            lambda x, cond_proj, stack, generator, step_noise, seq: self.ddpm_sample_loop(
+                x, cond_proj, self.K_step, stack, generator, step_noise, seq))
+        ret["mel_out"] = self._sample(ret, fs2_mels, start_noise, step_noise, generator, sampler,
+                                      seq=seq)
         return ret
 
 

@@ -25,6 +25,20 @@ residual state fp32, the mean over the blocks fp32. As
 `bisinger_tpu/models/hifigan.py:263-400`, conv_pre, the upsample and
 noise convs compute in `compute_dtype`, the noise LayerNorm in fp32 (so
 the stage input is fp32 again); the NSF source and conv_post are fp32.
+
+Under `seq` (the mesh as `seq=`; JAX: `hifigan.py:296-300`) mel and f0
+are a rank's core frames: the generator runs on them widened by its
+receptive field in mel frames (`sequence.vocoder_halo`: conv_pre, each
+transposed conv, noise conv and MRF stage, conv_post; 16 frames at the
+flagship) from the neighbours' cores, K2 on each stage's widened length,
+and the waveform is cut to the core's samples. The chunk's bounds fall on whole frames, so the strided
+noise convs stay on their grid. The NSF phase is a running sum over the
+whole waveform: a rank starts its fp64 sum from the earlier ranks' core
+totals, less its own left halo's share; the random initial phase reaches
+sample 0 only, and the phase and noise are drawn (or pinned) at the
+global shape, each rank keeping its rows and samples. A multiband
+generator is not split (its PQMF synthesis spans the subbands'
+samples): `vocoders/` runs it whole.
 With `resblock: '2'` the stages hold `ResBlock2`s (one dilated conv a
 dilation), which run as layers in both modes: K2 fuses ResBlock1 only, as
 the TPU kernel does.
@@ -50,6 +64,7 @@ from torch import nn
 
 from bisinger_tpu_torch.models.common import Conv, compute_dtype, layer_norm, scale
 from bisinger_tpu_torch.ops.mrf_stage import mrf_stage, mrf_stage_bf16, pack_stage_weights
+from bisinger_tpu_torch.parallel import groups, sequence
 
 LRELU_SLOPE = 0.1
 
@@ -64,7 +79,7 @@ def phase_steps(f0_k, sample_rate: int):
 
 def sine_gen(f0, sample_rate: int, harmonic_num: int = 8, sine_amp: float = 0.1,
              noise_std: float = 0.003, voiced_threshold: float = 0.0, phase=None, noise=None,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None, seq=None):
     """Harmonic sine bank (`hifigan.py:43-81`), its phase summed in fp64.
     f0 [B, T, 1] at the sample rate. `phase` [B, H+1] ~ U[0, 1) (column 0
     is ignored: the fundamental gets none) and `noise` [B, T, H+1] ~ N(0, 1)
@@ -80,7 +95,12 @@ def sine_gen(f0, sample_rate: int, harmonic_num: int = 8, sine_amp: float = 0.1,
     divides), their running sum in fp64, where the JAX package sums in
     fp32 and subtracts 1 at each wrap: an fp32 sum depends on its order and
     accumulator (PyTorch's CPU cumsum accumulates fp32 in fp64, its CUDA
-    one in fp32); in fp64 the whole-cycle count drops out exactly."""
+    one in fp32); in fp64 the whole-cycle count drops out exactly.
+
+    `seq` (mesh, first, last): f0 is a rank's window of the waveform, its
+    core samples [first, last): the phase is added only where the window
+    starts the waveform, and the running sum starts from the earlier
+    ranks' core totals less this window's samples before its core."""
     b, t, _ = f0.shape
     dim = harmonic_num + 1
     mult = torch.arange(1, dim + 1, dtype=f0.dtype, device=f0.device)
@@ -88,8 +108,15 @@ def sine_gen(f0, sample_rate: int, harmonic_num: int = 8, sine_amp: float = 0.1,
     if phase is None:
         phase = torch.rand((b, dim), generator=generator, device=f0.device, dtype=f0.dtype)
     phase = torch.cat([torch.zeros_like(phase[:, :1]), phase[:, 1:]], dim=1)
-    rad = torch.cat([rad[:, :1] + phase[:, None, :], rad[:, 1:]], dim=1)
+    if seq is None or seq[0].index == 0:
+        rad = torch.cat([rad[:, :1] + phase[:, None, :], rad[:, 1:]], dim=1)
     cycles = torch.cumsum(rad.double(), dim=1)
+    if seq is not None:
+        m, first, last = seq
+        steps = rad.double()
+        before = groups.exclusive_prefix(steps[:, first:last].sum(1), m) - \
+            steps[:, :first].sum(1)
+        cycles = cycles + before[:, None, :]
     sines = torch.sin(torch.remainder(cycles, 1.0) * (2 * np.pi)).to(f0.dtype)
     uv = (f0 > voiced_threshold).to(f0.dtype)
     if noise is None:
@@ -106,9 +133,9 @@ class SourceModuleHnNSF(nn.Module):
         self.sample_rate, self.harmonic_num = sample_rate, harmonic_num
         self.merge = nn.Linear(harmonic_num + 1, 1)
 
-    def forward(self, f0, phase=None, noise=None, generator=None):
+    def forward(self, f0, phase=None, noise=None, generator=None, seq=None):
         sine_wavs, uv = sine_gen(f0, self.sample_rate, self.harmonic_num, phase=phase,
-                                 noise=noise, generator=generator)
+                                 noise=noise, generator=generator, seq=seq)
         return torch.tanh(self.merge(sine_wavs)), uv
 
 
@@ -168,6 +195,7 @@ class HifiGanGenerator(nn.Module):
 
     def __init__(self, hp: dict, n_mels: int = 80):
         super().__init__()
+        self.hp = hp
         self.resblock1 = str(hp.get("resblock", "1")) == "1"
         block = ResBlock1 if self.resblock1 else ResBlock2
         self.rates = list(hp["upsample_rates"])
@@ -224,18 +252,60 @@ class HifiGanGenerator(nn.Module):
         x_in = x.to(torch.promote_types(x.dtype, torch.float32)).contiguous()
         return stage(x_in, w, b, self.rk, self.rd).to(x.dtype)
 
-    def forward(self, mel, f0=None, phase=None, noise=None, generator=None):
+    def forward(self, mel, f0=None, phase=None, noise=None, generator=None, seq=None):
         if (f0 is not None) != self.use_nsf:
             raise ValueError(f"use_nsf is {self.use_nsf}: the generator takes "
                              f"{'an' if self.use_nsf else 'no'} f0")
+        if seq is not None:
+            return self._forward_seq(mel, f0, phase, noise, generator, seq)
+        har = None
         if self.use_nsf:
             hop = int(np.prod(self.rates)) * self.multiband
             f0_up = torch.repeat_interleave(f0, hop, dim=1)[:, :, None]
             har, _ = self.m_source(f0_up, phase, noise, generator)
+        return self._generate(mel, har)
+
+    def _forward_seq(self, mel, f0, phase, noise, generator, m):
+        """mel [B, c, 80] and f0 [B, c], this rank's core frames -> the core's
+        waveform [B, c * hop]; phase [B x data, H+1] and noise [B x data,
+        T * hop, H+1] at the global shape, drawn from `generator` unless
+        given."""
+        if self.multiband > 1:
+            raise NotImplementedError("a multiband generator runs whole under seq "
+                                      "(vocoders/hifigan.HifiGAN.generate gathers it)")
+        hop = int(np.prod(self.rates))
+        for u, k in zip(self.rates, (getattr(self, f"up_{i}").kernel_size[0]
+                                     for i in range(len(self.rates)))):
+            if (k - u) % 2:
+                raise NotImplementedError(f"an upsample of kernel {k} at stride {u} does not "
+                                          "keep whole frames: the generator runs whole")
+        b, c = mel.shape[:2]
+        win = sequence.window(c * m.size, m, sequence.vocoder_halo(self.hp))
+        mel_w = sequence.halo_exchange(mel, m, win.halo)
+        har = None
+        if self.use_nsf:
+            dim = self.m_source.harmonic_num + 1
+            rows = b * m.shape["data"]
+            dev, dt = f0.device, f0.dtype
+            if phase is None:
+                phase = torch.rand((rows, dim), generator=generator, device=dev, dtype=dt)
+            if noise is None:
+                noise = torch.randn((rows, win.n_frames * hop, dim), generator=generator,
+                                    device=dev, dtype=dt)
+            phase = sequence.local_window(phase, m, None)
+            noise = sequence.local_window(noise, m, win, scale=hop)
+            f0_up = torch.repeat_interleave(sequence.halo_exchange(f0, m, win.halo), hop,
+                                            dim=1)[:, :, None]
+            har, _ = self.m_source(f0_up, phase, noise, generator,
+                                   seq=(m, win.left * hop, (win.left + c) * hop))
+        return self._generate(mel_w, har).narrow(1, win.left * hop, c * hop)
+
+    def _generate(self, mel, har):
+        """The generator from conv_pre on, with the NSF source `har` (or None)."""
         x = self.conv_pre(mel)
         for i in range(len(self.rates)):
             x = self.upsample(i, leaky_relu(x, LRELU_SLOPE))
-            if self.use_nsf:
+            if har is not None:
                 xs = F.relu(getattr(self, f"noise_conv_{i}")(har))
                 xs = layer_norm(getattr(self, f"noise_norm_{i}"), xs)
                 x = x + xs[:, :x.shape[1]]  # fp32: the norm's output promotes x

@@ -192,9 +192,11 @@ class PitchPredictor(nn.Module):
                                                     kernel_size, dtype, dropout, padding))
         self.linear = nn.Linear(n_chans, odim)
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, seq=None):
+        """`seq` (mesh, window): x is a rank's window of the frames
+        (`models/pe.py`); the positions count on from the earlier ranks'."""
         nonpad = (x.abs().sum(-1) != 0).long()
-        x = x + self.pos_embed_alpha * sinusoidal_positions(nonpad, x.shape[-1])
+        x = x + self.pos_embed_alpha * sinusoidal_positions(nonpad, x.shape[-1], seq=seq)
         for i in range(self.n_layers):
             x = getattr(self, f"conv_{i}")(x, deterministic)
         return self.linear(x)
@@ -243,10 +245,12 @@ class ConvStacks(nn.Module):
             self.add_module(f"norm_{i}", nn.GroupNorm(n_chans // 16, n_chans, eps=1e-6))
         self.out_proj = nn.Linear(n_chans, odim)
 
-    def forward(self, x):
+    def forward(self, x, seq=None):
+        """`seq` (mesh, window): x is a rank's window of the frames; the
+        GroupNorm takes the whole sequence's statistics."""
         x = self.in_proj(x)
         for i in range(self.n_layers):
             y = getattr(self, f"conv_{i}")(x)
-            y = group_norm(getattr(self, f"norm_{i}"), y)
+            y = group_norm(getattr(self, f"norm_{i}"), y, seq)
             x = x + F.relu(y)  # fp32 from here: the norm's output promotes x
         return self.out_proj(x.to(self.out_proj.weight.dtype))

@@ -40,9 +40,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # each library's C entry points: name -> (argtypes, restype); every pointer,
 # host arrays and the stream included, is a c_void_p
 SIGNATURES = {
-    "diffnet_stack": {"diffnet_residual_stack": ([_P] * 10 + [_I] * 5 + [_P], _I)},
+    "diffnet_stack": {"diffnet_residual_stack": ([_P] * 10 + [_I] * 6 + [_P], _I)},
     "mrf_stage": {"mrf_stage": ([_P] * 4 + [_I] * 5 + [_P] * 2 + [_I, _P], _I)},
-    "diffnet_stack_bf16": {"diffnet_residual_stack_bf16": ([_P] * 10 + [_I] * 5 + [_P], _I)},
+    "diffnet_stack_bf16": {"diffnet_residual_stack_bf16": ([_P] * 10 + [_I] * 6 + [_P],
+                                                           _I)},
     "mrf_stage_bf16": {"mrf_stage_bf16": ([_P] * 4 + [_I] * 5 + [_P] * 2 + [_I, _P], _I)},
 }
 KERNELS = tuple(SIGNATURES)

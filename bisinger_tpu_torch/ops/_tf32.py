@@ -54,10 +54,12 @@ def matmul_tf32(a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tens
 
 
 def residual_stack_plain_tf32(x0, cond_proj, step_proj, wd, bd, wo, bo,
-                              dilations: Sequence[int], passes: int = 3):
+                              dilations: Sequence[int], passes: int = 3,
+                              write_last: bool = False):
     """K1's plain version (`residual_stack_plain`) with TF32 products."""
     return residual_stack_plain(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations,
-                                mm=functools.partial(matmul_tf32, passes=passes))
+                                mm=functools.partial(matmul_tf32, passes=passes),
+                                write_last=write_last)
 
 
 def mrf_stage_plain_tf32(x, w, b, kernel_sizes: Sequence[int],

@@ -10,6 +10,13 @@ Each runs its kernel (one cooperative launch for all layers) on CUDA
 tensors and its plain version (`residual_stack_plain`,
 `residual_stack_plain_bf16`) on CPU tensors. Inference only: on any device,
 both raise when grad mode is on and an input requires grad.
+
+`write_last=True` (both routes, kernels and plain versions) also returns
+the state after the last layer, which the stack otherwise never forms:
+(skip, x_last), x_last in the route's state dtype (fp32, or bf16 as the
+kernel keeps it). A pipeline stage (`parallel/pipeline.py`) hands it to
+the next stage. A write-last launch records (B, T, C, dilations) in the
+counter's shapes; a default one (B, T, C).
 """
 
 from __future__ import annotations
@@ -41,11 +48,25 @@ TOLERANCE_BF16 = 2e-2
 # every value; the bound lies between the two readings (chip_smoke.py
 # phase 3 reads both).
 MEAN_TOLERANCE_BF16 = 4e-3
+
+
+def mean_tolerance_bf16(n_layers: int) -> float:
+    """The mean bound for a stack of n_layers: MEAN_TOLERANCE_BF16 is set
+    for the flagship's 20 layers; a pipeline stage's 4 are held at 4 / 20
+    of it, which keeps the bound between the two readings (at 4 layers the
+    kernel's mean 2.9e-4, x_last's 4.2e-4, the `skip_dtype` control's
+    2.35e-3 on an H100, chip_smoke.py phase 9). The kernel and its control
+    were read at L=4 and L=20 only, so any other L raises: read both at it
+    before adding its bound here."""
+    if n_layers not in (4, 20):
+        raise ValueError(f"no bf16 mean bound read for a stack of {n_layers} layers "
+                         "(read at 4 and 20 only)")
+    return MEAN_TOLERANCE_BF16 * n_layers / 20
 RSQRT2 = 1.0 / math.sqrt(2.0)
 
 
 def residual_stack_plain(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[int],
-                         mm=torch.matmul):
+                         mm=torch.matmul, write_last: bool = False):
     """The stack as plain tensor ops, the TPU kernel's arithmetic: three
     shifted products for the dilated taps, the gate, the 1x1 output
     product. Same arguments and result as `residual_stack`; `mm` takes the
@@ -62,11 +83,12 @@ def residual_stack_plain(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Se
         z = mm(g, wo[l]) + bo[l]
         x = (x + z[..., :C]) / math.sqrt(2.0)
         skip = skip + z[..., C:]
-    return skip
+    return (skip, x) if write_last else skip
 
 
 def residual_stack_plain_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo,
-                              dilations: Sequence[int], skip_dtype=torch.float32):
+                              dilations: Sequence[int], skip_dtype=torch.float32,
+                              write_last: bool = False):
     """The stack with the TPU kernel's rounding (`diffnet_pallas.py:96-151`):
     the hidden state, (x + step), cond_proj, the gate and the weights bf16;
     products of bf16 values summed in fp32 (bf16 values upcast, fp32
@@ -87,7 +109,7 @@ def residual_stack_plain_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo,
         z = g.float() @ wo[l].float() + bo[l]
         x = ((x.float() + z[..., :C]) * RSQRT2).to(torch.bfloat16)
         skip = (skip + z[..., C:]).to(skip_dtype).float()
-    return skip
+    return (skip, x) if write_last else skip
 
 
 def _check(name, t, shape, device, dtype=torch.float32):
@@ -98,13 +120,16 @@ def _check(name, t, shape, device, dtype=torch.float32):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
 
 
-def residual_stack(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[int]):
+def residual_stack(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[int],
+                   write_last: bool = False):
     """x0 [B,T,C] (after the input projection), cond_proj [L,B,T,2C],
     step_proj [L,B,C], wd [L,3,C,2C], bd [L,2C], wo [L,C,2C], bo [L,2C]
-    -> skip sum [B,T,C] fp32 (the caller scales by 1/sqrt(L))."""
+    -> skip sum [B,T,C] fp32 (the caller scales by 1/sqrt(L)); with
+    `write_last`, (skip, the last layer's x [B,T,C] fp32)."""
     _build.refuse_autograd("residual_stack", x0, cond_proj, step_proj, wd, bd, wo, bo)
     if x0.device.type == "cpu":
-        return residual_stack_plain(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations)
+        return residual_stack_plain(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations,
+                                    write_last=write_last)
     if x0.device.type != "cuda":
         raise ValueError(f"residual_stack: no kernel for device {x0.device}")
     B, T, C = x0.shape
@@ -127,20 +152,22 @@ def residual_stack(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence
         x0.data_ptr(), cond_proj.data_ptr(), step_proj.data_ptr(), wd.data_ptr(),
         bd.data_ptr(), wo.data_ptr(), bo.data_ptr(),
         ctypes.cast(_build.int_array(dilations), ctypes.c_void_p),
-        xbuf.data_ptr(), skip.data_ptr(), B, T, C, L, dev.index or 0,
+        xbuf.data_ptr(), skip.data_ptr(), B, T, C, L, int(write_last), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "diffnet_residual_stack", lib)
-    counter.add(x0.shape)
-    return skip
+    return _counted(counter, skip, xbuf, dilations, write_last)
 
 
-def residual_stack_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[int]):
+def residual_stack_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[int],
+                        write_last: bool = False):
     """x0 [B,T,C] bf16, cond_proj [L,B,T,2C] bf16, step_proj [L,B,C] bf16,
     wd [L,3,C,2C] bf16, bd [L,2C] fp32, wo [L,C,2C] bf16, bo [L,2C] fp32
-    -> skip sum [B,T,C] fp32 (the caller scales by 1/sqrt(L))."""
+    -> skip sum [B,T,C] fp32 (the caller scales by 1/sqrt(L)); with
+    `write_last`, (skip, the last layer's x [B,T,C] bf16)."""
     _build.refuse_autograd("residual_stack_bf16", x0, cond_proj, step_proj, wd, bd, wo, bo)
     if x0.device.type == "cpu":
-        return residual_stack_plain_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations)
+        return residual_stack_plain_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations,
+                                         write_last=write_last)
     if x0.device.type != "cuda":
         raise ValueError(f"residual_stack_bf16: no kernel for device {x0.device}")
     B, T, C = x0.shape
@@ -163,11 +190,21 @@ def residual_stack_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Seq
         x0.data_ptr(), cond_proj.data_ptr(), step_proj.data_ptr(), wd.data_ptr(),
         bd.data_ptr(), wo.data_ptr(), bo.data_ptr(),
         ctypes.cast(_build.int_array(dilations), ctypes.c_void_p),
-        xbuf.data_ptr(), skip.data_ptr(), B, T, C, L, dev.index or 0,
+        xbuf.data_ptr(), skip.data_ptr(), B, T, C, L, int(write_last), dev.index or 0,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "diffnet_residual_stack_bf16", lib)
-    counter_bf16.add(x0.shape)
-    return skip
+    return _counted(counter_bf16, skip, xbuf, dilations, write_last)
+
+
+def _counted(count, skip, xbuf, dilations, write_last: bool):
+    """Count a launch and give its result: skip, or (skip, the last layer's
+    x, which the kernel stored in xbuf[(L - 1) % 2])."""
+    B, T, C = skip.shape
+    if not write_last:
+        count.add((B, T, C))
+        return skip
+    count.add((B, T, C, tuple(int(d) for d in dilations)))
+    return skip, xbuf[(len(dilations) - 1) % 2]
 
 
 def residual_stack_library(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[int],

@@ -25,8 +25,13 @@ The process group is torch.distributed's default group, formed by
 LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL for CUDA devices (with gloo
 beside it for host tensors), gloo for the CPU or when asked for (two ranks
 sharing one card). Outside a group every helper is the one-process
-identity. Only the `data` axis is ported: `mesh_shape.model > 1` (tensor
-parallelism) raises.
+identity. `all_reduce_sum`, `all_gather_rows`, `draw_rows`, `local_rows`
+and `broadcast_` also take a subgroup (`group=`): the `data` group or the
+axis group of a ('data', 'seq') or ('data', 'pipe') mesh
+(`parallel/groups.py`, which adds the point-to-point exchanges); without
+one they use the default group. The `seq` and `pipe` axes are
+`parallel/sequence.py`'s and `parallel/pipeline.py`'s;
+`mesh_shape.model > 1` (tensor parallelism) raises.
 """
 
 from __future__ import annotations
@@ -46,12 +51,12 @@ def active() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def world_size() -> int:
-    return dist.get_world_size() if active() else 1
+def world_size(group=None) -> int:
+    return dist.get_world_size(group) if active() else 1
 
 
-def rank() -> int:
-    return dist.get_rank() if active() else 0
+def rank(group=None) -> int:
+    return dist.get_rank(group) if active() else 0
 
 
 def is_main() -> bool:
@@ -72,7 +77,8 @@ def data_axis_size(mesh_shape: Optional[Dict], n_ranks: int) -> int:
     if model > 1:
         raise NotImplementedError(
             f"mesh_shape.model={model}: tensor parallelism is not ported (ROADMAP Queue 1 "
-            "item 5, bisinger_tpu/parallel/mesh.py:90-165); the port shards the data axis only")
+            "item 3, bisinger_tpu/parallel/mesh.py:90-165); the port shards the data axis, and "
+            "frames and layers over the seq and pipe axes (parallel/sequence.py, pipeline.py)")
     data = int(mesh_shape.get("data", -1))
     if data == -1:
         return n_ranks
@@ -158,40 +164,41 @@ class _AllReduceSum(torch.autograd.Function):
     same function of every input."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.clone()
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """x summed over the ranks, differentiable."""
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x summed over the ranks (of `group`, default all), differentiable."""
     if not active():
         return x
     if x.requires_grad:
-        return _AllReduceSum.apply(x)
+        return _AllReduceSum.apply(x, group)
     x = x.clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=group)
     return x
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The ranks' x [B, ...] stacked in rank order into [B x N, ...],
-    differentiable: each rank writes its rows into zeros and the ranks sum
-    (adding zeros is exact), which gloo also runs on CUDA tensors."""
-    n = world_size()
+def all_gather_rows(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The ranks' x [B, ...] stacked in rank order into [B x N, ...] (along
+    `dim`, default the rows), differentiable: each rank writes its part
+    into zeros and the ranks sum (adding zeros is exact), which gloo also
+    runs on CUDA tensors."""
+    n = world_size(group)
     if n == 1:
         return x
-    b, r = x.shape[0], rank()
-    full = torch.cat([x.new_zeros((r * b, *x.shape[1:])), x,
-                      x.new_zeros(((n - 1 - r) * b, *x.shape[1:]))])
-    return all_reduce_sum(full)
+    b, r = x.shape[dim], rank(group)
+    zeros = lambda k: x.new_zeros((*x.shape[:dim], k * b, *x.shape[dim + 1:]))  # noqa: E731
+    return all_reduce_sum(torch.cat([zeros(r), x, zeros(n - 1 - r)], dim), group)
 
 
 def gather_ints(values: Sequence[int]) -> List[int]:
@@ -236,33 +243,37 @@ def reduce_values(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 # ---- the global batch's draws and rows ------------------------------------
-def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int]) -> torch.Tensor:
+def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int],
+              group=None) -> torch.Tensor:
     """`draw(global shape)` with this rank's rows kept: the global batch's
-    draw, N x shape[0] rows, from the generator every rank seeds alike."""
-    n = world_size()
+    draw, N x shape[0] rows (N the ranks of `group`, default all), from the
+    generator every rank seeds alike."""
+    n = world_size(group)
     if n == 1:
         return draw(tuple(shape))
-    b, r = shape[0], rank()
+    b, r = shape[0], rank(group)
     return draw((b * n, *shape[1:]))[r * b:(r + 1) * b]
 
 
-def local_rows(x: torch.Tensor, n_local: int) -> torch.Tensor:
-    """This rank's rows of `x`, given at the global batch's shape."""
-    n = world_size()
+def local_rows(x: torch.Tensor, n_local: int, group=None) -> torch.Tensor:
+    """This rank's rows of `x`, given at the global batch's shape (over the
+    ranks of `group`, default all)."""
+    n = world_size(group)
     if x.shape[0] != n_local * n:
         raise ValueError(f"expected the global batch's {n_local * n} rows ({n} rank(s) of "
                          f"{n_local}), got {x.shape[0]}")
-    r = rank()
+    r = rank(group)
     return x[r * n_local:(r + 1) * n_local]
 
 
 # ---- state agreement -------------------------------------------------------
-def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0) -> None:
-    """Overwrite every rank's tensors with rank `src`'s, in place."""
+def broadcast_(tensors: Iterable[torch.Tensor], src: int = 0, group=None) -> None:
+    """Overwrite every rank's tensors (of `group`, default all) with global
+    rank `src`'s, in place."""
     if not active():
         return
     for t in tensors:
-        dist.broadcast(t.data, src)
+        dist.broadcast(t.data, src, group=group)
 
 
 def digest(tensors: Iterable[torch.Tensor]) -> str:

@@ -231,12 +231,15 @@ def step_parity(make_task: Callable, params: Dict[str, np.ndarray], batch, pins:
     on `batch` (numpy, collated), on the CPU, then on `dev` as it falls and
     with the CPU's kinks; the dropout masks pinned (`pin_dropout`), `pins`
     go to train_step. With `reference`, also the float64 step on the CPU.
-    (ok, text)."""
+    The task is built once, on the CPU, and each step takes a copy of it to
+    its device. (ok, text)."""
     cpu_dev, kinks = torch.device("cpu"), Kinks()
-    cpu = _task_step(make_task, params, batch, pins, cpu_dev, False, kinks.record())
-    raw = _task_step(make_task, params, batch, pins, dev, False)
-    card = _task_step(make_task, params, batch, pins, dev, False, kinks.pin())
-    ref = _task_step(make_task, params, batch, pins, cpu_dev, True) if reference else None
+    base = make_task(cpu_dev)
+    copy_to = lambda d: copy.deepcopy(base).to(d)  # noqa: E731
+    cpu = _task_step(copy_to, params, batch, pins, cpu_dev, False, kinks.record())
+    raw = _task_step(copy_to, params, batch, pins, dev, False)
+    card = _task_step(copy_to, params, batch, pins, dev, False, kinks.pin())
+    ref = _task_step(copy_to, params, batch, pins, cpu_dev, True) if reference else None
     return compare(card, cpu, kinks, raw, ref)
 
 
@@ -264,11 +267,11 @@ def gan_to_float64(task) -> None:
     task._new_optimizers()
 
 
-def _gan_step(hp, device, batch, pins, fp64: bool, kinks=contextlib.nullcontext()) -> Step:
+def _gan_step(task, batch, pins, fp64: bool, kinks=contextlib.nullcontext()) -> Step:
+    """One step of `task` (a HifiGanTask not yet stepped) on its device."""
     from bisinger_tpu_torch.training import weight_norm as wn
-    from bisinger_tpu_torch.training.vocoder_task import HifiGanTask
 
-    task = HifiGanTask(hp, device=device, seed=SEED)
+    device = task.device
     if fp64:
         gan_to_float64(task)
     cast = _f64 if fp64 else (lambda d: d)
@@ -288,14 +291,18 @@ def gan_step_parity(hp, dev, reference_device="cpu") -> Tuple[bool, str]:
     generator's hop) and NSF draw on the CPU, then on `dev` as it falls and
     with the CPU's kinks, and in float64 on `reference_device` (on the card
     a reading of the fp32 arithmetic's gap only: it shares any fault of the
-    card's). (ok, text)."""
+    card's). The task is built once, on the CPU, and each step takes a copy
+    of it to its device: one initialisation, drawn once. (ok, text)."""
+    from bisinger_tpu_torch.training.vocoder_task import HifiGanTask
+
     hop = int(np.prod(hp["upsample_rates"])) * int(hp.get("vocoder_multiband", 1) or 1)
     batch, pins = gan_batch(hop)
     cpu_dev, kinks, secs = torch.device("cpu"), Kinks(), []
+    base = HifiGanTask(hp, device=cpu_dev, seed=SEED)
 
-    def timed(*args):
+    def timed(device, *args):
         t0 = time.perf_counter()
-        step = _gan_step(hp, *args)
+        step = _gan_step(copy.deepcopy(base).to(device), *args)
         secs.append(time.perf_counter() - t0)  # each step ends in a copy to the host
         return step
 

@@ -54,6 +54,7 @@ from bisinger_tpu_torch.models.diffnet import DiffNet, FFTDenoiser
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion, OfflineGaussianDiffusion
 from bisinger_tpu_torch.models.fs2 import FastSpeech2, FastSpeech2MIDI
 from bisinger_tpu_torch.models.pe import PitchExtractor
+from bisinger_tpu_torch.parallel import sequence
 from bisinger_tpu_torch.parallel.mesh import GradientReducer, reduce_values
 from bisinger_tpu_torch.training import losses as L
 from bisinger_tpu_torch.training.checkpoints import load_params_into
@@ -168,6 +169,15 @@ class AuxDecoderMIDITask:
         return (FastSpeech2MIDI if self.hp.get("use_midi") else FastSpeech2)(self.hp,
                                                                               self.vocab_size)
 
+    def to(self, device) -> "AuxDecoderMIDITask":
+        """The model moved to `device` (as `__init__` moves it), the
+        optimizer afresh (for a task not yet stepped); returns the task."""
+        self.device = resolve_device(device)
+        self.model.to(self.device)
+        self.opt = self.build_optimizer()
+        self.reduce_gradients = GradientReducer(dict(self.model.named_parameters()))
+        return self
+
     def build_optimizer(self, steps_per_epoch: Optional[int] = None) -> AdamW:
         params = dict(self.model.named_parameters())
         return AdamW(params, self.hp, self.schedule, steps_per_epoch,
@@ -266,6 +276,26 @@ class DiffSingerMIDITask(AuxDecoderMIDITask):
         self._dur_losses(ret, batch, losses)
         self._variance_losses(ret, batch, losses)
         return losses
+
+    @torch.no_grad()
+    def infer_step(self, batch, start_noise=None, step_noise=None,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Inference as JAX's `DiffSingerMIDITask.infer_step`
+        (`bisinger_tpu/training/tasks.py:297-306`): durations from the
+        predictor (the batch's mel2ph, f0 and uv unused) within the batch's
+        frames (`n_frames`, else its mels' length), then the sampler -> the
+        model's dict (`mel_out`, ...). The draws come from `generator` or
+        the pins. Under `sequence_parallel_axis` (an entered seq mesh) the
+        batch is this rank's rows with every frame
+        (`sequence.shard_longform_batch(batch, mesh, halo=None)`), the pins
+        are at the global shape, and `mel_out` is the rank's core frames."""
+        self.model.eval()
+        kw = model_kwargs(batch, self.hp)
+        kw.update(mel2ph=None, f0=None, uv=None)
+        n_frames = batch.get("n_frames") or batch["mels"].shape[1]
+        return self.model(**kw, max_frames=int(n_frames), start_noise=start_noise,
+                          step_noise=step_noise, generator=generator,
+                          seq=sequence.context(self.hp))
 
     def warm_start_fs2(self, fs2_params: Dict[str, np.ndarray], subtree: str = ""):
         """Load the FFT-Singer stage's parameters (flat flax keys; under

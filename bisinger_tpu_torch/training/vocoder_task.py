@@ -136,6 +136,18 @@ class HifiGanTask:
         self.disc_params = wn.decompose(self.disc)
         self._new_optimizers()
 
+    def to(self, device) -> "HifiGanTask":
+        """The networks and the trainable leaves moved to `device`, the
+        optimizers afresh (for a task not yet stepped); returns the task."""
+        self.device = resolve_device(device)
+        self.generator.to(self.device)
+        self.disc.to(self.device)
+        for ps in (self.gen_params, self.disc_params):
+            for p in ps.values():
+                p.data = p.data.to(self.device)
+        self._new_optimizers()
+        return self
+
     def _new_optimizers(self):
         self.gen_opt = AdamW(self.gen_params, self.hp, "vocoder")
         self.disc_opt = AdamW(self.disc_params, self.hp, "vocoder")

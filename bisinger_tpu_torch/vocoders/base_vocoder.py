@@ -14,6 +14,13 @@ of each waveform with `use_denoise`, floor `denoise_v`, as JAX's
 through both. Without `params` or `model`, the generator of the highest
 step among `<vocoder_ckpt>/generator_*.npz` is loaded; there is no
 random-initialised fallback.
+
+Under `seq` (long-form synthesis, `parallel/sequence.py`) `generate` takes
+`seq=` the mesh and a rank's core frames and returns the core's samples. A
+generator that cannot be split on whole frames (a PWG, a MelGAN, a
+multiband HiFi-GAN, whose PQMF synthesis spans the subbands) runs whole:
+`generate_whole` gathers every rank's frames and rows, generates with the
+draws at the global shape, and keeps this rank's part; correct, no faster.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from torch import nn
 
 from bisinger_tpu_torch import resolve_device
+from bisinger_tpu_torch.parallel import sequence
 from bisinger_tpu_torch.vocoders.vocoder_utils import denoise
 from bisinger_tpu_torch.weights import load_flax_params, load_npz
 
@@ -116,6 +124,16 @@ class BaseVocoder:
         """mel [B, T, 80] (and f0 [B, T]) on the model's device -> wav [B,
         T * hop]."""
         raise NotImplementedError
+
+    def generate_whole(self, mel, f0, generator, seq, **pins) -> torch.Tensor:
+        """`generate` under `seq` for a generator that runs whole: mel [B,
+        c, 80] (and f0 [B, c]), this rank's rows and core frames -> the
+        core's samples [B, c * hop]; pins at the global shape."""
+        wav = self.generate(sequence.gather_whole(mel, seq),
+                            None if f0 is None else sequence.gather_whole(f0, seq), generator,
+                            **pins)
+        win = sequence.window(mel.shape[1] * seq.size, seq, 0)
+        return sequence.local_window(wav, seq, win, scale=wav.shape[1] // win.n_frames)
 
     def postprocess(self, wavs: np.ndarray) -> np.ndarray:
         """The host's part after the generator: with `use_denoise`, each

@@ -48,13 +48,17 @@ class HifiGAN(BaseVocoder):
         return path
 
     def generate(self, mel, f0=None, generator: Optional[torch.Generator] = None,
-                 phase=None, noise=None, **_) -> torch.Tensor:
+                 phase=None, noise=None, seq=None, **_) -> torch.Tensor:
         """mel [B, T, 80] and, with `use_nsf`, f0 [B, T] -> wav [B, T * hop].
-        The NSF phase and noise come from `generator` unless pinned."""
+        The NSF phase and noise come from `generator` unless pinned. Under
+        `seq` (the mesh) mel and f0 are a rank's core frames, the pins at
+        the global shape; a multiband generator runs whole."""
+        if seq is not None and self.pqmf is not None:
+            return self.generate_whole(mel, f0, generator, seq, phase=phase, noise=noise)
         if not self.model.use_nsf:
-            out = self.model(mel)
+            out = self.model(mel, seq=seq)
         else:
             if f0 is None:
                 raise ValueError("use_nsf is on: the HiFi-GAN needs an f0")
-            out = self.model(mel, f0, phase=phase, noise=noise, generator=generator)
+            out = self.model(mel, f0, phase=phase, noise=noise, generator=generator, seq=seq)
         return self.pqmf.synthesis(out) if self.pqmf is not None else out

@@ -25,8 +25,11 @@ class PWG(BaseVocoder):
     MODEL = ParallelWaveGANGenerator
 
     def generate(self, mel, f0=None, generator: Optional[torch.Generator] = None, z=None,
-                 **_) -> torch.Tensor:
-        """mel [B, T, 80] -> wav [B, T * hop]; f0 is not used."""
+                 seq=None, **_) -> torch.Tensor:
+        """mel [B, T, 80] -> wav [B, T * hop]; f0 is not used. Under `seq` it
+        runs whole (`generate_whole`)."""
+        if seq is not None:
+            return self.generate_whole(mel, None, generator, seq, z=z)
         if z is None:
             z = torch.randn((mel.shape[0], mel.shape[1] * self.model.hop), generator=generator,
                             device=mel.device)

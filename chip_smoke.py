@@ -195,15 +195,27 @@ and seconds (a failed phase exits non-zero):
      (201, 4); (d) every tool of bisinger_tpu_torch/tools (train_flagship
      at 16 items and 2 steps a stage, then its export through
      from_checkpoint; flagship_artifacts; sampler_quality on the flagship:
-     1241 K1-bf16 launches; bench_train; profile_split at B=32, T=1024;
+     1241 K1-bf16 launches; bench_train; profile_split at B=8, T=1024;
      bench_serving; train_convergence; bench_pipeline) at small step counts
      and full width, each with its JSON lines and launches; the tools'
      output goes to checkpoints/chip_smoke/tools.log;
+  19. (run before 9, its torchrun launches beside 18) sequence and
+     pipeline parallelism over gloo ranks sharing the card, at the
+     flagship's widths (`par_start`, `par_phase`): (a) a 4096-frame batch
+     (21.8 s of audio) at B=1 through synthesize() over 2 seq ranks in
+     bf16 and fp32 (the conditioner whole on each rank, PLMS-200 with K1
+     on each rank's frames widened by 75, the PE and the NSF HiFi-GAN on
+     theirs), against one process's unsharded run; 201 K1 and 4 K2
+     launches a rank; (b) the flagship DiffNet over 5 pipe ranks (4 layers
+     each, K1 in its write-last mode), B=4, T=256, 4 micro-batches: one
+     call and a PLMS-200 loop against the unsplit ones; 804 K1-bf16
+     launches a rank;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
-     buckets of phases 5, 8, 10-18 (the mb4 stages and the
-     plain generator's 8·8·2·2 stages among them).
+     buckets of phases 5, 8, 10-19 (the mb4 stages, the plain generator's
+     8·8·2·2 stages, phase 19's widened chunks and K1's write-last mode at
+     a stage's 4 layers among them).
 The host's share of phases 10, 12, 13, 16 and 17 (the corpora, phase 16's
 corpus tools, and the binarizations) runs from the start in one process of
 its own at the lowest CPU priority (`--prepare`, PREP_PARTS; its log
@@ -212,7 +224,7 @@ those phases waits for its part and reports when it ran.
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5, 8 and 10-18. Without a CUDA device it exits 1 and prints
+path of phases 5, 8 and 10-19. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -2871,9 +2883,13 @@ TOOLS = (
     ("flagship_artifacts", dict(FA_CKPT="<tmp>/fl_export", FA_DATA="<tmp>/fl_run", FA_N="2"),
      ("+", "+")),
     ("sampler_quality", dict(SQ_CKPT="<flagship>", SQ_DATA="<tmp>", SQ_B="8"), (1241, 0)),
-    ("bench_train", dict(BT_STEPS="2", BT_VOC="1", BT_MFU="1"), (0, 0)),
-    ("profile_split", dict(), ("+", "+")),
-    ("bench_serving", dict(SB_N="8", SB_CONC="4", SB_COMPARE="0"), ("+", "+")),
+    # room for phase 19's launches beside this phase: bench_train without its MFU step
+    # (tests/test_torch_tools.py holds the MFU arithmetic), profile_split at B=8 (the
+    # tool's default 32) and bench_serving at 4 requests; functional checks whose
+    # figures come from runs at their own knobs (PERF.md §5, §6)
+    ("bench_train", dict(BT_STEPS="2", BT_VOC="1", BT_VOC_B="4"), (0, 0)),
+    ("profile_split", dict(PS_B="8"), ("+", "+")),
+    ("bench_serving", dict(SB_N="4", SB_CONC="4", SB_COMPARE="0"), ("+", "+")),
     # K1 takes 256 residual channels: the convergence model at TC_HIDDEN 256 (its default 64
     # raises in K1's wrapper on the card)
     ("train_convergence", dict(TC_STEPS="4", TC_ITEMS="16", TC_HIDDEN="256", TC_OUT="<tmp>/tc",
@@ -3118,6 +3134,348 @@ def work_dirs_phase(counters, by_path, dev, tmp, card):
         lines.append(f"phase 18 {time.perf_counter() - t_phase:.1f} s")
     finally:
         os.chdir(cwd)
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
+# ---- phase 19: long-form synthesis over seq ranks, and the pipelined DiffNet -----
+SP_FRAMES, SP_RANKS = 4096, 2  # about 21.8 s of audio at hop 128, 24 kHz
+PP_STAGES, PP_MICRO, PP_B, PP_T = 5, 4, 4, 256  # 4 layers a stage at the flagship
+PAR_TIMEOUT_S = 240.0  # phase 19's launches, waited for after phase 18
+PAR_RUNS = (("sp", SP_RANKS, "--par-sp"), ("pp", PP_STAGES, "--par-pp"))
+PAR_SEED = 19
+
+
+def _kernel_counters():
+    from bisinger_tpu_torch.ops import diffnet_stack, mrf_stage
+
+    return {"fused_residual_stack": diffnet_stack.counter,
+            "fused_residual_stack_bf16": diffnet_stack.counter_bf16,
+            "fused_mrf_stage": mrf_stage.counter,
+            "fused_mrf_stage_bf16": mrf_stage.counter_bf16}
+
+
+def _rank_report(tmp, tag, rank, out, counters):
+    """A rank's results and every input shape its counters recorded."""
+    out["shapes"] = {k: [list(s[:3]) + ([list(s[3])] if len(s) == 4 else [])
+                         for s in c.shapes] for k, c in counters.items()}
+    with open(os.path.join(tmp, f"{tag}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sp_ranks(tmp: str) -> int:
+    """Phase 19 (a)'s ranks (torchrun, gloo, sharing the card): the
+    long-form batch of sp_batch.npz through `synthesize` under a 'seq' mesh
+    of SP_RANKS, in bf16 and in fp32, the draws from a generator seeded
+    PAR_SEED; each rank reports its launches and seconds, rank 0 writes the
+    gathered mel, f0 and waveform (sp_<route>.npz)."""
+    import numpy as np
+
+    from bisinger_tpu_torch import full_fp32
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
+    from bisinger_tpu_torch.parallel import mesh as dp
+    from bisinger_tpu_torch.parallel import sequence
+
+    full_fp32()
+    dev = dp.init_data_parallel("cuda:0", "gloo")
+    counters, out = _kernel_counters(), {}
+    try:
+        batch = dict(np.load(os.path.join(tmp, "sp_batch.npz")))
+        with sequence.make_seq_mesh(num_seq=SP_RANKS) as mesh:
+            for route, over in (("bf16", {}), ("fp32", {"compute_dtype": "float32"})):
+                svs = SVSInferTorch.from_checkpoint(FLAGSHIP_DIR, device=dev, hp_overrides=dict(
+                    over, sequence_parallel_axis="seq"))
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                res = svs.synthesize(batch, generator=torch.Generator(device=dev).manual_seed(
+                    PAR_SEED))
+                torch.cuda.synchronize()
+                out[route] = dict(secs=time.perf_counter() - t0,
+                                  counts={k: c.launches for k, c in counters.items()},
+                                  core=list(res["mel"].shape))
+                whole = {k: sequence.gather_frames(res[k].float(), mesh)
+                         for k in ("mel", "f0", "wav")}
+                if mesh.index == 0:
+                    np.savez(os.path.join(tmp, f"sp_{route}.npz"),
+                             **{k: v.cpu().numpy() for k, v in whole.items()})
+                del svs, res, whole
+        _rank_report(tmp, "sp", dp.rank(), out, counters)
+    finally:
+        dp.shutdown()
+    return 0
+
+
+def pp_ranks(tmp: str) -> int:
+    """Phase 19 (b)'s ranks (torchrun, gloo, sharing the card): the flagship
+    DiffNet over a 'pipe' mesh of PP_STAGES, each rank its 4 layers from
+    diff_params.npz, PP_MICRO micro-batches; one denoiser call and a
+    PLMS-200 loop on pp_inputs.npz; each rank reports its launches, seconds
+    and a digest of its results, rank 0 writes them (pp_out.npz)."""
+    import numpy as np
+
+    from bisinger_tpu_torch import full_fp32
+    from bisinger_tpu_torch.config import load_hparams_json
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR
+    from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+    from bisinger_tpu_torch.parallel import mesh as dp
+    from bisinger_tpu_torch.parallel import pipeline
+
+    full_fp32()
+    dev = dp.init_data_parallel("cuda:0", "gloo")
+    counters, out = _kernel_counters(), {}
+    try:
+        hp = load_hparams_json(os.path.join(FLAGSHIP_DIR, "hparams_diff.json"))
+        params_fn = os.path.join(FLAGSHIP_DIR, "diff_params.npz")
+        with np.load(params_fn) as z:
+            vocab = int(z["fs2/token_embed/embed/embedding"].shape[0])
+        inp = {k: torch.as_tensor(v).to(dev) for k, v in
+               np.load(os.path.join(tmp, "pp_inputs.npz")).items()}
+        with torch.no_grad(), pipeline.make_pipe_mesh(PP_STAGES) as mesh:
+            stage = pipeline.pipelined_denoiser(hp, mesh, PP_MICRO)
+            pipeline.load_stage_params(stage, params_fn)
+            stage.to(dev)
+            stack = stage.stack_weights()
+            cond_proj = stage.cond_projections(inp["cond"]).contiguous()
+            results = {}
+            for part in ("call", "plms"):
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                if part == "call":
+                    results[part] = stage(inp["x"], inp["t"], cond_proj, stack)
+                else:
+                    model = GaussianDiffusion(hp, vocab, 80)
+                    model.denoise_fn = stage
+                    model.to(dev).eval()
+                    results[part] = model.denorm_spec(model.plms_sample_loop(
+                        inp["x"], cond_proj, model.K_step, int(hp["pndm_speedup"]), stack))
+                torch.cuda.synchronize()
+                out[part] = dict(secs=time.perf_counter() - t0,
+                                 counts={k: c.launches for k, c in counters.items()},
+                                 digest=dp.digest([results[part]]))
+            if dp.rank() == 0:
+                np.savez(os.path.join(tmp, "pp_out.npz"),
+                         **{k: v.float().cpu().numpy() for k, v in results.items()})
+        out["layers"] = list(stage.layer_ids)
+        _rank_report(tmp, "pp", dp.rank(), out, counters)
+    finally:
+        dp.shutdown()
+    return 0
+
+
+def par_start(svs, dev, tmp):
+    """Phase 19: writes the inputs and starts both launches (torchrun over
+    gloo, the ranks sharing the card), which run beside phase 18; `par_phase`
+    waits for them and checks. (a) a long-form batch of SP_FRAMES frames at
+    B=1 (make_batch, mel2ph given: the conditioner, PLMS-200, the PE and the
+    NSF HiFi-GAN) over SP_RANKS seq ranks; (b) the flagship DiffNet over
+    PP_STAGES pipe ranks at B=PP_B, T=PP_T, PP_MICRO micro-batches."""
+    import numpy as np
+
+    from bisinger_tpu_torch.inference.pipeline import make_batch
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    np.savez(os.path.join(tmp, "sp_batch.npz"),
+             **make_batch(1, 128, SP_FRAMES, svs.vocab_size, seed=PAR_SEED))
+    g = torch.Generator().manual_seed(PAR_SEED)
+    np.savez(os.path.join(tmp, "pp_inputs.npz"),
+             x=torch.randn((PP_B, PP_T, 80), generator=g).numpy(),
+             t=torch.randint(0, svs.hp["K_step"], (PP_B,), generator=g).numpy(),
+             cond=torch.randn((PP_B, PP_T, svs.hp["hidden_size"]), generator=g).numpy())
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    launches = DPLaunches()
+    for tag, n, flag in PAR_RUNS:
+        with open(os.path.join(tmp, f"{tag}.out"), "w") as out:
+            launches.start(tag, subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", str(n), os.path.join(repo, "chip_smoke.py"), flag, tmp],
+                env=env, stdout=out, stderr=subprocess.STDOUT))
+    return launches
+
+
+def par_only() -> int:
+    """`chip_smoke.py --par-only`: phase 19 alone (the kernels built first),
+    for work on it; prints its lines and the launches and shapes it read."""
+    import shutil
+    import tempfile
+
+    from bisinger_tpu_torch import full_fp32
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
+    from bisinger_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    full_fp32()
+    _build.build_all(log=log)
+    dev = torch.device("cuda")
+    svs32 = SVSInferTorch.from_checkpoint(FLAGSHIP_DIR, device=dev,
+                                          hp_overrides=dict(compute_dtype="float32"))
+    svs = SVSInferTorch.from_checkpoint(FLAGSHIP_DIR, device=dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    counters, by_path = _kernel_counters(), {}
+    par = par_start(svs, dev, tmp)
+    try:
+        with Phase("19 sequence and pipeline parallel") as ph:
+            ok, lines = par_phase(par, svs, svs32, counters, by_path, dev, tmp)
+            ph.done(" | ".join(lines))
+    finally:
+        par.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(json.dumps({"launches_by_path": by_path,
+                    "shapes": {k: sorted(map(str, c.shapes)) for k, c in counters.items()}}))
+    return 0 if ok else 1
+
+
+def _k1_tiles(B, T, bf16):
+    """The K1 tiling the kernels pick at this shape (132 SMs on an H100 SXM)."""
+    rows = 128 if bf16 else 64
+    return rows if B * -(-T // rows) >= 132 else 16
+
+
+def par_phase(launches, svs, svs32, counters, by_path, dev, tmp):
+    """Phase 19's checks, once `par_start`'s launches have ended. (a) against
+    one process's unsharded run of the same batch and generator seed: fp32
+    mel within JAX's SP bound (rtol/atol 1e-4,
+    tests/test_sequence_parallel.py), f0 within 1e-4/1e-3, as is the
+    unsharded PE's f0 on the SP run's gathered mel, and the waveform
+    of the unsharded vocoder fed the SP run's gathered mel and f0 within
+    1e-4/1e-5 (end to end the waveform is reported: the NSF phase
+    integrates f0, phase 5); bf16 mel and that waveform within K1's mean
+    bound (MEAN_TOLERANCE_BF16, 4e-3 of the mean |value|), their max and
+    f0 reported; K1 201 and K2 4 launches a rank on each route. (b) the
+    pipelined denoiser call against the unsplit K1 call within K1's bf16
+    tolerances, the PLMS-200 loop through it against the unsplit loop
+    within phase 5's bf16 contract, the ranks' results bit-identical, 201 x
+    PP_MICRO write-last K1-bf16 launches a rank. Each rank's counts go into
+    `by_path`, its counters' shapes into the parent's (phase 9 checks
+    them). A functional check: ranks sharing one card say nothing of
+    scaling over cards. Returns (ok, lines)."""
+    import numpy as np
+
+    from bisinger_tpu_torch.inference.pipeline import make_batch
+    from bisinger_tpu_torch.ops import diffnet_stack
+
+    t0 = time.perf_counter()
+    launches.wait(PAR_TIMEOUT_S)
+    waited, secs, ranks = time.perf_counter() - t0, launches.secs, {}
+    for tag, n, _ in PAR_RUNS:
+        if tag not in secs or launches.procs[tag].returncode != 0:
+            with open(os.path.join(tmp, f"{tag}.out")) as f:
+                return False, [f"{tag} ranks failed (rc {launches.procs[tag].returncode}"
+                               f"{'' if tag in secs else f', past {PAR_TIMEOUT_S:.0f} s'}): "
+                               f"{f.read()[-3000:]}"]
+        ranks[tag] = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"{tag}_rank{r}.json")) as f:
+                ranks[tag].append(json.load(f))
+    lines, checks = [], {}
+    for tag in ranks:
+        for r, rep in enumerate(ranks[tag]):
+            for name, shapes in rep.pop("shapes").items():
+                counters[name].shapes.update(
+                    tuple(s[:3]) + ((tuple(s[3]),) if len(s) == 4 else ()) for s in shapes)
+    k1, k2, k1b, k2b = ("fused_residual_stack", "fused_mrf_stage", "fused_residual_stack_bf16",
+                        "fused_mrf_stage_bf16")
+    n_calls = svs.hp["K_step"] // svs.hp["pndm_speedup"] + 1
+
+    # ---- (a) long-form synthesis over SP_RANKS seq ranks ----
+    batch = make_batch(1, 128, SP_FRAMES, svs.vocab_size, seed=PAR_SEED)
+    for route, model, (kt, vt) in (("fp32", svs32, (k1, k2)), ("bf16", svs, (k1b, k2b))):
+        for r, rep in enumerate(ranks["sp"]):
+            counts = rep[route]["counts"]
+            by_path[f"19 (a) seq rank {r}, {route}"] = counts
+            checks[f"(a) {route} rank {r}: K1 {n_calls}, K2 4"] = counts == {
+                k: (n_calls if k == kt else 4 if k == vt else 0) for k in counts}
+        sp = dict(np.load(os.path.join(tmp, f"sp_{route}.npz")))
+        with torch.no_grad():
+            one = model.synthesize(batch, generator=torch.Generator(device=dev).manual_seed(
+                PAR_SEED))
+            # the vocoder's draws as in the run: after the diffusion's start noise
+            g = torch.Generator(device=dev).manual_seed(PAR_SEED)
+            torch.randn(tuple(sp["mel"].shape), generator=g, device=dev)
+            same_in = model.vocoder(torch.as_tensor(sp["mel"], device=dev),
+                                    torch.as_tensor(sp["f0"], device=dev), generator=g)
+            # the unsharded PE on the SP run's gathered mel: the split PE's own share
+            same_mel = model.pe(torch.as_tensor(sp["mel"], device=dev))["f0_denorm_pred"]
+        ref = {k: one[k].float().cpu().numpy() for k in ("mel", "f0", "wav")}
+        ref["wav, same mel and f0"] = same_in.float().cpu().numpy()
+        ref["f0, same mel"] = same_mel.float().cpu().numpy()
+        got = dict(sp, **{"wav, same mel and f0": sp["wav"], "f0, same mel": sp["f0"]})
+        core = ranks["sp"][0][route]["core"]
+        text = []
+        for key, (rtol, atol) in (("mel", (1e-4, 1e-4)), ("f0", (1e-4, 1e-3)),
+                                  ("f0, same mel", (1e-4, 1e-3)),
+                                  ("wav, same mel and f0", (1e-4, 1e-5)), ("wav", (None, None))):
+            a, b = got[key].astype(np.float64), ref[key].astype(np.float64)
+            if a.shape != b.shape:
+                checks[f"(a) {route} {key} shape"] = False
+                continue
+            d = np.abs(a - b)
+            mean_rel = d.mean() / max(np.abs(b).mean(), 1e-30)
+            reading = f"{key} max |diff| {d.max():.3e}, mean {mean_rel:.3e} of mean |value|"
+            if route == "fp32" and rtol is not None:
+                over = float((d - (atol + rtol * np.abs(b))).max())
+                checks[f"(a) fp32 {key} within rtol {rtol:g} atol {atol:g}"] = over <= 0
+                reading += f", worst over rtol/atol {over:.3e}"
+            elif route == "bf16" and key in ("mel", "wav, same mel and f0"):
+                checks[f"(a) bf16 {key} mean within {diffnet_stack.MEAN_TOLERANCE_BF16:g}"] = (
+                    mean_rel <= diffnet_stack.MEAN_TOLERANCE_BF16)
+            else:
+                reading += " (reported)"
+            text.append(reading)
+        tiles = {T: _k1_tiles(1, T, route == "bf16") for T in (SP_FRAMES, core[1] + 75)}
+        lines.append(f"(a) {route}, T={SP_FRAMES} over {SP_RANKS} seq ranks (cores {core}, K1 "
+                     f"on {core[1] + 75} frames: {tiles[core[1] + 75]}-frame tiles, unsharded "
+                     f"{tiles[SP_FRAMES]}): " + "; ".join(text) + "; seconds a rank "
+                     + ", ".join(f"{rep[route]['secs']:.2f}" for rep in ranks["sp"]))
+
+    # ---- (b) the pipelined DiffNet over PP_STAGES pipe ranks ----
+    pp = dict(np.load(os.path.join(tmp, "pp_out.npz")))
+    inp = {k: torch.as_tensor(v).to(dev) for k, v in
+           np.load(os.path.join(tmp, "pp_inputs.npz")).items()}
+    net = svs.model.denoise_fn
+    with torch.no_grad():
+        stack = net.stack_weights()
+        cp = net.cond_projections(inp["cond"]).contiguous()
+        ref_call = net(inp["x"], inp["t"], cp, stack).float().cpu()
+        ref_plms = svs.model.denorm_spec(svs.model.plms_sample_loop(
+            inp["x"], cp, svs.model.K_step, int(svs.hp["pndm_speedup"]), stack)).float().cpu()
+    err, rel, mean = rel_err(torch.as_tensor(pp["call"]), ref_call)
+    checks["(b) one call within K1's bf16 tolerances"] = (
+        rel <= diffnet_stack.TOLERANCE_BF16 and mean <= diffnet_stack.MEAN_TOLERANCE_BF16)
+    diff = (torch.as_tensor(pp["plms"]).double() - ref_plms.double()).abs()
+    scale = ref_plms.abs().mean().item()
+    mean_r, max_r = diff.mean().item() / scale, diff.max().item() / scale
+    checks["(b) PLMS-200 within phase 5's bf16 contract"] = mean_r < 0.02 and max_r < 0.2
+    for part in ("call", "plms"):
+        digests = {rep[part]["digest"] for rep in ranks["pp"]}
+        checks[f"(b) {part}: every rank's result bit-identical"] = len(digests) == 1
+    for r, rep in enumerate(ranks["pp"]):
+        by_path[f"19 (b) pipe rank {r}, one call"] = rep["call"]["counts"]
+        by_path[f"19 (b) pipe rank {r}, PLMS-200"] = rep["plms"]["counts"]
+        checks[f"(b) rank {r}: {n_calls} x {PP_MICRO} write-last K1-bf16"] = (
+            rep["plms"]["counts"] == {k: n_calls * PP_MICRO if k == k1b else 0
+                                      for k in rep["plms"]["counts"]})
+    lines.append(
+        f"(b) flagship DiffNet over {PP_STAGES} pipe ranks (layers "
+        + ", ".join(f"{rep['layers'][0]}-{rep['layers'][-1]}" for rep in ranks["pp"])
+        + f"), B={PP_B} T={PP_T}, {PP_MICRO} micro-batches, bf16: one call against the "
+        f"unsplit K1 call max_abs {err:.3e}, relative max {rel:.3e} mean {mean:.3e} (tolerance "
+        f"{diffnet_stack.TOLERANCE_BF16:g}/{diffnet_stack.MEAN_TOLERANCE_BF16:g}); PLMS-200 "
+        f"against the unsplit loop mean |diff| {100 * mean_r:.4f}%, max {100 * max_r:.4f}% of "
+        f"mean |value| {scale:.4g} (contract 2% / 20%); seconds a rank, call / PLMS-200: "
+        + ", ".join(f"{rep['call']['secs']:.2f}/{rep['plms']['secs']:.2f}"
+                    for rep in ranks["pp"]))
+    lines.append("launches (torchrun, both at once and beside phase 18, ranks sharing the "
+                 "card over gloo: a functional check, not a scaling figure; seconds from the "
+                 "start to each one's end, imports and loading included): "
+                 + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+                 + f"; waited for here {waited:.1f} s")
     bad = [k for k, v in checks.items() if not v]
     lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
     return not bad, lines
@@ -3386,7 +3744,7 @@ def main() -> int:
 
 
 def run_phases(tmp: str, prep: Prep) -> int:
-    """Phases 1-18 in their order; `tmp` holds the corpora `prep` writes."""
+    """Phases 1-19 in their order; `tmp` holds the corpora `prep` writes."""
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
     from bisinger_tpu_torch import full_fp32
     from bisinger_tpu_torch.ops import _build, _tf32, diffnet_stack, mrf_stage
@@ -3448,9 +3806,9 @@ def run_phases(tmp: str, prep: Prep) -> int:
     }
     CONTROL_RATIO = 10.0
 
-    def control_holds(name, rel, crel, cmean):
+    def control_holds(name, rel, crel, cmean, tol=None):
         if name.endswith("_bf16"):
-            tol = (k1_routes.get(name) or k2_routes[name])[2]
+            tol = tol or (k1_routes.get(name) or k2_routes[name])[2]
             return cmean > tol[1]
         return rel * CONTROL_RATIO <= crel
 
@@ -3833,11 +4191,23 @@ def run_phases(tmp: str, prep: Prep) -> int:
     finally:
         started[0].stop()
 
-    with Phase("18 work dirs served, and the tools") as ph:
-        ok, lines = work_dirs_phase(counters, by_path, dev, tmp, smi)
-        ph.done(" | ".join(lines))
-        if not ok:
-            return 1
+    # phase 19's launches run beside phase 18; its checks come after 18
+    with Phase("19 sequence and pipeline parallel, started") as ph:
+        par = par_start(svs, dev, tmp)
+        ph.done("inputs written; torchrun launches started")
+    try:
+        with Phase("18 work dirs served, and the tools") as ph:
+            ok, lines = work_dirs_phase(counters, by_path, dev, tmp, smi)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+        with Phase("19 sequence and pipeline parallel") as ph:
+            ok, lines = par_phase(par, svs, svs32, counters, by_path, dev, tmp)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+    finally:
+        par.stop()
 
     with Phase("9 kernels at every shape launched") as ph:
         # the input shapes any phase launched a kernel on (phases 5 and 8 at
@@ -3849,22 +4219,35 @@ def run_phases(tmp: str, prep: Prep) -> int:
                   "K2": set().union(counters["fused_mrf_stage"].shapes,
                                     counters["fused_mrf_stage_bf16"].shapes)}
         lines, bad = [], []
-        for B, T, _ in sorted(shapes["K1"] - checked["K1"]):
-            gen.manual_seed(7 + B + T)
-            args = k1_inputs(B, T, C, L, gen, dev)
+        # a write-last launch (a pipeline stage's) records its dilations too: both
+        # routes in that mode, the skip and the last layer's x held
+        for shape in sorted(shapes["K1"] - checked["K1"]):
+            B, T = shape[:2]
+            d = list(shape[3]) if len(shape) == 4 else dils
+            wl = dict(write_last=True) if len(shape) == 4 else {}
+            where = f"B={B} T={T}" + (f" L={len(d)} write-last" if wl else "")
+            gen.manual_seed(7 + B + T + len(d))
+            args = k1_inputs(B, T, C, len(d), gen, dev)
             for name, (fn, plain, tol, cast, _, _) in k1_routes.items():
+                if tol[1] is not None:  # the bf16 mean bound, for a stack of len(d) layers
+                    tol = (tol[0], diffnet_stack.mean_tolerance_bf16(len(d)))
                 a = cast(args)
-                got = fn(*a, dils)
-                ref = plain(*a, dils)
-                err, rel, mean = rel_err(got, ref)
-                errs[name] = max(errs[name], err)
-                text = f"{name} B={B} T={T} {err:.3e}/{rel:.3e}/{mean:.3e}"
-                if outside(rel, mean, tol):
-                    bad.append(f"{name} B={B} T={T}")
-                _, crel, cmean = rel_err(controls[name](*a, dils), ref)
+                got, ref = fn(*a, d, **wl), plain(*a, d, **wl)
+                pairs = [(got[0], ref[0]), (got[1].float(), ref[1].float())] if wl else \
+                    [(got, ref)]
+                text = f"{name} {where}"
+                for (g, r), part in zip(pairs, ("", " x_last")):
+                    err, rel, mean = rel_err(g, r)
+                    errs[name] = max(errs[name], err)
+                    text += f"{part} {err:.3e}/{rel:.3e}/{mean:.3e}"
+                    if outside(rel, mean, tol):
+                        bad.append(f"{name} {where}{part}")
+                    if not part:
+                        skip_rel = rel
+                _, crel, cmean = rel_err(controls[name](*a, d), pairs[0][1])
                 text += f" (control {crel:.3e}/{cmean:.3e})"
-                if not control_holds(name, rel, crel, cmean):
-                    bad.append(f"{name} B={B} T={T} control")
+                if not control_holds(name, skip_rel, crel, cmean, tol):
+                    bad.append(f"{name} {where} control")
                 lines.append(text)
         for B, U, F in sorted(shapes["K2"] - checked["K2"]):
             gen.manual_seed(11 + B + U + F)
@@ -3885,7 +4268,9 @@ def run_phases(tmp: str, prep: Prep) -> int:
             del x, w, b
         ph.done(f"{len(shapes['K1'] - checked['K1'])} K1 and "
                 f"{len(shapes['K2'] - checked['K2'])} K2 shapes beyond phases 3, 4 and 6; "
-                "max_abs_err/relative max/relative mean (tolerances as phase 6): "
+                "max_abs_err/relative max/relative mean (tolerances as phase 6; K1-bf16's mean "
+                f"bound at a pipeline stage's 4 layers 4/20 of it: "
+                f"{diffnet_stack.mean_tolerance_bf16(4):g}): "
                 + "; ".join(lines) + (f"; MISMATCH at {bad}" if bad else "; ok"))
         if bad:
             return 1
@@ -3908,4 +4293,8 @@ if __name__ == "__main__":
         sys.exit(prepare(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] in ("--dp-gloo", "--dp-nccl"):
         sys.exit(dp_ranks(sys.argv[2], nccl=sys.argv[1] == "--dp-nccl"))
+    if len(sys.argv) == 3 and sys.argv[1] in ("--par-sp", "--par-pp"):
+        sys.exit((sp_ranks if sys.argv[1] == "--par-sp" else pp_ranks)(sys.argv[2]))
+    if sys.argv[1:] == ["--par-only"]:
+        sys.exit(par_only())
     sys.exit(main())

@@ -161,6 +161,43 @@ def test_bf16_kernels_repeat_bit_identically(cuda, kernel):
     assert all(torch.equal(o, first) for o in outs)
 
 
+# K1's write-last mode, both routes: the skip and the state after the last
+# layer against the plain versions, at a pipeline stage of the flagship
+# (B=4, T=256, 4 layers) and at a seq rank's widened chunk (B=1, T=2048 + 75,
+# 20 layers); the skip is the default call's, bit for bit, and the flag off
+# is the default call.
+@pytest.mark.parametrize("route", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,L", [(4, 256, 4), (1, 2048 + 75, 20)])
+def test_residual_stack_write_last_matches_plain(cuda, route, B, T, L):
+    C = 256
+    dils = [2 ** (i % 4) for i in range(L)]
+    g = torch.Generator(device=cuda).manual_seed(B * T + L)
+    r = lambda *s, sc=1.0: sc * torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    args = (torch.relu(r(B, T, C)), r(L, B, T, 2 * C), r(L, B, C, sc=0.5),
+            r(L, 3, C, 2 * C, sc=(3 * C) ** -0.5), r(L, 2 * C, sc=0.1),
+            r(L, C, 2 * C, sc=C ** -0.5), r(L, 2 * C, sc=0.1))
+    if route == "bf16":
+        args = _k1_bf16_args(args)
+        fn, plain = diffnet_stack.residual_stack_bf16, diffnet_stack.residual_stack_plain_bf16
+        tol, counter = diffnet_stack.TOLERANCE_BF16, diffnet_stack.counter_bf16
+    else:
+        fn, plain = diffnet_stack.residual_stack, diffnet_stack.residual_stack_plain
+        tol, counter = diffnet_stack.TOLERANCE, diffnet_stack.counter
+    before = counter.launches
+    skip, x_last = fn(*args, dils, write_last=True)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1 and (B, T, C, tuple(dils)) in counter.shapes
+    ref_skip, ref_x = plain(*args, dils, write_last=True)
+    assert x_last.dtype == ref_x.dtype == args[0].dtype and x_last.shape == (B, T, C)
+    for got, ref in ((skip, ref_skip), (x_last.float(), ref_x.float())):
+        assert _rel(got, ref) <= tol
+        if route == "bf16":
+            assert _mean_rel(got, ref) <= diffnet_stack.mean_tolerance_bf16(L)
+    default = fn(*args, dils)
+    assert torch.equal(fn(*args, dils, write_last=False), default)
+    assert torch.equal(skip, default)
+
+
 def test_bf16_wrappers_reject_what_the_kernels_do_not_take(cuda):
     b16 = torch.bfloat16
     x = torch.zeros((1, 64, 256), device=cuda)
