@@ -165,8 +165,8 @@ DEFAULTS: Dict[str, Any] = {
     "test_set_name": "test",
     "device_resident_corpus": False,
     "dataloader_prefetch": 2,
-    # the (data, model) mesh: data -1 is every rank of a data-parallel run;
-    # model > 1 (tensor parallelism) is not ported (parallel/mesh.py)
+    # the trainer's (data, model) mesh: data -1 is every rank over model; with
+    # model > 1 the batch is sharded over data only (parallel/groups.training_mesh)
     "mesh_shape": {"data": -1, "model": 1},
     # long-form synthesis: the mesh axis to split mel frames over ("" off;
     # "seq" under `with make_seq_mesh(...):`, parallel/sequence.py)

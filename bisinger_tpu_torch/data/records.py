@@ -1,6 +1,8 @@
 """Binary feature-record shards: the binarizer's on-disk format (the port's
-pure-Python copy of `bisinger_tpu/data/records.py`; the same `BTR1` bytes,
-so a shard written by either package reads in the other).
+copy of `bisinger_tpu/data/records.py`; the same `BTR1` bytes, so a shard
+written by either package reads in the other). `RecordReader` decodes
+through the port's native codec (`native/`, C++ built at first use) or in
+Python (`backend="python"`).
 
 Replaces the reference `IndexedDataset` (pickle + offset table,
 `train_bisinger/utils/indexed_datasets.py:7-54`) with a schema-aware,
@@ -61,8 +63,10 @@ def _encode_field(key: str, value: Any) -> bytes:
 
 def encode_record(item: Dict[str, Any]) -> bytes:
     if len(item) > 64:
-        # hard format limit shared with the JAX package's native reader
-        # (record_codec max_fields=64): a shard must stay readable there
+        # hard format limit shared with the native readers (the port's
+        # `native/record_codec.cc` and the JAX package's, max_fields=64):
+        # enforced at write, or a native reader would open the shard and
+        # then raise on every record the Python decoder reads
         raise ValueError(
             f"record has {len(item)} fields; the shard format caps at 64"
         )
@@ -152,15 +156,30 @@ class RecordWriter:
         return len(self._offsets) - 1
 
 
+BACKENDS = ("auto", "native", "python")
+
+
 class RecordReader:
     """mmap-backed random-access shard reader (`IndexedDataset`
-    counterpart), decoding in Python. The JAX package's native C++ codec
-    (`native/record_codec.cc`) is not ported: there is no `backend`
-    choice."""
+    counterpart). `backend`, JAX's three values: "auto" and "native" decode
+    through the native codec (`native.NativeShardReader`), "python" through
+    `decode_record`. A departure from JAX: "auto" is the native codec, and a
+    codec that cannot be built or loaded raises (with the compiler's
+    output), where JAX's "auto" quietly decodes in Python (ROADMAP Queue 3).
+    Both return the same dict, arrays copied."""
 
-    def __init__(self, prefix: str):
+    def __init__(self, prefix: str, backend: str = "auto"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r}: one of {', '.join(BACKENDS)}")
         self.prefix = prefix
+        self.backend = "python" if backend == "python" else "native"
         self._offsets = np.load(prefix + ".idx")
+        self._native = None
+        if self.backend == "native":
+            from bisinger_tpu_torch.native import NativeShardReader
+
+            self._native = NativeShardReader(prefix)
+            return
         if os.path.getsize(prefix + ".data") == 0:
             # valid empty shard (e.g. a split with no items):
             # np.memmap refuses zero-length files
@@ -177,6 +196,8 @@ class RecordReader:
             i += len(self)
         if not 0 <= i < len(self):
             raise IndexError(i)
+        if self._native is not None:
+            return self._native[i]
         return decode_record(self._view, int(self._offsets[i]))
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:

@@ -45,6 +45,14 @@ mel2ph) and their samples (wav); the pins are given at the global shape.
 `infer_batch` gathers every rank's part, so each rank returns all
 waveforms.
 
+Tensor parallelism (`parallel/tensor.py`): on the ranks of an entered
+('data', 'model') mesh (`with tensor.make_mesh(num_data=1, num_model=n):`)
+every rank calls `synthesize` with the same batch and a generator seeded
+alike; the DiffNet, the PE and the NSF HiFi-GAN run as the rank's share of
+their sharded layers (views built once per mesh, `shard_for_tp`), the rest
+replicated, and every rank returns the whole result. The DiffNet runs its
+layer path and the MRF its layers: a TP rank launches no K1 and no K2.
+
 The score entry points trim each waveform to its filled frames; with the
 vocoder's `use_denoise` each waveform of the batch is first denoised on the
 host (`BaseVocoder.postprocess`), as JAX's `spec2wav_batch` does. The
@@ -69,7 +77,8 @@ from bisinger_tpu_torch.config import apply_overrides, load_hparams_json
 from bisinger_tpu_torch.data.text.frontend import BilingualFrontend
 from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
 from bisinger_tpu_torch.models.pe import PitchExtractor
-from bisinger_tpu_torch.parallel import sequence
+from bisinger_tpu_torch.parallel import mesh as dp
+from bisinger_tpu_torch.parallel import sequence, tensor
 from bisinger_tpu_torch.utils.audio import save_wav
 from bisinger_tpu_torch.utils.text_encoder import TokenTextEncoder, build_phone_encoder
 from bisinger_tpu_torch.vocoders.base_vocoder import as_vocoder, get_vocoder_cls, latest_generator
@@ -184,6 +193,7 @@ class SVSInferTorch:
         self.spk_map = dict(spk_map or {})
         self.frontend = None if encoder is None else BilingualFrontend(
             encoder, phone_subst=hp.get("en_phone_subst"))
+        self._tp_views = {}  # id(mesh) -> (mesh, (model, pe, vocoder wrapper))
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str = FLAGSHIP_DIR, device=None,
@@ -347,6 +357,17 @@ class SVSInferTorch:
                 + [np.zeros(256, np.float32)] * n_pad)
         return batch
 
+    def tp_views(self, m):
+        """The model, the PE and the vocoder as model rank `m.index`'s views
+        (`tensor.shard_for_tp`), built at the first call under `m`."""
+        got = self._tp_views.get(id(m))
+        if got is None or got[0] is not m:
+            pe = None if self.pe is None else tensor.shard_for_tp(self.pe, m)
+            got = (m, (tensor.shard_for_tp(self.model, m), pe,
+                       self.voc.with_model(tensor.shard_for_tp(self.voc.model, m))))
+            self._tp_views[id(m)] = got
+        return got[1]
+
     @torch.no_grad()
     def synthesize(self, batch: Dict[str, Any], start_noise=None, nsf_phase=None,
                    nsf_noise=None, generator: Optional[torch.Generator] = None,
@@ -356,9 +377,28 @@ class SVSInferTorch:
         Random draws (diffusion start, DDPM's steps, NSF phase and noise, a
         PWG's z) come from `generator` unless given. Under `seq` (the mesh
         `sequence.context` finds, passed to the model, the PE and the
-        vocoder) this rank's rows and core frames (module docstring)."""
-        dev = self.device
+        vocoder) this rank's rows and core frames; under a ('data', 'model')
+        mesh (`tensor.context`) the whole batch through the model rank's
+        views (module docstring)."""
         m = sequence.context(self.hp)
+        tp = tensor.context()
+        if tp is not None:
+            if m is not None:
+                raise NotImplementedError("synthesize under both a seq and a model mesh")
+            # every rank holds the whole batch: the batch's collectives (the
+            # ESM's keys) over the mesh's data group, this rank's alone at (1, n)
+            with dp.using_data_group(tp.data_group):
+                return self._synthesize(batch, start_noise, nsf_phase, nsf_noise, generator,
+                                        step_noise, pwg_z, self.tp_views(tp), None)
+        return self._synthesize(batch, start_noise, nsf_phase, nsf_noise, generator,
+                                step_noise, pwg_z, (self.model, self.pe, self.voc), m)
+
+    def _synthesize(self, batch, start_noise, nsf_phase, nsf_noise, generator, step_noise,
+                    pwg_z, parts, m):
+        """`synthesize` through `parts` (model, PE, vocoder wrapper), under the
+        seq mesh `m` or None."""
+        dev = self.device
+        model, pe, voc = parts
         if m is not None:  # this rank's rows; the conditioner takes every frame
             batch = sequence.shard_longform_batch(batch, m, halo=None)
         as_t = lambda k: torch.as_tensor(batch[k], device=dev)  # noqa: E731
@@ -367,10 +407,10 @@ class SVSInferTorch:
                 } if self.hp.get("use_midi") else {}
         if "spk_embed" in batch:
             cond["spk_embed"] = as_t("spk_embed").float()
-        if isinstance(self.model, GaussianDiffusion):
+        if isinstance(model, GaussianDiffusion):
             cond.update(start_noise=start_noise, step_noise=step_noise, generator=generator,
                         seq=m)
-        ret = self.model(
+        ret = model(
             as_t("txt_tokens"),
             mel2ph=None if mel2ph is None else torch.as_tensor(mel2ph, device=dev),
             spk_id=as_t("spk_ids"), max_frames=batch.get("n_frames") if mel2ph is None else None,
@@ -379,16 +419,15 @@ class SVSInferTorch:
         mel, mel2ph = ret["mel_out"], ret["mel2ph"]
         if m is not None:  # the diffusion's mel is the core already; the conditioner's whole
             mel2ph = sequence.core_of(mel2ph, m)
-            if not isinstance(self.model, GaussianDiffusion):
+            if not isinstance(model, GaussianDiffusion):
                 mel = sequence.core_of(mel, m)
-        if self.pe is not None:
-            f0 = self.pe(mel, seq=m)["f0_denorm_pred"]
+        if pe is not None:
+            f0 = pe(mel, seq=m)["f0_denorm_pred"]
         elif "f0_denorm" in ret:
             f0 = ret["f0_denorm"] if m is None else sequence.core_of(ret["f0_denorm"], m)
         else:  # the NSF source runs unvoiced
             f0 = torch.zeros(mel.shape[:2], device=dev)
-        wav = self.voc.generate(mel, f0, generator, phase=nsf_phase, noise=nsf_noise, z=pwg_z,
-                                seq=m)
+        wav = voc.generate(mel, f0, generator, phase=nsf_phase, noise=nsf_noise, z=pwg_z, seq=m)
         return {"wav": wav, "mel": mel, "f0": f0, "mel2ph": mel2ph}
 
     # ---- score entry points ------------------------------------------------

@@ -189,7 +189,7 @@ def batch_norm(bn: nn.BatchNorm1d, x, use_running_average: bool = True):
     if use_running_average:
         mean, var = bn.running_mean, bn.running_var
     else:
-        n = x.shape[0] * x.shape[1] * dp.world_size()
+        n = x.shape[0] * x.shape[1] * dp.data_size()
         sums = dp.all_reduce_sum(torch.stack([x.sum((0, 1)), (x * x).sum((0, 1))]))
         mean = sums[0] / n
         var = torch.clamp_min(sums[1] / n - mean * mean, 0.0)

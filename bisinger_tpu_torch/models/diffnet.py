@@ -72,7 +72,11 @@ class DiffNet(nn.Module):
     """`layers` (default all) are the residual layers this module holds,
     under their own names `res_<i>` (a pipeline stage's,
     `parallel/pipeline.py`); `dilations` are theirs, `n_layers` the whole
-    stack's."""
+    stack's. `tp` is the ('data', 'model') mesh of a tensor-parallel view
+    (`parallel/tensor.shard_for_tp`, its blocks a model rank's share): it
+    runs the layer path, with no K1 and no stacked weights."""
+
+    tp = None
 
     def __init__(self, hp: dict, in_dims: int = 80, layers=None):
         super().__init__()
@@ -100,7 +104,10 @@ class DiffNet(nn.Module):
         """The weights one sampling loop reuses: the layers' in K1's layout,
         (wstep [L,C,C] as in->out, bstep [L,C], wd [L,3,C,2C], bd [L,2C],
         wo [L,C,2C], bo [L,2C]), all but the K1 biases bd and bo (fp32) in
-        compute_dtype, and the projections' (weight, bias) in it by name."""
+        compute_dtype, and the projections' (weight, bias) in it by name.
+        None for a tensor-parallel view, which runs no K1."""
+        if self.tp is not None:
+            return None
         blks, dt = self.blocks(), self.dtype_
         return (
             torch.stack([b.diffusion_projection.weight.t() for b in blks]).to(dt),
@@ -120,6 +127,8 @@ class DiffNet(nn.Module):
         noise [B, T, M]."""
         if cond is not None:
             return self._forward_layers(spec, diffusion_step, self.cond_projections(cond))
+        if self.tp is not None:
+            return self._forward_layers(spec, diffusion_step, cond_proj)
         stack = stack if stack is not None else self.stack_weights()
         x, step_proj = self.prologue(spec, diffusion_step, stack)
         skip = self.stack_fn()(x.contiguous(), cond_proj, step_proj.contiguous(), *stack[2:6],

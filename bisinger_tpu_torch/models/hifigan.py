@@ -191,7 +191,11 @@ class ResBlock2(nn.Module):
 class HifiGanGenerator(nn.Module):
     """mel [B, T, 80], f0 [B, T] (None without `use_nsf`) -> waveform
     [B, T * hop], or n subbands [B, T * hop / n, n] with `vocoder_multiband`
-    n > 1."""
+    n > 1. `tp` is the ('data', 'model') mesh of a tensor-parallel view
+    (`parallel/tensor.shard_for_tp`, its ResBlock1s a model rank's share):
+    its MRF stages run their layers in eval too, with no K2."""
+
+    tp = None
 
     def __init__(self, hp: dict, n_mels: int = 80):
         super().__init__()
@@ -238,9 +242,9 @@ class HifiGanGenerator(nn.Module):
         return (y + up.bias.to(dt)[:, None]).transpose(1, 2)
 
     def mrf(self, i: int, x):
-        """MRF stage i: K2 in eval mode, the blocks' layers in train mode and
-        for ResBlock2 stages."""
-        if self.training or not self.resblock1:
+        """MRF stage i: K2 in eval mode, the blocks' layers in train mode, for
+        ResBlock2 stages and under tensor parallelism."""
+        if self.training or not self.resblock1 or self.tp is not None:
             blocks = [getattr(self, f"res_{i}_{j}") for j in range(len(self.rk))]
             out = blocks[0](x)
             for blk in blocks[1:]:

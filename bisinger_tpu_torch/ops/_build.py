@@ -16,6 +16,12 @@ lines (registers, shared memory, spills) once. Builds and loads hold a
 lock (a thread lock and a file lock on `_build/.lock`), so threads or
 processes that reach a kernel first together build it once. Nothing here
 runs at import.
+
+Host libraries (the record codec, `native/record_codec.cc`) take the same
+directory, lock and hashing through `load_host`: the host C++ compiler
+`CXX` (default `c++`, the environment's CXX if set) with `CXX_FLAGS`, the
+file name keyed by a hash of the source, the compiler and the flags; a
+compiler that fails or cannot run raises with its output.
 """
 
 from __future__ import annotations
@@ -49,6 +55,9 @@ SIGNATURES = {
 KERNELS = tuple(SIGNATURES)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+CXX = os.environ.get("CXX") or "c++"
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -167,6 +176,45 @@ def load(name: str) -> ctypes.CDLL:
             lib.kernel_error_string.argtypes = [_I]
             lib.kernel_error_string.restype = ctypes.c_char_p
             _loaded[name] = lib
+    return lib
+
+
+def host_library_path(source: str, compiler: str) -> str:
+    """`_build/lib<stem>_<hash>.so` of a host C++ source: the hash of the
+    compiler, the flags and the source."""
+    h = hashlib.sha256(" ".join([compiler, *CXX_FLAGS]).encode())
+    with open(source, "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
+
+
+def load_host(source: str, signatures) -> ctypes.CDLL:
+    """The host library of the C++ file `source`, compiled at first use with
+    `CXX` and `CXX_FLAGS`, with `signatures` ({name: (argtypes, restype)})
+    set. Raises RuntimeError, with the compiler's output, when the compiler
+    fails or cannot run."""
+    path = host_library_path(source, CXX)
+    lib = _loaded.get(path)
+    if lib is not None:
+        return lib
+    with _locked():
+        lib = _loaded.get(path)
+        if lib is None:
+            if not os.path.exists(path):
+                cmd = [CXX, *CXX_FLAGS, "-o", path + ".tmp", source]
+                try:
+                    proc = subprocess.run(cmd, capture_output=True, text=True)
+                except OSError as e:
+                    raise RuntimeError(f"{' '.join(cmd)}: the compiler cannot run: {e}") from e
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(path + ".tmp", path)
+            lib = ctypes.CDLL(path)
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+            _loaded[path] = lib
     return lib
 
 

@@ -1,6 +1,8 @@
-"""Two-axis meshes of ranks: ('data', 'seq') and ('data', 'pipe')
-(counterparts of `make_seq_mesh`, `bisinger_tpu/parallel/sequence.py:49-65`,
-and `make_pipe_mesh`, `bisinger_tpu/parallel/pipeline.py:49-57`).
+"""Two-axis meshes of ranks: ('data', 'seq'), ('data', 'pipe') and
+('data', 'model') (counterparts of `make_seq_mesh`,
+`bisinger_tpu/parallel/sequence.py:49-65`, `make_pipe_mesh`,
+`bisinger_tpu/parallel/pipeline.py:49-57`, and `make_mesh`,
+`bisinger_tpu/parallel/mesh.py:31-44`).
 
 JAX lays devices out on a `Mesh`; the port lays the ranks of the default
 process group (`parallel/mesh.py`: gloo ranks on the CPU or sharing one
@@ -13,7 +15,9 @@ the devices past its product out.
 
 A mesh is also a context (`with mesh:`), as JAX's: an entry point
 (`SVSInferTorch.synthesize`, `DiffSingerMIDITask.infer_step`) finds the
-entered mesh of an axis with `ambient(axis)` and passes it down.
+entered mesh of an axis with `ambient(axis)` and passes it down. The
+trainer's ('data', 'model') mesh (`training_mesh`) is not entered: it sets
+the default data group of `parallel/mesh.py`'s batch helpers.
 
 The collectives over a mesh's subgroups are `parallel/mesh.py`'s (each
 takes `group=`: `m.group`, `m.data_group`), which gloo also runs on CUDA
@@ -91,6 +95,34 @@ def make_seq_mesh(num_seq: int = -1, num_data: int = 1) -> ProcessMesh:
 def make_pipe_mesh(num_pipe: int, num_data: int = 1) -> ProcessMesh:
     """('data', 'pipe') mesh: pipeline neighbours are adjacent ranks."""
     return ProcessMesh("pipe", num_data, num_pipe)
+
+
+def make_mesh(num_data: int = -1, num_model: int = 1) -> ProcessMesh:
+    """('data', 'model') mesh, JAX's signature and sizes: num_data=-1 takes
+    every remaining rank (world // num_model). 'model' is the tensor-parallel
+    axis (`parallel/tensor.py`)."""
+    if num_data == -1:
+        num_data = dp.world_size() // num_model
+    return ProcessMesh("model", num_data, num_model)
+
+
+def training_mesh(mesh_shape) -> Optional[ProcessMesh]:
+    """The trainer's mesh, as JAX's trainer builds it from `mesh_shape`
+    (`bisinger_tpu/training/trainer.py:95-98`): with model > 1 the
+    ('data', 'model') mesh, whose data group (the ranks of this rank's model
+    index) becomes `parallel/mesh.py`'s default data group, so that the
+    batch is sharded over `data` only and the ranks of one data index take
+    the same step; else None (the data group is the world). Raises unless
+    data x model is the number of ranks."""
+    shape = dict(mesh_shape or {})
+    model = int(shape.get("model", 1))
+    data = dp.data_axis_size(shape, dp.world_size())
+    if model == 1:
+        dp.set_data_group(None)
+        return None
+    m = make_mesh(data, model)
+    dp.set_data_group(m.data_group)
+    return m
 
 
 def ambient(axis: str) -> Optional[ProcessMesh]:

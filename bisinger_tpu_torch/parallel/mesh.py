@@ -1,5 +1,6 @@
 """Data parallelism of the port: the mesh's `data` axis as one process per
-card (counterpart of `bisinger_tpu/parallel/mesh.py:1-86`).
+card (counterpart of `bisinger_tpu/parallel/mesh.py:1-86`; the `model`
+axis, tensor parallelism, is `parallel/tensor.py`).
 
 JAX trains data-parallel by SPMD: one program over the global batch, which
 is sharded over the mesh's `data` axis, and XLA inserts the collectives.
@@ -27,15 +28,24 @@ beside it for host tensors), gloo for the CPU or when asked for (two ranks
 sharing one card). Outside a group every helper is the one-process
 identity. `all_reduce_sum`, `all_gather_rows`, `draw_rows`, `local_rows`
 and `broadcast_` also take a subgroup (`group=`): the `data` group or the
-axis group of a ('data', 'seq') or ('data', 'pipe') mesh
-(`parallel/groups.py`, which adds the point-to-point exchanges); without
-one they use the default group. The `seq` and `pipe` axes are
-`parallel/sequence.py`'s and `parallel/pipeline.py`'s;
-`mesh_shape.model > 1` (tensor parallelism) raises.
+axis group of a ('data', 'seq'), ('data', 'pipe') or ('data', 'model') mesh
+(`parallel/groups.py`, which adds the point-to-point exchanges). Without
+one, the helpers of the batch (`all_reduce_sum`, `all_gather_rows`,
+`draw_rows`, `local_rows`, `global_count`, `global_mean`, `reduce_values`,
+`GradientReducer`, and `data_size`) take the default data group,
+`set_data_group`'s: the whole world, unless the trainer runs on a
+('data', 'model') mesh (`mesh_shape.model > 1`, `groups.training_mesh`).
+There, as in JAX's trainer, the state is replicated and the batch sharded
+over `data` only: the ranks that differ only in their model index take the
+same step on the same rows, and these helpers run over the data group of
+the rank's model index. `broadcast_`, `barrier`, `any_rank` and
+`check_identical` stay on the world. The `seq` and `pipe` axes are
+`parallel/sequence.py`'s and `parallel/pipeline.py`'s.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import socket
@@ -63,6 +73,40 @@ def is_main() -> bool:
     return rank() == 0
 
 
+_DATA_GROUP = [None]  # the batch's group: None is the world
+
+
+def set_data_group(group) -> None:
+    """The group the batch's helpers default to (None: the world)."""
+    _DATA_GROUP[0] = group
+
+
+@contextlib.contextmanager
+def using_data_group(group):
+    """`set_data_group(group)` for the block, the earlier group after it."""
+    prev = _DATA_GROUP[0]
+    _DATA_GROUP[0] = group
+    try:
+        yield
+    finally:
+        _DATA_GROUP[0] = prev
+
+
+def data_group(group=None):
+    """`group`, else the default data group (None: the world)."""
+    return _DATA_GROUP[0] if group is None else group
+
+
+def data_size() -> int:
+    """The ranks of the default data group: the global batch's shards."""
+    return world_size(data_group())
+
+
+def data_rank() -> int:
+    """This rank's index in the default data group: its shard of the batch."""
+    return rank(data_group())
+
+
 def launched() -> bool:
     """Whether the process was started as a rank (torchrun's environment)."""
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
@@ -70,21 +114,21 @@ def launched() -> bool:
 
 def data_axis_size(mesh_shape: Optional[Dict], n_ranks: int) -> int:
     """The `data` axis of `mesh_shape` as JAX's `make_mesh` reads it: -1 is
-    every rank; any other size must equal the number of ranks. A `model`
-    axis above 1 is tensor parallelism, which the port does not have."""
+    every rank over the `model` axis (n_ranks // model); data x model must
+    equal the number of ranks."""
     mesh_shape = dict(mesh_shape or {})
     model = int(mesh_shape.get("model", 1))
-    if model > 1:
-        raise NotImplementedError(
-            f"mesh_shape.model={model}: tensor parallelism is not ported (ROADMAP Queue 1 "
-            "item 3, bisinger_tpu/parallel/mesh.py:90-165); the port shards the data axis, and "
-            "frames and layers over the seq and pipe axes (parallel/sequence.py, pipeline.py)")
     data = int(mesh_shape.get("data", -1))
+    if model < 1 or data < 1 and data != -1:
+        raise ValueError(f"mesh_shape {mesh_shape}: the axes are positive (data may be -1)")
     if data == -1:
-        return n_ranks
-    if data != n_ranks:
-        raise ValueError(f"mesh_shape.data={data} but the run has {n_ranks} rank(s): set it to "
-                         f"{n_ranks} or -1, or launch {data} ranks")
+        if n_ranks % model:
+            raise ValueError(f"mesh_shape.model={model} does not divide the run's {n_ranks} "
+                             f"rank(s): launch a multiple of {model} ranks")
+        return n_ranks // model
+    if data * model != n_ranks:
+        raise ValueError(f"mesh_shape.data={data} x model={model} but the run has {n_ranks} "
+                         f"rank(s): set data to -1, or launch {data * model} ranks")
     return data
 
 
@@ -178,9 +222,11 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """x summed over the ranks (of `group`, default all), differentiable."""
+    """x summed over the ranks (of `group`, default the data group),
+    differentiable."""
     if not active():
         return x
+    group = data_group(group)
     if x.requires_grad:
         return _AllReduceSum.apply(x, group)
     x = x.clone()
@@ -192,10 +238,12 @@ def all_gather_rows(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     """The ranks' x [B, ...] stacked in rank order into [B x N, ...] (along
     `dim`, default the rows), differentiable: each rank writes its part
     into zeros and the ranks sum (adding zeros is exact), which gloo also
-    runs on CUDA tensors."""
+    runs on CUDA tensors. `group` defaults to the data group."""
+    group = data_group(group)
     n = world_size(group)
     if n == 1:
         return x
+    dim %= x.ndim
     b, r = x.shape[dim], rank(group)
     zeros = lambda k: x.new_zeros((*x.shape[:dim], k * b, *x.shape[dim + 1:]))  # noqa: E731
     return all_reduce_sum(torch.cat([zeros(r), x, zeros(n - 1 - r)], dim), group)
@@ -228,17 +276,17 @@ def global_count(count: torch.Tensor) -> torch.Tensor:
 
 def global_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean of x over the global batch, as this rank's share: the local
-    sum over every rank's element count (the ranks' shapes are equal)."""
-    return x.sum() / (x.numel() * world_size())
+    sum over every data rank's element count (the ranks' shapes are equal)."""
+    return x.sum() / (x.numel() * data_size())
 
 
 def reduce_values(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Scalars summed over the ranks in one all-reduce (the losses' partial
-    sums -> the global losses), keys in order."""
+    """Scalars summed over the data ranks in one all-reduce (the losses'
+    partial sums -> the global losses), keys in order."""
     if not active() or not values:
         return values
     flat = torch.stack(list(values.values()))
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=data_group())
     return dict(zip(values, flat.unbind()))
 
 
@@ -246,8 +294,9 @@ def reduce_values(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int],
               group=None) -> torch.Tensor:
     """`draw(global shape)` with this rank's rows kept: the global batch's
-    draw, N x shape[0] rows (N the ranks of `group`, default all), from the
-    generator every rank seeds alike."""
+    draw, N x shape[0] rows (N the ranks of `group`, default the data
+    group), from the generator every rank seeds alike."""
+    group = data_group(group)
     n = world_size(group)
     if n == 1:
         return draw(tuple(shape))
@@ -257,7 +306,8 @@ def draw_rows(draw: Callable[[tuple], torch.Tensor], shape: Sequence[int],
 
 def local_rows(x: torch.Tensor, n_local: int, group=None) -> torch.Tensor:
     """This rank's rows of `x`, given at the global batch's shape (over the
-    ranks of `group`, default all)."""
+    ranks of `group`, default the data group)."""
+    group = data_group(group)
     n = world_size(group)
     if x.shape[0] != n_local * n:
         raise ValueError(f"expected the global batch's {n_local * n} rows ({n} rank(s) of "
@@ -301,7 +351,7 @@ BUCKET_MB = 25  # DistributedDataParallel's default bucket
 
 
 class GradientReducer:
-    """Sums the parameters' gradients over the ranks after the backward
+    """Sums the parameters' gradients over the data ranks after the backward
     pass, as one all-reduce of a flat buffer (fp32, the parameters' dtype)
     per bucket of about BUCKET_MB MiB; the gradients become views of the
     buckets. A parameter that got no gradient adds zeros (the optimizer
@@ -335,7 +385,7 @@ class GradientReducer:
         for bucket in self.buckets:
             flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
                               .reshape(-1) for p in bucket])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=data_group())
             for p, g in zip(bucket, flat.split([p.numel() for p in bucket])):
                 p.grad = g.view_as(p)
         if cuda:

@@ -291,8 +291,9 @@ def gan_step_parity(hp, dev, reference_device="cpu") -> Tuple[bool, str]:
     generator's hop) and NSF draw on the CPU, then on `dev` as it falls and
     with the CPU's kinks, and in float64 on `reference_device` (on the card
     a reading of the fp32 arithmetic's gap only: it shares any fault of the
-    card's). The task is built once, on the CPU, and each step takes a copy
-    of it to its device: one initialisation, drawn once. (ok, text)."""
+    card's; None: no float64 step, the reading left out). The task is built
+    once, on the CPU, and each step takes a copy of it to its device: one
+    initialisation, drawn once. (ok, text)."""
     from bisinger_tpu_torch.training.vocoder_task import HifiGanTask
 
     hop = int(np.prod(hp["upsample_rates"])) * int(hp.get("vocoder_multiband", 1) or 1)
@@ -309,10 +310,13 @@ def gan_step_parity(hp, dev, reference_device="cpu") -> Tuple[bool, str]:
     cpu = timed(cpu_dev, batch, pins, False, kinks.record())
     raw = timed(dev, batch, pins, False)
     card = timed(dev, batch, pins, False, kinks.pin())
-    ref = timed(torch.device(reference_device), batch, pins, True)
+    ref = None if reference_device is None else timed(torch.device(reference_device), batch,
+                                                      pins, True)
     ok, text = compare(card, cpu, kinks, raw, ref)
-    where = "CPU" if torch.device(reference_device).type == "cpu" else "card"
-    return ok, (f"{text} (float64 on the {where}); disc_loss "
+    if ref is not None:
+        text += " (float64 on the %s)" % (
+            "CPU" if torch.device(reference_device).type == "cpu" else "card")
+    return ok, (f"{text}; disc_loss "
                 f"{card.losses['disc_loss']:.6f} vs CPU {cpu.losses['disc_loss']:.6f}, gen_loss {card.losses['gen_loss']:.6f} vs CPU "
-                f"{cpu.losses['gen_loss']:.6f}; seconds a step (CPU, card, card pinned, "
-                f"float64) " + ", ".join(f"{x:.1f}" for x in secs))
+                f"{cpu.losses['gen_loss']:.6f}; seconds a step (CPU, card, card pinned"
+                f"{'' if ref is None else ', float64'}) " + ", ".join(f"{x:.1f}" for x in secs))

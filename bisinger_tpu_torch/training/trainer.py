@@ -25,7 +25,12 @@ the device, seeded by `seed` and saved with each checkpoint.
 
 Data-parallel, as JAX's trainer on a `data` axis of N devices
 (`bisinger_tpu/training/trainer.py:39-116, 161-189, 393-445`): the loaders
-give each rank its rows of one global batch padded to a multiple of N; the
+give each rank its rows of one global batch padded to a multiple of N; with
+`mesh_shape.model` M > 1 (JAX's ('data', 'model') mesh, `trainer.py:95-98`:
+the state replicated, the batch sharded over `data` only) N is the world
+over M, the ranks of one data index take the same rows and the same step,
+and the batch's collectives run on the data group of the rank's model index
+(`parallel/groups.training_mesh`); the
 task's step is its share of the global step; validation averages the
 ranks' (weighted sum, count) pairs before dividing (`Meter`); rank 0 alone
 writes `config.json`, the log lines, the checkpoints and the PE's export,
@@ -51,6 +56,7 @@ import torch
 
 from bisinger_tpu_torch.data.dataset import DataLoader, M4SingerDataset, batch_to_device
 from bisinger_tpu_torch.data.prefetch import Prefetcher
+from bisinger_tpu_torch.parallel import groups
 from bisinger_tpu_torch.parallel import mesh as dp
 from bisinger_tpu_torch.training.checkpoints import CheckpointManager
 from bisinger_tpu_torch.weights import load_npz
@@ -114,10 +120,11 @@ class Trainer:
         self.task = task
         self.hp = hp
         self.device = task.device
-        self.world = dp.world_size()
         self.rank = dp.rank()
         self.is_main = self.rank == 0
-        dp.data_axis_size(hp.get("mesh_shape"), self.world)
+        self.mesh = groups.training_mesh(hp.get("mesh_shape"))
+        # the batch's shards: the data axis (the world unless mesh_shape.model > 1)
+        self.n_data, self.data_index = dp.data_size(), dp.data_rank()
         self.work_dir = work_dir or hp.get("work_dir") or "checkpoints/default"
         os.makedirs(self.work_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(self.work_dir, "ckpt"),
@@ -153,14 +160,15 @@ class Trainer:
         hp = self.hp
         train_ds = M4SingerDataset(hp, hp["train_set_name"], shuffle=True)
         valid_ds = M4SingerDataset(hp, hp["valid_set_name"], shuffle=False)
-        shards = dict(batch_multiple=self.world, shard_index=self.rank, num_shards=self.world)
+        shards = dict(batch_multiple=self.n_data, shard_index=self.data_index,
+                      num_shards=self.n_data)
         train_dl = DataLoader(train_ds, hp, shuffle=True, endless=True, seed=hp["seed"],
                               **shards)
         valid_dl = DataLoader(
             valid_ds, hp, shuffle=False,
             max_tokens=hp["max_eval_tokens"] if hp["max_eval_tokens"] > 0 else hp["max_tokens"],
             max_sentences=max(hp["max_eval_sentences"], 1) if hp["max_eval_sentences"] > 0
-            else self.world, **shards)
+            else self.n_data, **shards)
         return train_dl, valid_dl
 
     def _train_batches(self, train_dl):
@@ -170,7 +178,8 @@ class Trainer:
             from bisinger_tpu_torch.data.device_corpus import DeviceResidentFeeder
 
             feeder = DeviceResidentFeeder(train_dl.dataset, hp, self.device, seed=hp["seed"],
-                                          shard_index=self.rank, num_shards=self.world)
+                                          shard_index=self.data_index,
+                                          num_shards=self.n_data)
             self.corpus_bytes = feeder.bytes_resident
             self.say(f"| device-resident corpus: {feeder.n_items} items, "
                      f"{feeder.bytes_resident / 1e6:.0f} MB on {self.device}")

@@ -129,6 +129,26 @@ def from_torch_layout(module: nn.Module, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def _is_kernel(key: str, name: str) -> bool:
+    return name == "weight" and key.rsplit("/", 1)[-1] == "kernel"
+
+
+def flax_entries(model: nn.Module, tensors=None):
+    """(flat flax key, module, state_dict name, value) of every entry
+    `export_flax_params` exports, in state_dict order; `tensors` as there."""
+    modules = dict(model.named_modules())
+    for tkey, value in (model.state_dict() if tensors is None else tensors).items():
+        if tkey.endswith("num_batches_tracked"):
+            continue
+        mpath, _, name = tkey.rpartition(".")
+        module = modules[mpath]
+        if name == "weight":
+            leaf = next(flax for kinds, flax in _FLAX_WEIGHT if isinstance(module, kinds))
+        else:
+            leaf = _FLAX_LEAF.get(name, name)
+        yield "/".join([*mpath.split("."), leaf]) if mpath else leaf, module, name, value
+
+
 def export_flax_params(model: nn.Module, tensors=None) -> Dict[str, np.ndarray]:
     """Every parameter and buffer of `model` (but BatchNorm's step count and
     non-persistent buffers) under its flat flax key, in flax's layout, as
@@ -137,20 +157,22 @@ def export_flax_params(model: nn.Module, tensors=None) -> Dict[str, np.ndarray]:
     leaves as they were. `tensors` (state_dict names -> tensors, default the
     state_dict) exports other values of the same entries, such as weights
     composed from a weight-norm pair."""
-    modules = dict(model.named_modules())
     out: Dict[str, np.ndarray] = {}
-    for tkey, value in (model.state_dict() if tensors is None else tensors).items():
-        if tkey.endswith("num_batches_tracked"):
-            continue
-        mpath, _, name = tkey.rpartition(".")
-        module = modules[mpath]
+    for key, module, name, value in flax_entries(model, tensors):
         arr = value.detach().float().cpu().numpy()
-        if name == "weight":
-            leaf = next(flax for kinds, flax in _FLAX_WEIGHT if isinstance(module, kinds))
-            if leaf == "kernel":
-                arr = from_torch_layout(module, arr)
-        else:
-            leaf = _FLAX_LEAF.get(name, name)
+        if _is_kernel(key, name):
+            arr = from_torch_layout(module, arr)
         # a copy: a CPU tensor's .numpy() is a view of the live parameter
-        out["/".join([*mpath.split("."), leaf]) if mpath else leaf] = np.array(arr, order="C")
+        out[key] = np.array(arr, order="C")
+    return out
+
+
+def flax_shapes(model: nn.Module) -> Dict[str, tuple]:
+    """The flax-layout shape of every entry `export_flax_params` exports,
+    without copying a value."""
+    out = {}
+    for key, module, name, value in flax_entries(model):
+        arr = np.lib.stride_tricks.as_strided(np.zeros(1, np.uint8), tuple(value.shape),
+                                              (0,) * value.dim())
+        out[key] = (from_torch_layout(module, arr) if _is_kernel(key, name) else arr).shape
     return out

@@ -55,9 +55,15 @@ and seconds (a failed phase exits non-zero):
      or K2 launch in any train step, a 0-step export equal to
      diff_params.npz, one fp32 step of each task on the card against the
      CPU; the trained weights served at B=4, T=512 through K1-bf16 and
-     K2-bf16 (`launches_by_path["trained"]`). Steps/s (the first step
-     apart), peak memory and the losses at steps 1 and 20 are reported;
-     the trainer's log goes to checkpoints/chip_smoke/training.log;
+     K2-bf16 (`launches_by_path["trained"]`). The record codec: every
+     shard of the corpus read whole by the native reader
+     (bisinger_tpu_torch/native, built at first use with the host C++
+     compiler) and by the Python decoder, equal record for record, each
+     backend's records/s on the card's host; both stages' datasets read
+     natively (the codec's record counter above 0; phases 11-17's too,
+     checked after 14). Steps/s (the first step apart), peak memory and
+     the losses at steps 1 and 20 are reported; the trainer's log goes to
+     checkpoints/chip_smoke/training.log;
   11. (run before 9) the rest of the flagship cascade trained in bf16 at
      full width, only the steps cut: the PitchExtractor through run's
      trainer on phase 10's corpus (hparams_diff.json with the keys of
@@ -68,8 +74,8 @@ and seconds (a failed phase exits non-zero):
      non-zero gradient on every PE parameter, the PE's running statistics
      moved, no K1 or K2 launch in any train step, one fp32 step of the PE
      (from its initialisation and from the PE trained here) and one GAN
-     step of each vocoder (voiced f0) on the card against the CPU, each
-     also read against the step in float64 (tools/step_parity). The
+     step of each vocoder (voiced f0) on the card against the CPU
+     (tools/step_parity; the PE's also read against its float64 step). The
      trained PE and full-band generator with diff_params.npz through
      SVSInferTorch.from_checkpoint at B=4, T=512 (K1-bf16 and K2-bf16,
      `launches_by_path["trained_cascade"]`); the mb4 generator on the same
@@ -210,12 +216,23 @@ and seconds (a failed phase exits non-zero):
      each, K1 in its write-last mode), B=4, T=256, 4 micro-batches: one
      call and a PLMS-200 loop against the unsplit ones; 804 K1-bf16
      launches a rank;
+  20. (run before 9, its torchrun launch beside 18) tensor parallelism
+     over 2 gloo ranks sharing the card, the flagship's widths, both
+     routes (`tp_ranks`, `tp_phase`): under make_mesh(num_data=1,
+     num_model=2) each rank runs its share of the DiffNet's, the PE's and
+     the NSF HiFi-GAN's sharded layers (parallel/tensor.py), the rest
+     replicated: (a) one DiffNet call at B=4, T=256 against the unsharded
+     layer path (fp32 relative max 1e-4; bf16 mean TP_MEAN_BF16, with its
+     control), (b) the PE and the vocoder on the same mel and f0 against
+     the unsharded modules (fp32 at JAX's TP bounds), (c) one synthesize()
+     at B=1, T=256 with DPM-Solver++ against one process (reported); no K1
+     and no K2 launch on a TP rank, by design;
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
      buckets of phases 5, 8, 10-19 (the mb4 stages, the plain generator's
      8·8·2·2 stages, phase 19's widened chunks and K1's write-last mode at
-     a stage's 4 layers among them).
+     a stage's 4 layers among them, and phase 20's one-process reference).
 The host's share of phases 10, 12, 13, 16 and 17 (the corpora, phase 16's
 corpus tools, and the binarizations) runs from the start in one process of
 its own at the lowest CPU priority (`--prepare`, PREP_PARTS; its log
@@ -224,7 +241,7 @@ those phases waits for its part and reports when it ran.
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5, 8 and 10-19. Without a CUDA device it exits 1 and prints
+path of phases 5, 8 and 10-20. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -255,11 +272,10 @@ HBM_RATE = 3.35e12  # H100 SXM bytes/s
 
 
 
-# GAN_REFERENCE: the fp32 GAN steps' float64 witness (tools/step_parity, a reading
-# beside the gate) is taken on the card in phases 11, 13 and 15. On the CPU the four
-# took 9.0-21.5 s each, about 45 s more than on the card, over the margin under
-# BUDGET_S (PERF.md §6). On the card it shares any fault of the card's:
-# tests/test_torch_gpu.py takes it on the CPU.
+# GAN_REFERENCE: the fp32 GAN steps of phases 11, 13 and 15 take no float64
+# witness (tools/step_parity's reading beside the gate, not a gate): on the card
+# the four took 3.7-7.4 s, on the CPU 9.0-21.5 s each, room phase 20 needed under
+# BUDGET_S (PERF.md §6). tests/test_torch_gpu.py takes the witness, on the CPU.
 
 
 class PartTimer:
@@ -584,6 +600,46 @@ def _grad_checks(model):
     return finite, nonzero
 
 
+def codec_check(binary_dir):
+    """Every shard of a binarized corpus read whole by both backends of
+    RecordReader, the native codec (`native/record_codec.cc`, built at first
+    use) and the Python decoder: equal record for record, array by array;
+    each backend's records/s on this host. (ok, text)."""
+    import numpy as np
+
+    from bisinger_tpu_torch.data.records import RecordReader
+
+    def equal(a, b):
+        if list(a) != list(b):
+            return False
+        for k, v in b.items():
+            if isinstance(v, np.ndarray):
+                w = a[k]
+                if not (isinstance(w, np.ndarray) and w.dtype == v.dtype
+                        and w.shape == v.shape and np.array_equal(w, v)):
+                    return False
+            elif a[k] != v:
+                return False
+        return True
+
+    prefixes = sorted(os.path.join(binary_dir, fn[:-5]) for fn in os.listdir(binary_dir)
+                      if fn.endswith(".data"))
+    t0 = time.perf_counter()
+    RecordReader(prefixes[0])  # the codec's build at first use, timed apart
+    build_s, secs, read = time.perf_counter() - t0, {}, {}
+    for backend in ("native", "python"):
+        t0 = time.perf_counter()
+        read[backend] = [r for p in prefixes for r in RecordReader(p, backend=backend)]
+        secs[backend] = time.perf_counter() - t0
+    n = len(read["native"])
+    same = n == len(read["python"]) and all(map(equal, read["native"], read["python"]))
+    return same, (f"record codec: {n} records of {len(prefixes)} shards read whole by both "
+                  f"backends, {'equal' if same else 'NOT equal'} record for record; native "
+                  f"{n / secs['native']:.0f} records/s, Python {n / secs['python']:.0f} "
+                  f"records/s on the card's host (warm: the binarizer just wrote them); the "
+                  f"codec's first open {build_s:.2f} s")
+
+
 def training_phase(svs, counters, by_path, dev, tmp, record, prep):
     """Phase 10: the acoustic training path on the card at the flagship's
     widths in bf16 (20 x 256 DiffNet, hidden 256) and its batch shape
@@ -600,7 +656,7 @@ def training_phase(svs, counters, by_path, dev, tmp, record, prep):
 
     import numpy as np
 
-    from bisinger_tpu_torch import run
+    from bisinger_tpu_torch import native, run
     from bisinger_tpu_torch.config import make_hparams
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
     from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
@@ -628,8 +684,12 @@ def training_phase(svs, counters, by_path, dev, tmp, record, prep):
         if res["rc"] != 0:
             return False, [f"binarize failed: {res['stderr'][-2000:]}"]
         lines.append(prep.binarize_line(res, "", 8))
+        ok, text = codec_check(os.path.join(tmp, "binary"))
+        checks["the shards read alike by both backends"] = ok
+        lines.append(text)
 
         stats = {}
+        native.counter.records = 0
         with open(log_fn, "a") as logf, contextlib.redirect_stdout(logf):
             for stage, label in (("fs2", "FFT-Singer"), ("diff", "diffusion")):
                 tr = run.trainer_from_args(run.parse_args(
@@ -659,12 +719,15 @@ def training_phase(svs, counters, by_path, dev, tmp, record, prep):
                 checks[f"{stage} encoder/DiffNet grads non-zero"] = grads[2][1]
                 checks[f"{stage} no kernel launched in training"] = not any(counts.values())
                 checks[f"{stage} {TRAIN_STEPS} steps"] = tr.global_step == TRAIN_STEPS
+                checks[f"{stage} dataset read natively"] = native.counter.records > 0
                 batch_rows = tr.task.hp["max_sentences"]
                 lines.append(
                     f"{label} stage (B={batch_rows}, 16 tokens, 512 frames, bf16): corpus "
                     f"{tr.corpus_bytes / 1e6:.1f} MB on the card; first step {first_s:.2f} s, "
                     f"then {steady:.2f} steps/s; peak memory {mem:.2f} GiB; loss step 1 "
-                    f"{losses[0]:.4f}, step {TRAIN_STEPS} {losses[-1]:.4f}; launches {counts}")
+                    f"{losses[0]:.4f}, step {TRAIN_STEPS} {losses[-1]:.4f}; records decoded "
+                    f"natively {native.counter.records}; launches {counts}")
+                native.counter.records = 0
             reset()
             rc_val = run.main(["--config", "diff.json", "--exp_name", "diff", "--validate"])
             rc_res = run.main(["--config", "diff.json", "--exp_name", "diff", "--max_updates",
@@ -768,8 +831,8 @@ def cascade_phase(svs, counters, by_path, dev, tmp, prep):
     64 frames), 10 steps in full band and 10 in mb4. Gates: finite losses, a
     non-zero gradient on every PE parameter, the running statistics moved,
     no K1 or K2 launch in any train step, one fp32 step of each task on the
-    card against the CPU, each read against the step in float64 (the PE from
-    its initialisation and from the PE trained here, the GAN on a voiced
+    card against the CPU (the PE from its initialisation and from the PE
+    trained here, each read against its float64 step; the GAN on a voiced
     f0). Then the trained PE and full-band generator with diff_params.npz,
     through SVSInferTorch.from_checkpoint at B=4, T=512 (K1-bf16 and
     K2-bf16, `launches_by_path["trained_cascade"]`), and the
@@ -933,7 +996,7 @@ def cascade_phase(svs, counters, by_path, dev, tmp, prep):
             with prep.paused():
                 ok, gtext = gan_step_parity(make_hparams(dict(
                     compute_dtype="float32", **(MB4 if mb == 4 else {}))), dev,
-                    reference_device=dev)  # GAN_REFERENCE
+                    reference_device=None)  # GAN_REFERENCE
             checks[f"{key} fp32 GAN step card vs CPU"] = ok
             lines.append(f"{variant} fp32 GAN step card vs CPU (512 channels, B=2, 32 frames, "
                          f"voiced): {gtext}")
@@ -1569,7 +1632,7 @@ def tts_phase(counters, by_path, dev, tmp, card, prep):
         with prep.paused():
             ok, gtext = gan_step_parity(load_hparams(cfg["hifigan"],
                                                      dict(compute_dtype="float32")), dev,
-                                        reference_device=dev)  # GAN_REFERENCE
+                                        reference_device=None)  # GAN_REFERENCE
         checks["plain GAN fp32 step card vs CPU"] = ok
         lines.append(f"plain GAN fp32 step card vs CPU (512 channels, B=2, 32 frames, no f0): "
                      f"{gtext}")
@@ -2117,7 +2180,7 @@ def vocoder_phase(svs, counters, by_path, dev, tmp, card):
         not any(n.values()) for n in per_step)
     # the parity step at 128 channels, the same layers: at 512 its CPU steps take ~25 s
     hp32 = load_hparams(cfg_fn, dict(compute_dtype="float32", upsample_initial_channel=128))
-    ok, gtext = gan_step_parity(hp32, dev, reference_device=dev)  # GAN_REFERENCE
+    ok, gtext = gan_step_parity(hp32, dev, reference_device=None)  # GAN_REFERENCE
     checks["ResBlock2 GAN fp32 step card vs CPU"] = ok
     checks["no kernel launched in the parity step"] = not any(read("15 parity").values())
     secs["b"] = time.perf_counter() - t0
@@ -3142,8 +3205,13 @@ def work_dirs_phase(counters, by_path, dev, tmp, card):
 # ---- phase 19: long-form synthesis over seq ranks, and the pipelined DiffNet -----
 SP_FRAMES, SP_RANKS = 4096, 2  # about 21.8 s of audio at hop 128, 24 kHz
 PP_STAGES, PP_MICRO, PP_B, PP_T = 5, 4, 4, 256  # 4 layers a stage at the flagship
-PAR_TIMEOUT_S = 240.0  # phase 19's launches, waited for after phase 18
-PAR_RUNS = (("sp", SP_RANKS, "--par-sp"), ("pp", PP_STAGES, "--par-pp"))
+PAR_TIMEOUT_S = 240.0  # phases 19's and 20's launches, waited for after phase 18
+# phase 20: the flagship over TP_RANKS model ranks; (a) and (b) at TP_B x TP_T, (c) one
+# synthesize() at B=1, TP_T frames with DPM-Solver++ (40 denoiser calls: 800 all-reduces)
+TP_RANKS, TP_B, TP_T, TP_SEED = 2, 4, 256, 20
+TP_SAMPLER = dict(diff_sampler="dpmpp", dpm_steps=40)
+PAR_RUNS = (("sp", SP_RANKS, "--par-sp"), ("pp", PP_STAGES, "--par-pp"),
+            ("tp", TP_RANKS, "--par-tp"))
 PAR_SEED = 19
 
 
@@ -3267,13 +3335,144 @@ def pp_ranks(tmp: str) -> int:
     return 0
 
 
+def tp_rounded_partials(net, x, t, cond_proj, n):
+    """The DiffNet's layer path with each of n model ranks' share of every
+    output projection rounded to compute_dtype before the shares are summed:
+    a TP that rounds its partial sums where this design rounds once after
+    the all-reduce. Phase 20 (a)'s bf16 control, in one process."""
+    import math
+
+    import torch.nn.functional as F
+
+    from bisinger_tpu_torch.models.common import div, softplus
+    from bisinger_tpu_torch.models.diffnet import diffusion_step_embedding
+
+    dt = net.dtype_
+    h = torch.relu(net.input_projection(x))
+    s = net.mlp_0(diffusion_step_embedding(t, net.channels))
+    s = net.mlp_1(s * torch.tanh(softplus(s)))
+    total, k = None, net.channels // n
+    for blk, cp in zip(net.blocks(), cond_proj):
+        y = blk.dilated_conv(h + blk.diffusion_projection(s)[:, None, :]) + cp
+        gate, filt = y.chunk(2, dim=-1)
+        a = (torch.sigmoid(gate) * torch.tanh(filt)).to(dt)
+        w = blk.output_projection.weight.to(dt)
+        out = sum(F.linear(a[..., i * k:(i + 1) * k], w[:, i * k:(i + 1) * k]) for i in range(n))
+        residual, skip = (out + blk.output_projection.bias.to(dt)).chunk(2, dim=-1)
+        h = div(h + residual, math.sqrt(2.0))
+        total = skip if total is None else total + skip
+    y = div(total, math.sqrt(net.n_layers))
+    return net.output_projection(torch.relu(net.skip_projection(y)))
+
+
+def tp_ranks(tmp: str) -> int:
+    """Phase 20's ranks (torchrun, gloo, sharing the card): the flagship
+    (SVSInferTorch.from_checkpoint with DPM-Solver++, TP_SAMPLER) under
+    make_mesh(num_data=1, num_model=TP_RANKS), in bf16 and fp32, through
+    the rank's TP views (`tp_views`): (a) one DiffNet call on tp_inputs.npz
+    (TP_B x TP_T), (b) the PE and the NSF HiFi-GAN on its mel and f0, the
+    NSF draws pinned, (c) one synthesize() of tp_batch.npz (B=1, TP_T
+    frames, mel2ph given), the draws from a generator seeded TP_SEED; each
+    part's launches and seconds a rank, and a digest of its results. Then,
+    outside the mesh, each rank alone runs a share of the unsharded
+    references on the same inputs: rank 0 (a) the DiffNet's layer path and
+    the bf16 control (`tp_rounded_partials`), (b) the unsharded PE and the
+    generator's layer path (train mode's MRF branch) and, reported, its K2
+    path; rank 1 (c) one process's synthesize() (K1 and K2). Rank 0 writes
+    the results and its references to tp_<route>_rank0.npz, rank 1 its
+    reference to tp_<route>_rank1.npz; the report has each rank's clock
+    (seconds since its start) at each step."""
+    import numpy as np
+
+    from bisinger_tpu_torch import full_fp32
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch
+    from bisinger_tpu_torch.parallel import mesh as dp
+    from bisinger_tpu_torch.parallel import tensor
+
+    full_fp32()
+    dev = dp.init_data_parallel("cuda:0", "gloo")
+    counters, out, clock = _kernel_counters(), {}, {}
+    stamp = lambda what: clock.__setitem__(what, round(time.perf_counter() - T_START, 2))  # noqa
+    stamp("joined")
+    try:
+        inp = {k: torch.as_tensor(v).to(dev) for k, v in
+               np.load(os.path.join(tmp, "tp_inputs.npz")).items()}
+        batch = dict(np.load(os.path.join(tmp, "tp_batch.npz")))
+        mesh = tensor.make_mesh(num_data=1, num_model=TP_RANKS)
+        gen = lambda: torch.Generator(device=dev).manual_seed(TP_SEED)  # noqa: E731
+        for route, over in (("bf16", {}), ("fp32", {"compute_dtype": "float32"})):
+            svs = SVSInferTorch.from_checkpoint(FLAGSHIP_DIR, device=dev, hp_overrides=dict(
+                over, **TP_SAMPLER))
+            stamp(f"{route} loaded")
+            rep, res = {}, {}
+            dp.barrier()  # the other rank's references end before the parts are timed
+
+            def run(part, fn):
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                y = fn()
+                torch.cuda.synchronize()
+                rep[part] = dict(secs=time.perf_counter() - t0,
+                                 counts={k: c.launches for k, c in counters.items()})
+                return y
+
+            with torch.no_grad(), mesh:
+                model, pe, voc = run("views", lambda: svs.tp_views(mesh))
+                net = model.denoise_fn
+                res["diffnet"] = run("a", lambda: net(inp["x"], inp["t"],
+                                                      net.cond_projections(inp["cond"])))
+                res["f0"] = run("b pe", lambda: pe(inp["mel"])["f0_denorm_pred"])
+                res["wav"] = run("b vocoder", lambda: voc.generate(
+                    inp["mel"], inp["f0"], phase=inp["phase"], noise=inp["noise"]))
+                syn = run("c", lambda: svs.synthesize(batch, generator=gen()))
+                res.update({f"syn_{k}": v for k, v in syn.items()})
+            for part in ("a", "b pe", "b vocoder", "c"):
+                keys = {"a": ["diffnet"], "b pe": ["f0"], "b vocoder": ["wav"],
+                        "c": [f"syn_{k}" for k in ("mel", "f0", "wav")]}[part]
+                rep[part]["digest"] = dp.digest([res[k] for k in keys])
+            out[route] = rep
+            stamp(f"{route} parts")
+            ref = {}  # the unsharded references, each rank alone its share
+            with torch.no_grad(), dp.using_data_group(mesh.data_group):
+                if mesh.index == 0:
+                    net = svs.model.denoise_fn
+                    cp = net.cond_projections(inp["cond"])
+                    ref["diffnet"] = net._forward_layers(inp["x"], inp["t"], cp)
+                    ref["diffnet_control"] = tp_rounded_partials(net, inp["x"], inp["t"], cp,
+                                                                 TP_RANKS)
+                    ref["f0"] = svs.pe(inp["mel"])["f0_denorm_pred"]
+                    pins = dict(phase=inp["phase"], noise=inp["noise"])
+                    svs.vocoder.train()  # the MRF's layer branch
+                    ref["wav"] = svs.voc.generate(inp["mel"], inp["f0"], **pins)
+                    svs.vocoder.eval()
+                    ref["wav_k2"] = svs.voc.generate(inp["mel"], inp["f0"], **pins)
+                else:
+                    syn = svs.synthesize(batch, generator=gen())
+                    ref.update({f"syn_{k}": v for k, v in syn.items()})
+            np.savez(os.path.join(tmp, f"tp_{route}_rank{mesh.index}.npz"),
+                     **({k: v.float().cpu().numpy() for k, v in res.items()}
+                        if mesh.index == 0 else {}),
+                     **{f"ref_{k}": v.float().cpu().numpy() for k, v in ref.items()})
+            stamp(f"{route} references")
+            del svs, model, pe, voc, net, res
+        out["clock"] = clock
+        _rank_report(tmp, "tp", dp.rank(), out, counters)
+    finally:
+        dp.shutdown()
+    return 0
+
+
 def par_start(svs, dev, tmp):
-    """Phase 19: writes the inputs and starts both launches (torchrun over
-    gloo, the ranks sharing the card), which run beside phase 18; `par_phase`
-    waits for them and checks. (a) a long-form batch of SP_FRAMES frames at
-    B=1 (make_batch, mel2ph given: the conditioner, PLMS-200, the PE and the
-    NSF HiFi-GAN) over SP_RANKS seq ranks; (b) the flagship DiffNet over
-    PP_STAGES pipe ranks at B=PP_B, T=PP_T, PP_MICRO micro-batches."""
+    """Phases 19 and 20: writes the inputs and starts the three launches
+    (torchrun over gloo, the ranks sharing the card), which run beside phase
+    18; `par_wait` waits for them, `par_phase` and `tp_phase` check. 19 (a)
+    a long-form batch of SP_FRAMES frames at B=1 (make_batch, mel2ph given:
+    the conditioner, PLMS-200, the PE and the NSF HiFi-GAN) over SP_RANKS
+    seq ranks; 19 (b) the flagship DiffNet over PP_STAGES pipe ranks at
+    B=PP_B, T=PP_T, PP_MICRO micro-batches; 20 the flagship over TP_RANKS
+    model ranks (`tp_ranks`)."""
     import numpy as np
 
     from bisinger_tpu_torch.inference.pipeline import make_batch
@@ -3286,6 +3485,19 @@ def par_start(svs, dev, tmp):
              x=torch.randn((PP_B, PP_T, 80), generator=g).numpy(),
              t=torch.randint(0, svs.hp["K_step"], (PP_B,), generator=g).numpy(),
              cond=torch.randn((PP_B, PP_T, svs.hp["hidden_size"]), generator=g).numpy())
+    g = torch.Generator().manual_seed(TP_SEED)
+    hop = svs.hp["hop_size"]
+    np.savez(os.path.join(tmp, "tp_inputs.npz"),
+             x=torch.randn((TP_B, TP_T, 80), generator=g).numpy(),
+             t=torch.randint(0, svs.hp["K_step"], (TP_B,), generator=g).numpy(),
+             cond=torch.randn((TP_B, TP_T, svs.hp["hidden_size"]), generator=g).numpy(),
+             # a log-mel's range, and a voiced f0 at 150-350 Hz
+             mel=(1.5 * torch.randn((TP_B, TP_T, 80), generator=g) - 5.0).numpy(),
+             f0=(150.0 + 200.0 * torch.rand((TP_B, TP_T), generator=g)).numpy(),
+             phase=torch.rand((TP_B, 9), generator=g).numpy(),
+             noise=torch.randn((TP_B, TP_T * hop, 9), generator=g).numpy())
+    np.savez(os.path.join(tmp, "tp_batch.npz"),
+             **make_batch(1, 32, TP_T, svs.vocab_size, seed=TP_SEED))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
     launches = DPLaunches()
     for tag, n, flag in PAR_RUNS:
@@ -3298,8 +3510,9 @@ def par_start(svs, dev, tmp):
 
 
 def par_only() -> int:
-    """`chip_smoke.py --par-only`: phase 19 alone (the kernels built first),
-    for work on it; prints its lines and the launches and shapes it read."""
+    """`chip_smoke.py --par-only`: phases 19 and 20 alone (the kernels built
+    first), for work on them; prints their lines and the launches and shapes
+    they read."""
     import shutil
     import tempfile
 
@@ -3320,9 +3533,14 @@ def par_only() -> int:
     counters, by_path = _kernel_counters(), {}
     par = par_start(svs, dev, tmp)
     try:
+        ranks, failed, waited = par_wait(par, counters, tmp)
         with Phase("19 sequence and pipeline parallel") as ph:
-            ok, lines = par_phase(par, svs, svs32, counters, by_path, dev, tmp)
+            ok, lines = par_phase(par, ranks, failed, waited, svs, svs32, by_path, dev, tmp)
             ph.done(" | ".join(lines))
+        with Phase("20 tensor parallel") as ph:
+            ok_tp, lines = tp_phase(ranks, failed, by_path, tmp)
+            ph.done(" | ".join(lines))
+        ok = ok and ok_tp
     finally:
         par.stop()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3337,7 +3555,34 @@ def _k1_tiles(B, T, bf16):
     return rows if B * -(-T // rows) >= 132 else 16
 
 
-def par_phase(launches, svs, svs32, counters, by_path, dev, tmp):
+def par_wait(launches, counters, tmp):
+    """Waits for `par_start`'s launches (ending what runs past
+    PAR_TIMEOUT_S): ({tag: [each rank's report]} of the launches that ended
+    well, {tag: failure text} of the others, seconds waited here). Each
+    report's counter shapes go into the parent's counters (phase 9 checks
+    them)."""
+    t0 = time.perf_counter()
+    launches.wait(PAR_TIMEOUT_S)
+    waited, secs, ranks, failed = time.perf_counter() - t0, launches.secs, {}, {}
+    for tag, n, _ in PAR_RUNS:
+        if tag not in secs or launches.procs[tag].returncode != 0:
+            with open(os.path.join(tmp, f"{tag}.out")) as f:
+                failed[tag] = (f"{tag} ranks failed (rc {launches.procs[tag].returncode}"
+                               f"{'' if tag in secs else f', past {PAR_TIMEOUT_S:.0f} s'}): "
+                               f"{f.read()[-3000:]}")
+            continue
+        ranks[tag] = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"{tag}_rank{r}.json")) as f:
+                rep = json.load(f)
+            for name, shapes in rep.pop("shapes").items():
+                counters[name].shapes.update(
+                    tuple(s[:3]) + ((tuple(s[3]),) if len(s) == 4 else ()) for s in shapes)
+            ranks[tag].append(rep)
+    return ranks, failed, waited
+
+
+def par_phase(launches, ranks, failed, waited, svs, svs32, by_path, dev, tmp):
     """Phase 19's checks, once `par_start`'s launches have ended. (a) against
     one process's unsharded run of the same batch and generator seed: fp32
     mel within JAX's SP bound (rtol/atol 1e-4,
@@ -3360,25 +3605,10 @@ def par_phase(launches, svs, svs32, counters, by_path, dev, tmp):
     from bisinger_tpu_torch.inference.pipeline import make_batch
     from bisinger_tpu_torch.ops import diffnet_stack
 
-    t0 = time.perf_counter()
-    launches.wait(PAR_TIMEOUT_S)
-    waited, secs, ranks = time.perf_counter() - t0, launches.secs, {}
-    for tag, n, _ in PAR_RUNS:
-        if tag not in secs or launches.procs[tag].returncode != 0:
-            with open(os.path.join(tmp, f"{tag}.out")) as f:
-                return False, [f"{tag} ranks failed (rc {launches.procs[tag].returncode}"
-                               f"{'' if tag in secs else f', past {PAR_TIMEOUT_S:.0f} s'}): "
-                               f"{f.read()[-3000:]}"]
-        ranks[tag] = []
-        for r in range(n):
-            with open(os.path.join(tmp, f"{tag}_rank{r}.json")) as f:
-                ranks[tag].append(json.load(f))
+    if "sp" in failed or "pp" in failed:
+        return False, [failed[t] for t in ("sp", "pp") if t in failed]
+    secs = launches.secs
     lines, checks = [], {}
-    for tag in ranks:
-        for r, rep in enumerate(ranks[tag]):
-            for name, shapes in rep.pop("shapes").items():
-                counters[name].shapes.update(
-                    tuple(s[:3]) + ((tuple(s[3]),) if len(s) == 4 else ()) for s in shapes)
     k1, k2, k1b, k2b = ("fused_residual_stack", "fused_mrf_stage", "fused_residual_stack_bf16",
                         "fused_mrf_stage_bf16")
     n_calls = svs.hp["K_step"] // svs.hp["pndm_speedup"] + 1
@@ -3471,11 +3701,97 @@ def par_phase(launches, svs, svs32, counters, by_path, dev, tmp):
         f"mean |value| {scale:.4g} (contract 2% / 20%); seconds a rank, call / PLMS-200: "
         + ", ".join(f"{rep['call']['secs']:.2f}/{rep['plms']['secs']:.2f}"
                     for rep in ranks["pp"]))
-    lines.append("launches (torchrun, both at once and beside phase 18, ranks sharing the "
-                 "card over gloo: a functional check, not a scaling figure; seconds from the "
-                 "start to each one's end, imports and loading included): "
+    lines.append("launches (torchrun, the three at once and beside phase 18, ranks sharing "
+                 "the card over gloo: a functional check, not a scaling figure; seconds from "
+                 "the start to each one's end, imports and loading included): "
                  + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
                  + f"; waited for here {waited:.1f} s")
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
+# phase 20 (a)'s bf16 bound: the mean |diff| of the sharded DiffNet call from the
+# unsharded layer path, of the mean |value|. Set from the CPU rehearsal at B=4, T=256
+# (PERF.md §6): the sharded call 3.5e-3 (rounding flips, one in 2e4 values a layer, which
+# 20 layers amplify), the control (`tp_rounded_partials`) 6.7e-3, which must read above it
+TP_MEAN_BF16 = 5e-3
+
+
+def tp_phase(ranks, failed, by_path, tmp):
+    """Phase 20's checks, once `par_start`'s launches have ended: on each
+    route and model rank, no K1 and no K2 launch in any part (by design:
+    neither kernel holds a layer's all-reduce), the ranks' results
+    bit-identical; (a) the sharded DiffNet call against the unsharded layer
+    path, fp32 relative max within 1e-4, bf16 mean within TP_MEAN_BF16 and
+    its control above it; (b) the sharded PE's f0 against the unsharded
+    PE's and the sharded generator against its layer path, fp32 within JAX's
+    TP bounds (tests/test_multichip.py: f0 rtol 2e-4 atol 2e-3, waveform 5e-3
+    / 5e-4), bf16 mean within TP_MEAN_BF16, and the generator's K2 path
+    beside it (reported); (c) synthesize() with DPM-Solver++ against one
+    process's (K1 and K2), finite and of its shape, the gap reported, as
+    phase 19 reports its end-to-end gap. Returns (ok, lines)."""
+    import numpy as np
+
+    if "tp" in failed:
+        return False, [failed["tp"]]
+    lines, checks = [], {}
+    for route in ("fp32", "bf16"):
+        reps = [rep[route] for rep in ranks["tp"]]
+        for r, rep in enumerate(reps):
+            for part in ("a", "b pe", "b vocoder", "c"):
+                by_path[f"20 ({part}) model rank {r}, {route}"] = rep[part]["counts"]
+                checks[f"{route} ({part}) rank {r}: no K1, no K2"] = not any(
+                    rep[part]["counts"].values())
+        for part in ("a", "b pe", "b vocoder", "c"):
+            checks[f"{route} ({part}) ranks bit-identical"] = len(
+                {rep[part]["digest"] for rep in reps}) == 1
+        z = {k: torch.as_tensor(v) for r in range(TP_RANKS) for k, v in np.load(
+            os.path.join(tmp, f"tp_{route}_rank{r}.npz")).items()}
+        text = []
+        err, rel, mean = rel_err(z["diffnet"], z["ref_diffnet"])
+        reading = f"(a) DiffNet B={TP_B} T={TP_T}: max_abs {err:.3e}, relative max {rel:.3e} mean "
+        reading += f"{mean:.3e}"
+        if route == "fp32":
+            checks["fp32 (a) relative max within 1e-4"] = rel <= 1e-4
+        else:
+            _, crel, cmean = rel_err(z["ref_diffnet_control"], z["ref_diffnet"])
+            checks[f"bf16 (a) mean within {TP_MEAN_BF16:g}"] = mean <= TP_MEAN_BF16
+            checks["bf16 (a) control above the bound"] = cmean > TP_MEAN_BF16
+            reading += (f" (bound {TP_MEAN_BF16:g}; control, each rank's partial sums rounded "
+                        f"to bf16: {cmean:.3e})")
+        text.append(reading)
+        for key, name, (rtol, atol) in (("f0", "(b) PE f0", (2e-4, 2e-3)),
+                                        ("wav", "(b) vocoder", (5e-3, 5e-4))):
+            a, b = z[key].double(), z[f"ref_{key}"].double()
+            err, rel, mean = rel_err(a, b)
+            over = float((a - b).abs().sub(atol + rtol * b.abs()).max())
+            reading = f"{name}: max_abs {err:.3e}, mean {mean:.3e}"
+            if route == "fp32":
+                checks[f"fp32 {name} within rtol {rtol:g} atol {atol:g}"] = over <= 0
+                reading += f", worst over rtol/atol {over:.3e}"
+            else:
+                checks[f"bf16 {name} mean within {TP_MEAN_BF16:g}"] = mean <= TP_MEAN_BF16
+            if key == "wav":
+                k2, k2rel, k2mean = rel_err(a, z["ref_wav_k2"].double())
+                reading += f"; against the K2 path (reported) max_abs {k2:.3e}, mean {k2mean:.3e}"
+            text.append(reading)
+        gaps = []
+        for key in ("mel", "f0", "wav"):
+            a, b = z[f"syn_{key}"], z[f"ref_syn_{key}"]
+            ok = a.shape == b.shape and bool(torch.isfinite(a).all())
+            checks[f"{route} (c) {key} finite, shaped as one process's"] = ok
+            if ok:
+                err, rel, mean = rel_err(a, b)
+                gaps.append(f"{key} max |diff| {err:.3e}, mean {mean:.3e}")
+        text.append(f"(c) synthesize() B=1 T={TP_T} DPM-Solver++ ({TP_SAMPLER['dpm_steps']} "
+                    "calls) against one process (K1, K2; reported): " + ", ".join(gaps))
+        text.append("seconds a rank, views / (a) / (b) PE / (b) vocoder / (c): " + "; ".join(
+            " / ".join(f"{rep[p]['secs']:.2f}" for p in ("views", "a", "b pe", "b vocoder", "c"))
+            for rep in reps))
+        lines.append(f"{route}, {TP_RANKS} model ranks: " + " | ".join(text))
+    lines.append("each rank's clock (s since its start): " + "; ".join(
+        ", ".join(f"{k} {v:.1f}" for k, v in rep["clock"].items()) for rep in ranks["tp"]))
     bad = [k for k, v in checks.items() if not v]
     lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
     return not bad, lines
@@ -3744,9 +4060,10 @@ def main() -> int:
 
 
 def run_phases(tmp: str, prep: Prep) -> int:
-    """Phases 1-19 in their order; `tmp` holds the corpora `prep` writes."""
+    """Phases 1-20 in their order; `tmp` holds the corpora `prep` writes."""
     from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, SVSInferTorch, make_batch
     from bisinger_tpu_torch import full_fp32
+    from bisinger_tpu_torch import native
     from bisinger_tpu_torch.ops import _build, _tf32, diffnet_stack, mrf_stage
 
     full_fp32()
@@ -4185,14 +4502,17 @@ def run_phases(tmp: str, prep: Prep) -> int:
                 return 1
         with Phase("14 data parallel") as ph:
             ok, lines = dp_phase(started, svs, counters, by_path, dev, tmp, record)
+            # the datasets of phases 11-17, read through the native codec
+            n = native.counter.records
+            lines.append(f"records decoded natively since phase 10's stages: {n}")
             ph.done(" | ".join(lines))
-            if not ok:
+            if not ok or n == 0:
                 return 1
     finally:
         started[0].stop()
 
-    # phase 19's launches run beside phase 18; its checks come after 18
-    with Phase("19 sequence and pipeline parallel, started") as ph:
+    # phases 19's and 20's launches run beside phase 18; their checks come after 18
+    with Phase("19 and 20 sequence, pipeline and tensor parallel, started") as ph:
         par = par_start(svs, dev, tmp)
         ph.done("inputs written; torchrun launches started")
     try:
@@ -4201,8 +4521,14 @@ def run_phases(tmp: str, prep: Prep) -> int:
             ph.done(" | ".join(lines))
             if not ok:
                 return 1
+        ranks, failed, waited = par_wait(par, counters, tmp)
         with Phase("19 sequence and pipeline parallel") as ph:
-            ok, lines = par_phase(par, svs, svs32, counters, by_path, dev, tmp)
+            ok, lines = par_phase(par, ranks, failed, waited, svs, svs32, by_path, dev, tmp)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+        with Phase("20 tensor parallel") as ph:
+            ok, lines = tp_phase(ranks, failed, by_path, tmp)
             ph.done(" | ".join(lines))
             if not ok:
                 return 1
@@ -4293,8 +4619,9 @@ if __name__ == "__main__":
         sys.exit(prepare(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] in ("--dp-gloo", "--dp-nccl"):
         sys.exit(dp_ranks(sys.argv[2], nccl=sys.argv[1] == "--dp-nccl"))
-    if len(sys.argv) == 3 and sys.argv[1] in ("--par-sp", "--par-pp"):
-        sys.exit((sp_ranks if sys.argv[1] == "--par-sp" else pp_ranks)(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] in ("--par-sp", "--par-pp", "--par-tp"):
+        sys.exit({"--par-sp": sp_ranks, "--par-pp": pp_ranks,
+                  "--par-tp": tp_ranks}[sys.argv[1]](sys.argv[2]))
     if sys.argv[1:] == ["--par-only"]:
         sys.exit(par_only())
     sys.exit(main())

@@ -421,18 +421,19 @@ def test_run_on_two_ranks_matches_one_rank(env, tmp_path, monkeypatch):
 
 # ---- (d) mesh_shape, no fallback ------------------------------------------------
 def test_mesh_shape_is_read_as_jax_reads_it(env):
-    """data -1 is every rank, data N must be the number of ranks, model > 1
-    (tensor parallelism) is not ported; the Trainer reads it."""
+    """data -1 is every rank over the model axis, data x model must be the
+    number of ranks (model > 1: tests/test_torch_tensor_parallel.py runs it
+    on 4 ranks); the Trainer reads it."""
     assert dp.data_axis_size({"data": -1, "model": 1}, 2) == 2
     assert dp.data_axis_size({"data": 2}, 2) == 2
     assert dp.data_axis_size(None, 1) == 1
     with pytest.raises(ValueError, match="mesh_shape.data=3"):
         dp.data_axis_size({"data": 3, "model": 1}, 2)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="mesh_shape.model=2 does not divide"):
         dp.data_axis_size({"data": -1, "model": 2}, 1)
     task = PT.AuxDecoderMIDITask(env["php"], env["vocab"], device="cpu")
     for shape, err in (({"data": 2, "model": 1}, ValueError),
-                       ({"data": 1, "model": 2}, NotImplementedError)):
+                       ({"data": 1, "model": 2}, ValueError)):
         with pytest.raises(err):
             Trainer(task, dict(env["php"], mesh_shape=shape), work_dir=str(env["root"] / "m"))
 

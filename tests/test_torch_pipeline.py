@@ -322,8 +322,8 @@ def test_port_imports_nothing_of_jax():
     modules, the GAN vocoder's task, weight norm, PQMF, STFT, wrapper and
     trainer tool, the card-vs-CPU step check, the YAML reader, the vocoder
     registry, PWG, MelGAN, the host vocoder utilities, the checkpoint
-    importers, the corpus tools, the text processors and `freq_to_midi`
-    among them)
+    importers, the corpus tools, the text processors, `freq_to_midi`, the
+    native record codec's reader and tensor parallelism among them)
     and chip_smoke (without running it) import, and a YAML config of the
     repo loads with its cascade."""
     code = textwrap.dedent("""
@@ -381,4 +381,6 @@ def test_port_imports_nothing_of_jax():
             "bisinger_tpu_torch.tools.meta", "bisinger_tpu_torch.tools.proportional",
             "bisinger_tpu_torch.tools.db4_meta", "bisinger_tpu_torch.tools.pitch_shift",
             "bisinger_tpu_torch.tools.mfa_prep", "bisinger_tpu_torch.data.text.text_norm",
-            "bisinger_tpu_torch.data.text.processors", "bisinger_tpu_torch.utils.pitch"} <= names
+            "bisinger_tpu_torch.data.text.processors", "bisinger_tpu_torch.utils.pitch",
+            "bisinger_tpu_torch.native", "bisinger_tpu_torch.parallel.tensor",
+            "bisinger_tpu_torch.parallel.groups"} <= names
