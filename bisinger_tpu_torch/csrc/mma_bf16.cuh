@@ -24,6 +24,27 @@
 // K, `sbo` along N. Per the PTX ISA, registers that an issued wgmma reads
 // or writes are touched again only after a `wgmma_wait` covering it, and a
 // `wgmma_fence` orders earlier register writes (A, or D) before it.
+//
+// Transaction barriers and bulk copies (sm_90): `mbar_*` wrap the
+// mbarrier object in shared memory (8 bytes), `bulk_copy_g2s` is
+// cp.async.bulk of a contiguous run of bytes from device to shared memory,
+// completing on an mbarrier. The rules a ring of such copies keeps (each
+// user names where it keeps them):
+//   - one thread initialises every barrier (`mbar_init`), then
+//     `fence_mbar_init` and a block barrier before any thread uses one;
+//   - the producer's `mbar_arrive_expect_tx` names exactly the bytes its
+//     copy delivers, before or with the copy, on the barrier the copy
+//     completes on;
+//   - a waiter passes the parity of the phase it waits for: the barrier's
+//     phases count 0, 1, 2, ... from its init, and `mbar_wait(bar, p)`
+//     returns once the phase of parity p has completed;
+//   - a barrier's arrival count (set at init) equals the arrivals its
+//     users make per phase;
+//   - data that threads wrote to shared memory (the generic proxy) and a
+//     bulk copy or wgmma then reads (the async proxy) needs
+//     `fence_proxy_async` between the two.
+// `named_bar_sync(id, n)` is bar.sync on barrier id (1..15; 0 is the block
+// barrier of __syncthreads) for n threads, whole warps.
 
 #pragma once
 
@@ -234,6 +255,62 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// makes initialised barriers visible to the other threads and to the async proxy
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival, and `bytes` more transaction bytes that this phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// returns once the phase of parity `parity` of *bar has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  while (!mbar_try_wait(a, parity)) {
+  }
+}
+
+// smem[0, bytes) <- gmem[0, bytes), completing `bytes` transaction bytes on
+// *bar; both addresses 16-byte aligned, bytes a multiple of 16
+__device__ __forceinline__ void bulk_copy_g2s(void* smem, const void* gmem, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(smem)), "l"(gmem), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

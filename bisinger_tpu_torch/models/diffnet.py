@@ -4,7 +4,9 @@ the DiffNet (`diff_decoder_type: wavenet`) and the FFT denoiser (`fft`).
 in-proj 1x1 (80 -> C) -> ReLU -> L gated residual layers -> skip sum /
 sqrt(L) -> 1x1 -> ReLU -> 1x1 (C -> 80). The conditioner projections are
 step-invariant: `cond_projections` computes them once per utterance, and
-`stack_weights` stacks the layers' weights once per sampling loop. The
+`stack_weights` stacks the layers' weights once per set of parameters
+(kept until a parameter changes), which also makes K1-bf16's packed
+weights (`ops/diffnet_stack.packed_weights_bf16`) once per set. The
 residual layers run through K1: `ops/diffnet_stack.residual_stack_bf16`
 under compute_dtype bfloat16 (the default), `residual_stack` under
 float32. As `bisinger_tpu/models/diffnet.py:100-130`, every projection but
@@ -80,6 +82,7 @@ class DiffNet(nn.Module):
 
     def __init__(self, hp: dict, in_dims: int = 80, layers=None):
         super().__init__()
+        self._stack_cache = None  # (the parameters' state, stack_weights())
         c = hp["residual_channels"]
         self.channels, self.n_layers = c, hp["residual_layers"]
         self.dtype_ = dt = compute_dtype(hp)
@@ -105,9 +108,22 @@ class DiffNet(nn.Module):
         (wstep [L,C,C] as in->out, bstep [L,C], wd [L,3,C,2C], bd [L,2C],
         wo [L,C,2C], bo [L,2C]), all but the K1 biases bd and bo (fp32) in
         compute_dtype, and the projections' (weight, bias) in it by name.
-        None for a tensor-parallel view, which runs no K1."""
+        None for a tensor-parallel view, which runs no K1. Made once and
+        kept while every parameter stays where it is, unwritten (address,
+        version counter, dtype), unless it needs grad: the same tensors
+        then reach K1 call after call, and K1-bf16 packs them once. A write
+        through `.data` moves no version counter and is not seen."""
         if self.tp is not None:
             return None
+        key = tuple((p.data_ptr(), p._version, p.dtype, p.device) for p in self.parameters())
+        if self._stack_cache is not None and self._stack_cache[0] == key:
+            return self._stack_cache[1]
+        stack = self._stack_weights()
+        if not any(t.requires_grad for t in stack[:6]):
+            self._stack_cache = (key, stack)
+        return stack
+
+    def _stack_weights(self):
         blks, dt = self.blocks(), self.dtype_
         return (
             torch.stack([b.diffusion_projection.weight.t() for b in blks]).to(dt),

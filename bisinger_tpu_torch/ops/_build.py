@@ -48,8 +48,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "diffnet_stack": {"diffnet_residual_stack": ([_P] * 10 + [_I] * 6 + [_P], _I)},
     "mrf_stage": {"mrf_stage": ([_P] * 4 + [_I] * 5 + [_P] * 2 + [_I, _P], _I)},
-    "diffnet_stack_bf16": {"diffnet_residual_stack_bf16": ([_P] * 10 + [_I] * 6 + [_P],
-                                                           _I)},
+    "diffnet_stack_bf16": {"diffnet_residual_stack_bf16": ([_P] * 11 + [_I] * 6 + [_P], _I)},
     "mrf_stage_bf16": {"mrf_stage_bf16": ([_P] * 4 + [_I] * 5 + [_P] * 2 + [_I, _P], _I)},
 }
 KERNELS = tuple(SIGNATURES)
@@ -124,7 +123,8 @@ def _build(names: Iterable[str], log=None) -> Dict[str, float]:
             continue
         os.replace(library_path(name) + ".tmp", library_path(name))
         lines = [ln.strip() for ln in text.splitlines()
-                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+                 if "Used" in ln or "spill" in ln or "Compiling entry" in ln
+                 or "arning" in ln]
         log(f"[build] {name}.cu in {seconds[name]:.1f} s")
         for ln in lines:
             log(f"[build]   {ln}")

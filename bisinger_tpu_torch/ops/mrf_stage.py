@@ -6,6 +6,11 @@ Two routes, chosen by the vocoder's `compute_dtype`:
   3xTF32, to fp32 accuracy; `_tf32.py` models the arithmetic);
 - bf16: `mrf_stage_bf16` runs `csrc/mrf_stage_bf16.cu` (tensor cores,
   wgmma), rounding where the TPU kernel rounds with compute_dtype=bfloat16.
+  At F=256 and F=128 a cluster of blocks along time shares each chunk and
+  trades the convs' edge rows through distributed shared memory, so the
+  halo is recomputed only at the cluster's outer edges (the layout each
+  width takes, and the ones that lost, are in the source); F=64 and 32
+  take one block a chunk.
 Each runs its kernel (one launch per stage) on CUDA tensors and its plain
 version (`mrf_stage_plain`, `mrf_stage_plain_bf16`) on CPU tensors. All
 take the stage's weights packed by `pack_stage_weights`. Inference only (on
@@ -184,15 +189,32 @@ def _check_stage(name, x, w, b, kernel_sizes, dilations, w_dtype):
                          f"up to 4 blocks x 4 dilations, got F={Fch}")
 
 
-def _launch(fn, lib, x, w, b, kernel_sizes, dilations):
+def launcher(fn, lib, x, w, b, kernel_sizes, dilations):
+    """(launch, out) for inputs that a wrapper has checked: launch() runs
+    the C entry point `fn` of `lib` once into out, on the current stream,
+    and returns its cudaError_t (its cudaGetLastError after the launch),
+    uncounted and unchecked. `tools/repeat_launch.py` calls it back to
+    back."""
     B, U, Fch = x.shape
     out = torch.empty_like(x)
-    err = getattr(lib, fn)(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, U, Fch, len(kernel_sizes),
-        len(dilations[0]), ctypes.cast(_build.int_array(kernel_sizes), ctypes.c_void_p),
-        ctypes.cast(_build.int_array([d for ds in dilations for d in ds]), ctypes.c_void_p),
-        x.device.index or 0, torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, fn, lib)
+    ks = _build.int_array(kernel_sizes)
+    ds = _build.int_array([d for dl in dilations for d in dl])
+    args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, U, Fch,
+            len(kernel_sizes), len(dilations[0]), ctypes.cast(ks, ctypes.c_void_p),
+            ctypes.cast(ds, ctypes.c_void_p), x.device.index or 0,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    entry = getattr(lib, fn)
+
+    def launch():
+        return entry(*args)
+
+    launch.keep = (ks, ds, out)  # the host arrays and the output live as long as the launcher
+    return launch, out
+
+
+def _launch(fn, lib, x, w, b, kernel_sizes, dilations):
+    launch, out = launcher(fn, lib, x, w, b, kernel_sizes, dilations)
+    _build.check(launch(), fn, lib)
     return out
 
 

@@ -24,8 +24,9 @@ and seconds (a failed phase exits non-zero):
      4 x 64-token, 256-frame batch with mel2ph given, launch counts, and a
      small input against the same path on the CPU; then in bf16 (the
      default): the same batch and one request through the duration
-     predictor, launch counts on the bf16 kernels only, finite non-silent
-     waveforms of frames x 128 samples, and the small input against the
+     predictor, launch counts on the bf16 kernels only, no K1-bf16 weight
+     pack (both calls take its narrow path), finite non-silent waveforms of
+     frames x 128 samples, and the small input against the
      fp32 path on the card within the JAX package's bf16 contract;
   6. the four kernels against their plain versions at the timed shapes
      (B=4, T=256 and the bench's B=32, T=1024), with CUDA-event times of
@@ -33,10 +34,15 @@ and seconds (a failed phase exits non-zero):
      off, and bf16: cuDNN conv1d and cuBLAS products for K1, conv1d for
      K2), and each kernel's bound (the fp32 routes' at 495 / 3 TFLOP/s,
      3xTF32 on the TF32 tensor cores, with the factor against the fp32
-     CUDA cores' 67 TFLOP/s beside it);
+     CUDA cores' 67 TFLOP/s beside it); then the bf16 kernels launched
+     back to back, REPEAT_LAUNCHES + 1 times each case, in a child process
+     killed after REPEAT_TIMEOUT_S (tools/repeat_launch.py: K1-bf16 at
+     B=32, T=1024 and B=4, T=256, K2-bf16's F=256 stage at both), each
+     last output bit for bit the first;
   7. warm synthesize() wall times at B=4, T=256 and at the bench's
      B=32, T=1024 under bf16 (and fp32 beside it), as audio seconds made
-     per second;
+     per second, and K1-bf16's weights packed once over the 201 wide-path
+     denoiser calls of the bf16 B=32 call;
   8. scores through the port's entry points in bf16, with the card's
      bucket overrides (CARD_BUCKETS): run.main --infer on three scores
      (pinyin, English, mixed), the HTTP server (max_batch 4, chunks of 16
@@ -268,6 +274,11 @@ FP32_PEAK = 67e12  # H100 SXM fp32 FLOP/s outside the tensor cores (data sheet)
 FP32_TC_PEAK = 495e12 / 3
 BF16_PEAK = 989e12  # H100 SXM bf16 dense tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
+# phase 6's repeat check (tools/repeat_launch.py): launches after the first of
+# each bf16 kernel and case, and the seconds before the child is killed (the
+# cases took about REPEAT_LAUNCHES * 25 ms on an H100, PERF.md)
+REPEAT_LAUNCHES = 500
+REPEAT_TIMEOUT_S = 120.0
 
 
 
@@ -4222,6 +4233,7 @@ def run_phases(tmp: str, prep: Prep) -> int:
                    "fused_mrf_stage": len(svs.hp["upsample_rates"])}
         n_calls.update({k + "_bf16": v for k, v in n_calls.items()})
         lines = []
+        packs = diffnet_stack.pack_counter.launches
         for name, model, b, route in (("fp32, mel2ph given, B=4", svs32, batch, ""),
                                       ("bf16, mel2ph given, B=4", svs, batch, "_bf16"),
                                       ("bf16, predicted durations, B=1", svs, pred_batch, "_bf16")):
@@ -4257,6 +4269,14 @@ def run_phases(tmp: str, prep: Prep) -> int:
                 ph.done(" | ".join(lines)
                         + f"; FAILED {[k for k, v in checks.items() if not v]}")
                 return 1
+        # the two bf16 calls (402 denoiser calls) take K1-bf16's narrow path,
+        # which reads the weights unpacked (phase 7 counts the wide path's pack)
+        packs = diffnet_stack.pack_counter.launches - packs
+        lines.append(f"K1-bf16 weight packs over the bf16 calls: {packs} (the narrow path "
+                     "takes none)")
+        if packs != 0:
+            ph.done(" | ".join(lines) + "; FAILED: the narrow path packed the weights")
+            return 1
         # a small input with the random draws pinned: the fp32 path on the card
         # against the same path on the CPU (plain versions), and the bf16 path
         # against the fp32 path on the card
@@ -4421,6 +4441,20 @@ def run_phases(tmp: str, prep: Prep) -> int:
                 max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"]))
+        # the bf16 kernels launched back to back (K1-bf16's wide and narrow
+        # paths, K2-bf16's F=256 stage at both batches) in a child process that
+        # is killed if it has not ended: a barrier never released hangs a launch,
+        # possibly once in hundreds (an mbarrier ring of K2's deadlocked within
+        # 50 to 200)
+        from bisinger_tpu_torch.tools import repeat_launch
+        rep_ok, rep, rep_msg = repeat_launch.run(REPEAT_LAUNCHES, REPEAT_TIMEOUT_S, log=log)
+        lines.append(f"repeat launches ({REPEAT_LAUNCHES + 1} each, the child killed after "
+                     f"{REPEAT_TIMEOUT_S:.0f} s): {rep_msg}; "
+                     + ", ".join(f"{r['kernel']} B={r['B']} T={r['T']} {r['seconds']:.2f} s"
+                                 + ("" if r["bit_identical"] else " DIFFERS")
+                                 + (f" error {r['error']}" if r["error"] else "") for r in rep))
+        if not rep_ok:
+            bad.append(f"repeat launches: {rep_msg}")
         ph.done("tolerances (relative max/mean) K1 "
                 + ", ".join(tol_text(r[2]) for r in k1_routes.values()) + "; K2 "
                 + ", ".join(tol_text(r[2]) for r in k2_routes.values())
@@ -4434,10 +4468,12 @@ def run_phases(tmp: str, prep: Prep) -> int:
         # warm synthesize() wall times, ending in a synchronize; audio seconds
         # made per second at 24 kHz, hop 128
         lines = []
+        packs = 0  # K1-bf16 weight packs over the bf16 B=32 call
         for B, T, warm in ((4, 256, True), (32, 1024, False)):
             b = make_batch(B, 64, T, vocab, seed=B)
             for label, model in (("bf16", svs), ("fp32", svs32)):
                 reps = 2 if warm else 1
+                before = diffnet_stack.pack_counter.launches
                 if warm:
                     model.synthesize(b, generator=gen)
                 torch.cuda.synchronize()
@@ -4446,10 +4482,18 @@ def run_phases(tmp: str, prep: Prep) -> int:
                     model.synthesize(b, generator=gen)
                 torch.cuda.synchronize()
                 secs = (time.perf_counter() - t0) / reps
+                if label == "bf16" and B == 32:
+                    packs = diffnet_stack.pack_counter.launches - before
                 audio = B * T * 128 / 24000
                 lines.append(f"{label} B={B} T={T}: {secs:.3f} s per call, "
                              f"{audio / secs:.2f} audio-s/s"
                              + ("" if warm else " (first call at this shape)"))
+        # 201 denoiser calls on K1-bf16's wide path, one pack of the weights
+        lines.append(f"K1-bf16 weight packs over the bf16 B=32 call: {packs} (one per set of "
+                     "parameters)")
+        if packs != 1:
+            ph.done("; ".join(lines) + "; FAILED: the weights were not packed once")
+            return 1
         ph.done("; ".join(lines))
 
     with Phase("8 score entry points") as ph:

@@ -95,9 +95,10 @@ def _k1_bf16_args(args):
     return (x0.to(b16), cond.to(b16), step.to(b16), wd.to(b16), bd, wo.to(b16), bo)
 
 
-# (4, 256), the path's shape, and (2, 100) take the bf16 kernel's 16-frame
-# tiles over clusters of two, (4, 1100) too, with more tiles than clusters
-# resident at once; (32, 1024), the bench's shape, takes its 128-frame tiles
+# (4, 256), the path's shape, and (2, 100) take the bf16 kernel's narrow
+# path, 16-frame tiles over clusters of two; (32, 1024), the bench's shape,
+# and (4, 1100), 36 tiles with a ragged last one, its wide path, 128-frame
+# tiles on wgmma
 @pytest.mark.parametrize("B,T", [(4, 256), (2, 100), (32, 1024), (4, 1100)])
 def test_residual_stack_bf16_kernel_matches_plain(cuda, B, T):
     C, L = 256, 20
@@ -159,6 +160,62 @@ def test_bf16_kernels_repeat_bit_identically(cuda, kernel):
     outs = [run() for _ in range(200)]
     torch.cuda.synchronize()
     assert all(torch.equal(o, first) for o in outs)
+
+
+# The bf16 kernels launched back to back, 2000 times after a first launch for
+# each case (K1-bf16's wide path at B=32, T=1024 and narrow at B=4, T=256;
+# K2-bf16's F=256 stage at both batches), with only the C entry point's
+# cudaGetLastError between launches, in a child process that is killed after
+# 180 s: a hang fails here instead of hanging the run; the last output
+# equals the first, bit for bit.
+def test_bf16_kernels_end_back_to_back_within_a_limit(cuda):
+    from bisinger_tpu_torch.tools import repeat_launch
+
+    ok, results, msg = repeat_launch.run(2000, 180.0)
+    assert ok, msg
+    assert [(r["kernel"], r["B"], r["T"]) for r in results] == list(repeat_launch.CASES)
+    assert all(r["launches"] == 2001 and r["bit_identical"] for r in results)
+
+
+# K1-bf16 at ragged shapes, each path: B=1, T=32 (narrow); T=1000, a multiple
+# of neither tile (16 and 128 frames), narrow at B=3 (24 128-frame tiles)
+# and wide at B=33 (264), the wide one also with dilations other than the
+# flagship's (dmax 9); the bench's B=32, T=1024; and the write-last mode at
+# a pipeline stage's 4 layers with the flagship's dilations, on both paths
+@pytest.mark.parametrize("B,T,L,dils,write_last", [
+    (1, 32, 20, None, False), (3, 1000, 20, None, False), (33, 1000, 20, None, False),
+    (33, 1000, 20, [1, 3, 5, 7, 9] * 4, False), (32, 1024, 20, None, False),
+    (4, 256, 4, None, True), (32, 1024, 4, None, True)])
+def test_bf16_residual_stack_at_ragged_shapes(cuda, B, T, L, dils, write_last):
+    dils = dils or [2 ** (i % 4) for i in range(L)]
+    g = torch.Generator(device=cuda).manual_seed(B + T + L)
+    args = _k1_bf16_args(_k1_fp32_args(g, B, T, L))
+    got = diffnet_stack.residual_stack_bf16(*args, dils, write_last=write_last)
+    torch.cuda.synchronize()
+    ref = diffnet_stack.residual_stack_plain_bf16(*args, dils, write_last=write_last)
+    pairs = zip(got, ref) if write_last else [(got, ref)]
+    for out, want in pairs:
+        out, want = out.float(), want.float()
+        assert _rel(out, want) <= diffnet_stack.TOLERANCE_BF16
+        assert _mean_rel(out, want) <= diffnet_stack.mean_tolerance_bf16(L)
+
+
+# K2-bf16 at ragged shapes on its cluster layouts (F=256 and F=128): B=1
+# and B=3 with U a multiple of no chunk, B=32 at the bench's F=256 stage
+# less a few samples, and kernels and dilations other than the flagship's
+@pytest.mark.parametrize("B,U,F,rk,rd", [
+    (1, 1013, 256, RK, RD), (3, 4099, 256, RK, RD), (32, 8 * 1024 - 5, 256, RK, RD),
+    (1, 1013, 128, RK, RD), (3, 4099 * 4, 128, RK, RD), (2, 1500, 128, [3, 5], [[1, 2], [2, 4]]),
+    (2, 1500, 256, [5, 9], [[2, 1, 3], [1, 4, 2]])])
+def test_bf16_mrf_stage_at_ragged_shapes(cuda, B, U, F, rk, rd):
+    g = torch.Generator(device=cuda).manual_seed(B + U + F + 1)
+    x, w, b = _k2_fp32_args(g, B, U, F, rk, rd)
+    w = w.to(torch.bfloat16)
+    got = mrf_stage.mrf_stage_bf16(x, w, b, rk, rd)
+    torch.cuda.synchronize()
+    ref = mrf_stage.mrf_stage_plain_bf16(x, w, b, rk, rd)
+    assert _rel(got, ref) <= mrf_stage.TOLERANCE_BF16
+    assert _mean_rel(got, ref) <= mrf_stage.MEAN_TOLERANCE_BF16
 
 
 # K1's write-last mode, both routes: the skip and the state after the last
