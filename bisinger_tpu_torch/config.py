@@ -151,6 +151,8 @@ DEFAULTS: Dict[str, Any] = {
     "decay_steps": 100000,
     "accumulate_grad_batches": 1,
     "save_ckpt": True,
+    # keep the num_ckpt_keep checkpoints of lowest val_loss, not the newest
+    "save_best": False,
     "num_ckpt_keep": 3,
     "log_interval": 100,
     "num_sanity_val_steps": 5,
@@ -165,6 +167,8 @@ DEFAULTS: Dict[str, Any] = {
     "test_set_name": "test",
     "device_resident_corpus": False,
     "dataloader_prefetch": 2,
+    # torch.utils.checkpoint on every FFT block of the encoder and decoder
+    "remat": False,
     # the trainer's (data, model) mesh: data -1 is every rank over model; with
     # model > 1 the batch is sharded over data only (parallel/groups.training_mesh)
     "mesh_shape": {"data": -1, "model": 1},
@@ -179,6 +183,14 @@ DEFAULTS: Dict[str, Any] = {
     "compute_dtype": "bfloat16",
 }
 COMPUTE_DTYPES = ("bfloat16", "float32")
+# Keys that JAX reads with a default where it uses them, outside its
+# defaults, and the port likewise (so that a run's config.json holds them
+# only where a config sets them): `save_codes` (True: rank 0 copies the
+# package to work_dir/codes/<timestamp>, training/trainer.py),
+# `dataloader_prefetch_put` ("main"; "worker" copies each batch to the
+# device on the prefetch thread, training/trainer.py) and
+# `vocoder_weight_norm` (True; false trains the GAN vocoder's kernels plain,
+# training/vocoder_task.py).
 
 
 def _checked(hp: Dict[str, Any]) -> Dict[str, Any]:

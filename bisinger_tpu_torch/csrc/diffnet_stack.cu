@@ -56,14 +56,21 @@
 //     sending its half of the gate to both blocks' buffers through
 //     distributed shared memory before the 1x1 (a cluster barrier each
 //     way), 128 blocks (16-row ring stages ran slower than 32).
+// Widths: one library a width C (-DKERNEL_WIDTH, every multiple of 32 from
+// 32 to 512: ops/_build.py K1_WIDTHS), the tile by C (`Cfg`): 64-frame
+// tiles at C = 128 and 256 where they give every SM one, else 16 frames
+// (128 gate channels a pass where C % 128 == 0, over clusters of two where
+// C % 256 == 0; 64 where C % 64 == 0), or 32 frames (32 channels a pass)
+// where C % 64 != 0. The fp32 window doubles every shared byte: at C = 512
+// the 16-frame tile's window and gate take 100 KB, its 16-row ring 66 KB.
 // The products go straight into the sums: at K <= 768 a product they
 // read 4.1e-6 to 4.6e-6 of the largest value, 75x or more under
 // single-pass TF32, where the FFMA kernel it replaced read under 8.1e-7 (no
 // run of this kernel with K2's partial sums is recorded). ptxas (-Xptxas -v,
-// CUDA 12.8): 255 registers for both tile sizes; no spills at 64 frames,
-// 124 bytes stored / 140 loaded at 16;
-// no static shared memory (dynamic: 213 KB at 64 frames, 179 KB at 16,
-// with dmax = 8).
+// CUDA 12.8): 255 registers for both tile sizes at C = 256; no spills at
+// 64 frames, 116 bytes stored / 132 loaded at 16; at the other widths 112-250
+// registers, no spill; no static shared memory (dynamic at C = 256: 213 KB
+// at 64 frames, 179 KB at 16, with dmax = 8).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -77,36 +84,42 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxLayers = 64;
-constexpr int kC = 256;  // the flagship's width: tile shapes and shared memory are set for it
 constexpr float kRsqrt2 = 0.70710678118654752f;
 
 struct Dilations {
   int d[kMaxLayers];
 };
 
-// R frames per tile; warp grid WM x WN; MT m16 tiles and, in each half
-// (gate / filter, residual / skip), NG n8 tiles per warp; KC weight rows
-// (input channels) per stage; CL blocks per cluster.
-template <int R>
-struct Cfg;
-template <>
-struct Cfg<16> {
-  static constexpr int WM = 1, WN = 8, MT = 1, NG = 2, KC = 32, CL = 2;
-};
-template <>
-struct Cfg<64> {
-  static constexpr int WM = 2, WN = 4, MT = 2, NG = 4, KC = 16, CL = 1;
+// Warp grid WM x WN; MT m16 tiles and, in each half (gate / filter,
+// residual / skip), NG n8 tiles per warp; R = 16 * MT * WM frames a tile;
+// KC weight rows (input channels) per stage; CL blocks per cluster. Two
+// tiles by width C: the wide one (WIDE, 64 frames, one block each; C =
+// 128 and 256, where its 64 rows of window and gate fit beside the ring)
+// and the small one, 128 gate channels a pass over 16 frames where C % 128
+// == 0 (split over a cluster of two where C % 256 == 0, the flagship's),
+// 64 over 16 frames where C % 64 == 0, 32 over 32 frames else; KC = 16
+// keeps the ring beside the window at C = 512.
+template <int C, bool WIDE>
+struct Cfg {
+  static constexpr int WN = WIDE ? 4 : C % 64 == 0 ? 8 : 4;
+  static constexpr int NG = WIDE ? 4 : C % 128 == 0 ? 2 : 1;
+  static constexpr int WM = 8 / WN, MT = WIDE ? 2 : 1;
+  static constexpr int KC = !WIDE && C == 256 ? 32 : 16;
+  static constexpr int CL = !WIDE && C % 256 == 0 ? 2 : 1;
 };
 
 // CL blocks of a cluster share one tile of frames and split its channels:
 // block r owns gate (and residual) channels [r*C/CL, (r+1)*C/CL)
-template <int R>
+template <int C, bool WIDE>
 struct Tile {
-  static constexpr int WM = Cfg<R>::WM, WN = Cfg<R>::WN, MT = Cfg<R>::MT, NG = Cfg<R>::NG;
-  static constexpr int KC = Cfg<R>::KC, CL = Cfg<R>::CL;
-  static_assert(WM * WN * 32 == kThreads && 16 * MT * WM == R, "warp grid");
+  using G = Cfg<C, WIDE>;
+  static constexpr int kC = C;
+  static constexpr int WM = G::WM, WN = G::WN, MT = G::MT, NG = G::NG;
+  static constexpr int KC = G::KC, CL = G::CL;
+  static constexpr int R = 16 * MT * WM;  // frames a tile
+  static_assert(WM * WN * 32 == kThreads, "warp grid");
   static constexpr int GP = WN * NG * 8;  // gate channels per pass
-  static_assert((kC / CL) % GP == 0, "passes");
+  static_assert((kC / CL) % GP == 0 && kC % KC == 0, "passes and stages");
   static constexpr int LDA = kC + 8;      // window and gate row stride (floats)
   // a stage's weights split into hi and lo: [KC / 2][LDB] units of 16 bytes
   // (LDB = 2 mod 8: a 128-bit B load's lanes hit distinct banks); PU units
@@ -125,11 +138,10 @@ struct Tile {
 // (hi(B[2p][n]), hi(B[2p+1][n]), lo(B[2p][n]), lo(B[2p+1][n])): each
 // weight is split once per block, and a lane's four B registers of a k8
 // step are one 128-bit load.
-template <int R>
-__device__ __forceinline__ void load_b(float (&v)[Tile<R>::PU][2], const float* __restrict__ W,
-                                       int t, int col0) {
-  using P = Tile<R>;
-  constexpr int KT = kC / P::KC, N2 = 2 * P::GP;
+template <class P>
+__device__ __forceinline__ void load_b(float (&v)[P::PU][2], const float* __restrict__ W, int t,
+                                       int col0) {
+  constexpr int kC = P::kC, KT = kC / P::KC, N2 = 2 * P::GP;
   const float* src = W + ((size_t)(t / KT) * kC + (size_t)(t % KT) * P::KC) * (2 * kC) + col0;
 #pragma unroll
   for (int u = 0; u < P::PU; ++u) {
@@ -141,9 +153,8 @@ __device__ __forceinline__ void load_b(float (&v)[Tile<R>::PU][2], const float* 
   }
 }
 
-template <int R>
-__device__ __forceinline__ void store_b(uint32_t* stage, const float (&v)[Tile<R>::PU][2]) {
-  using P = Tile<R>;
+template <class P>
+__device__ __forceinline__ void store_b(uint32_t* stage, const float (&v)[P::PU][2]) {
   constexpr int N2 = 2 * P::GP;
 #pragma unroll
   for (int u = 0; u < P::PU; ++u) {
@@ -161,12 +172,11 @@ __device__ __forceinline__ void store_b(uint32_t* stage, const float (&v)[Tile<R
 // W [taps][C][2C]; tap q reads A rows shifted by q * a_tap_step floats.
 // The weights go through a two-stage ring of split tiles: stage i + 1 is
 // read into registers while stage i's products run.
-template <int R>
-__device__ __forceinline__ void gemm(float (&acc)[Cfg<R>::MT][2 * Cfg<R>::NG][4],
-                                     const float* a_base, int a_tap_step, int taps,
-                                     const float* __restrict__ W, int col0, uint32_t* ring) {
-  using P = Tile<R>;
-  constexpr int NG = P::NG, KT = kC / P::KC;
+template <class P>
+__device__ __forceinline__ void gemm(float (&acc)[P::MT][2 * P::NG][4], const float* a_base,
+                                     int a_tap_step, int taps, const float* __restrict__ W,
+                                     int col0, uint32_t* ring) {
+  constexpr int NG = P::NG, KT = P::kC / P::KC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp / P::WN, wn = warp % P::WN;
   const int g = lane >> 2, t = lane & 3;
@@ -177,12 +187,12 @@ __device__ __forceinline__ void gemm(float (&acc)[Cfg<R>::MT][2 * Cfg<R>::NG][4]
 #pragma unroll
     for (int h = 0; h < 2; ++h) arow[mt][h] = ((wm * P::MT + mt) * 16 + g + 8 * h) * P::LDA + 2 * t;
   float bv[P::PU][2];
-  load_b<R>(bv, W, 0, col0);
+  load_b<P>(bv, W, 0, col0);
   for (int i = 0; i < ntiles; ++i) {
     uint32_t* stage = ring + (i & 1) * P::STAGE;
-    store_b<R>(stage, bv);
+    store_b<P>(stage, bv);
     __syncthreads();  // stage i is in; every thread is done with stage i - 2, its slot
-    if (i + 1 < ntiles) load_b<R>(bv, W, i + 1, col0);
+    if (i + 1 < ntiles) load_b<P>(bv, W, i + 1, col0);
     const float* a = a_base + (i / KT) * a_tap_step + (i % KT) * P::KC;
     const uint32_t* tb = stage + (t * P::LDB + wn * NG * 8 + g) * 4;
 #pragma unroll
@@ -217,14 +227,13 @@ __device__ __forceinline__ void sync_cluster() {
   }
 }
 
-template <int R>
+template <class P>
 __global__ void __launch_bounds__(kThreads, 1) residual_stack_kernel(
     const float* x0, const float* __restrict__ cond, const float* __restrict__ step,
     const float* __restrict__ wd, const float* __restrict__ bd, const float* __restrict__ wo,
     const float* __restrict__ bo, float* xbuf, float* skip, int B, int T, int L, int dmax,
     Dilations dil, int write_last) {
-  using P = Tile<R>;
-  constexpr int NG = P::NG, C = kC, C2 = 2 * kC, LDA = P::LDA;
+  constexpr int NG = P::NG, C = P::kC, C2 = 2 * P::kC, LDA = P::LDA, R = P::R;
   extern __shared__ __align__(16) float smem[];
   float* sA = smem;                            // [R + 2*dmax][LDA]: a, masked
   float* sG = sA + (size_t)(R + 2 * dmax) * LDA;  // [R][LDA]: gate
@@ -292,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_kernel(
           for (int n = 0; n < 2 * NG; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
-        gemm<R>(acc, sA + (size_t)(dmax - d) * LDA, d * LDA, 3, wdl, col0, ring);
+        gemm<P>(acc, sA + (size_t)(dmax - d) * LDA, d * LDA, 3, wdl, col0, ring);
         const int cb = col0 + wn * NG * 8 + (lane & 3) * 2;  // this lane's first channel
 #pragma unroll
         for (int mt = 0; mt < P::MT; ++mt) {
@@ -346,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_kernel(
           for (int n = 0; n < 2 * NG; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
-        gemm<R>(acc, sG, 0, 1, wol, col0, ring);
+        gemm<P>(acc, sG, 0, 1, wol, col0, ring);
         const int cb = col0 + wn * NG * 8 + (lane & 3) * 2;  // this lane's first channel
 #pragma unroll
         for (int mt = 0; mt < P::MT; ++mt) {
@@ -391,16 +400,19 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_kernel(
   }
 }
 
-template <int R>
+template <class P>
+size_t smem_bytes(int dmax) {
+  return (size_t)(2 * P::R + 2 * dmax) * P::LDA * sizeof(float) + 2 * P::STAGE * sizeof(uint32_t);
+}
+
+template <class P>
 cudaError_t launch(const float* x0, const float* cond, const float* step, const float* wd,
                    const float* bd, const float* wo, const float* bo, float* xbuf, float* skip,
                    int B, int T, int L, int dmax, const Dilations& dil, int write_last, int sms,
                    cudaStream_t stream) {
-  using P = Tile<R>;
-  constexpr int CL = P::CL;
-  const size_t smem =
-      (size_t)(2 * R + 2 * dmax) * P::LDA * sizeof(float) + 2 * P::STAGE * sizeof(uint32_t);
-  auto kern = residual_stack_kernel<R>;
+  constexpr int CL = P::CL, R = P::R;
+  const size_t smem = smem_bytes<P>(dmax);
+  auto kern = residual_stack_kernel<P>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -436,17 +448,40 @@ cudaError_t launch(const float* x0, const float* cond, const float* step, const 
   return cudaGetLastError();
 }
 
+#ifndef KERNEL_WIDTH
+#error "build with -DKERNEL_WIDTH=<C> (ops/_build.py WIDTHS lists the widths)"
+#endif
+constexpr int kC = KERNEL_WIDTH;  // this library's width
+static_assert(kC % 32 == 0 && kC >= 32 && kC <= 512, "K1 takes C % 32 == 0, 32 <= C <= 512");
+
+// 64-frame tiles where they still give every SM one and fit (C = 128,
+// 256), else the small tile
+template <int C>
+cudaError_t dispatch(const float* x0, const float* cond, const float* step, const float* wd,
+                     const float* bd, const float* wo, const float* bo, float* xbuf, float* skip,
+                     int B, int T, int L, int dmax, const Dilations& dil, int write_last, int sms,
+                     int smem_max, cudaStream_t s) {
+  if constexpr (C % 128 == 0 && C <= 256) {
+    using P = Tile<C, true>;
+    if ((long long)B * ((T + P::R - 1) / P::R) >= sms && smem_bytes<P>(dmax) <= (size_t)smem_max)
+      return launch<P>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil,
+                       write_last, sms, s);
+  }
+  return launch<Tile<C, false>>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil,
+                                 write_last, sms, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // x0 [B,T,C], cond [L,B,T,2C], step [L,B,C], wd [L,3,C,2C], bd [L,2C],
-// wo [L,C,2C], bo [L,2C], all fp32 contiguous on `device`, with C = 256
-// (the flagship's width, which the tile shapes and shared-memory sizes
-// above are set for); dilations is a host array of L ints; xbuf [2,B,T,C]
-// scratch; skip [B,T,C] output. With write_last set, the state after the
-// last layer is stored too, in xbuf[(L - 1) % 2] (a pipeline stage's
-// output); else it is never formed. Returns a cudaError_t (0 on success).
+// wo [L,C,2C], bo [L,2C], all fp32 contiguous on `device`, with C =
+// KERNEL_WIDTH (the width this library is built for); dilations is a host
+// array of L ints; xbuf [2,B,T,C] scratch; skip [B,T,C] output. With
+// write_last set, the state after the last layer is stored too, in
+// xbuf[(L - 1) % 2] (a pipeline stage's output); else it is never formed.
+// Returns a cudaError_t (0 on success).
 int diffnet_residual_stack(const float* x0, const float* cond, const float* step,
                            const float* wd, const float* bd, const float* wo, const float* bo,
                            const int* dilations, float* xbuf, float* skip, int B, int T, int C,
@@ -461,18 +496,13 @@ int diffnet_residual_stack(const float* x0, const float* cond, const float* step
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int sms = 0;
+  int sms = 0, smem_max = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // 64-frame tiles where they still give every SM one, else 16-frame tiles
-  // over clusters of two
-  const bool wide = (long long)B * ((T + 63) / 64) >= sms;
-  err = wide ? launch<64>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil,
-                          write_last, sms, s)
-             : launch<16>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil,
-                          write_last, sms, s);
-  return (int)err;
+  err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)dispatch<kC>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil,
+                       write_last, sms, smem_max, static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

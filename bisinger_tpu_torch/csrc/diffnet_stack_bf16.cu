@@ -14,14 +14,20 @@
 // In the write-last mode the last layer's x is stored as well (a pipeline
 // stage hands it to the next stage); by default it is never formed.
 //
-// ptxas (CUDA 12.8): the wide kernel 168 registers (the share of 288
-// threads counted as three warpgroups), no spill, 2 barriers; the narrow
-// one 163, no spill.
+// Widths: one library a width C (-DKERNEL_WIDTH, every multiple of 32 from
+// 32 to 512: ops/_build.py K1_WIDTHS); the narrow path at every C, the wide
+// one where C % 64 == 0. ptxas (CUDA 12.8, -Xptxas -v, every width built):
+// the wide kernel 168 registers at C <= 256 (the share of 288 threads
+// counted as three warpgroups), 195-199 at C = 320-512 (160 threads: one
+// consumer warpgroup and the producer warp), no spill at any C; the narrow
+// one 96-136, no spill (C = 256: 128; before C was a template parameter,
+// 163).
 //
 // Bound. 16*C^2 FLOP per frame per layer (3 taps C->2C, a 1x1 C->2C):
 // 687 GFLOP per call at B=32, T=1024, C=256, L=20 against ~0.8 GB of bf16
 // inputs: the operations bound it (989 TFLOP/s bf16 dense on an H100 SXM,
-// 0.695 ms). Above that the design pays the device-memory round trips of
+// 0.695 ms); below C = 96 the bytes do (the cond_proj reads grow with C,
+// the products with C^2). Above that the design pays the device-memory round trips of
 // the state between layers (below) and, at the small batch, the SMs the
 // frames cannot fill.
 //
@@ -44,10 +50,15 @@
 //
 // Two paths, by the tiles a call has (`wide` in the entry point):
 //
-// Wide (from 32 128-frame tiles, `kWideTiles`: the bench's B=32, T=1024,
-// and B=4, T=1024):
-// `residual_stack_bf16_wgmma_kernel`. 128-frame tiles, one block of two
-// consumer warpgroups and one producer warp per SM. Each consumer
+// Wide (C % 64 == 0, from 32 128-frame tiles, `kWideTiles`: the bench's
+// B=32, T=1024, and B=4, T=1024):
+// `residual_stack_bf16_wgmma_kernel<C>`. 128-frame tiles, one block of two
+// consumer warpgroups and one producer warp per SM; above C = 256 the
+// window and the gate buffer of 128 frames do not fit beside the ring, and
+// a tile is 64 frames, one consumer warpgroup (`wide::W`). A GEMM runs in
+// 2C / 128 passes of C / 64 stages a tap, an odd count of stages where C /
+// 64 is odd (`consume`'s last pair then has one); the pack holds 4 (C /
+// 64)^2 stages a layer. Each consumer
 // warpgroup owns 64 rows of the tile and runs wgmma.mma_async m64n128k16
 // with A from registers (ldmatrix; a tap's row offset d is no multiple of
 // 8, which a shared-memory descriptor needs) and B, the weights, from a
@@ -110,9 +121,9 @@
 //     gate rows it wrote itself (__syncwarp).
 //
 // Narrow (fewer tiles, as at B=4, T=256: 8 tiles, where 16-frame tiles over
-// 128 blocks fill the card and the wide path's 8 blocks do not):
-// `residual_stack_bf16_kernel<16>`,
-// mma.sync m16n8k16. 16-frame tiles split over a cluster of two blocks,
+// 128 blocks fill the card and the wide path's 8 blocks do not; and every
+// C % 64 != 0): `residual_stack_bf16_kernel<C>`, mma.sync m16n8k16. At C =
+// 256 (and 512), 16-frame tiles split over a cluster of two blocks,
 // each owning half the channels (half the weights) and sending its half
 // of the gate to both blocks' buffers through distributed shared memory
 // before the 1x1 (a cluster barrier each way), 128 blocks; where more tiles
@@ -141,41 +152,49 @@ struct Dilations {
   int d[kMaxLayers];
 };
 
-// ---- the narrow path: mma.sync over 16-frame tiles ----
-// R frames per tile; warp grid WM x WN; MT m16 tiles and, in each half
-// (gate / filter, residual / skip), NG n8 tiles per warp; KC weight rows
-// (input channels) per ring stage, NS ring stages; CL blocks per cluster.
-// Chosen by timing variants on an H100 (K1 alone, C = 256, L = 20; the
-// probe script was not kept): at B=4, T=256, 16-frame tiles over clusters
-// of two beat whole tiles on one block and 32-frame tiles over clusters of
-// four.
-template <int R>
-struct Cfg;
-template <>
-struct Cfg<16> {
-  static constexpr int WM = 1, WN = 8, MT = 1, NG = 2, KC = 128, NS = 3, CL = 2;
+// ---- the narrow path: mma.sync over tiles of R frames ----
+// Warp grid WM x WN; MT m16 tiles and, in each half (gate / filter,
+// residual / skip), NG n8 tiles per warp; R = 16 * MT * WM frames a tile;
+// KC weight rows (input channels) per ring stage, NS ring stages; CL
+// blocks per cluster. At C = 256 chosen by timing variants on an H100 (K1
+// alone, L = 20; the probe script was not kept): at B=4, T=256, 16-frame
+// tiles over clusters of two beat whole tiles on one block and 32-frame
+// tiles over clusters of four. Other widths keep the warps' share of a pass
+// (NG = 2 n8 tiles a half) and give a pass GP = WN * 16 gate channels, the
+// most that divides a block's share of C: 128 (C % 128 == 0: 16 frames,
+// split over a cluster of two where C % 256 == 0), 64 (C % 64 == 0: 32
+// frames), 32 (else: 64 frames); KC 64 (32 where C % 64 != 0) keeps the
+// ring at C = 384 and 512 beside the window in shared memory.
+template <int C>
+struct Cfg {
+  static constexpr int WN = C % 128 == 0 ? 8 : C % 64 == 0 ? 4 : 2;
+  static constexpr int WM = 8 / WN, MT = 1, NG = 2, NS = 3;
+  static constexpr int CL = C % 256 == 0 ? 2 : 1;
+  static constexpr int KC = C == 256 ? 128 : C % 64 == 0 ? 64 : 32;
 };
 
 // CL blocks of a cluster share one tile of frames and split its channels:
 // block r owns gate (and residual) channels [r*C/CL, (r+1)*C/CL)
-template <int R>
+template <int C>
 struct Tile {
-  static constexpr int WM = Cfg<R>::WM, WN = Cfg<R>::WN, MT = Cfg<R>::MT, NG = Cfg<R>::NG;
-  static constexpr int KC = Cfg<R>::KC, NS = Cfg<R>::NS, CL = Cfg<R>::CL;
-  static_assert(WM * WN * 32 == kThreads && 16 * MT * WM == R, "warp grid");
+  static constexpr int WM = Cfg<C>::WM, WN = Cfg<C>::WN, MT = Cfg<C>::MT, NG = Cfg<C>::NG;
+  static constexpr int KC = Cfg<C>::KC, NS = Cfg<C>::NS, CL = Cfg<C>::CL;
+  static constexpr int R = 16 * MT * WM;  // frames a tile
+  static_assert(WM * WN * 32 == kThreads, "warp grid");
   static constexpr int GP = WN * NG * 8;  // gate channels per pass
   static_assert(NG % 2 == 0, "n8 tiles come in pairs");
+  static_assert((C / CL) % GP == 0 && C % KC == 0 && KC % 16 == 0, "passes and stages");
   static constexpr int LDB = 2 * GP + 8;  // ring row stride (elements)
   static constexpr int TILE = KC * LDB;
 };
 
 // ring stage <- rows [kc, kc + KC) of tap q of W [taps][C][2C]: columns
 // [col0, col0 + GP) and [C + col0, C + col0 + GP)
-template <int R>
-__device__ __forceinline__ void load_tile(bf16* slot, const bf16* __restrict__ W, int t, int C,
+template <int C>
+__device__ __forceinline__ void load_tile(bf16* slot, const bf16* __restrict__ W, int t,
                                           int col0) {
-  using P = Tile<R>;
-  const int KT = C / P::KC;
+  using P = Tile<C>;
+  constexpr int KT = C / P::KC;
   constexpr int CPH = P::GP / 8;  // 16-byte chunks per half row
   const bf16* src = W + ((size_t)(t / KT) * C + (size_t)(t % KT) * P::KC) * (2 * C) + col0;
   for (int c = threadIdx.x; c < P::KC * 2 * CPH; c += kThreads) {
@@ -191,15 +210,15 @@ __device__ __forceinline__ void load_tile(bf16* slot, const bf16* __restrict__ W
 // W [taps][C][2C]; tap q reads A rows shifted by q * a_tap_step elements.
 // (A ring kept filled across passes, tiles and layers instead of restarted
 // here ran slower on an H100.)
-template <int R>
-__device__ __forceinline__ void gemm(float (&acc)[Cfg<R>::MT][2 * Cfg<R>::NG][4],
+template <int C>
+__device__ __forceinline__ void gemm(float (&acc)[Cfg<C>::MT][2 * Cfg<C>::NG][4],
                                      const bf16* a_base, int lda, int a_tap_step, int taps,
-                                     const bf16* __restrict__ W, int C, int col0, bf16* ring) {
-  using P = Tile<R>;
+                                     const bf16* __restrict__ W, int col0, bf16* ring) {
+  using P = Tile<C>;
   constexpr int NG = P::NG;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp / P::WN, wn = warp % P::WN;
-  const int KT = C / P::KC;
+  constexpr int KT = C / P::KC;
   const int ntiles = taps * KT;
   const bf16* arow[P::MT];
 #pragma unroll
@@ -208,14 +227,14 @@ __device__ __forceinline__ void gemm(float (&acc)[Cfg<R>::MT][2 * Cfg<R>::NG][4]
   const int bcol = ((lane & 7) + ((lane >> 3) & 1) * 8) * P::LDB + wn * NG * 8 + (lane >> 4) * 8;
 #pragma unroll
   for (int s = 0; s < P::NS - 1; ++s) {
-    if (s < ntiles) load_tile<R>(ring + s * P::TILE, W, s, C, col0);
+    if (s < ntiles) load_tile<C>(ring + s * P::TILE, W, s, col0);
     cp_async_commit();
   }
   for (int i = 0; i < ntiles; ++i) {
     cp_async_wait<P::NS - 2>();
     __syncthreads();  // tile i landed for every thread; tile i - 1's slot is free
     const int nx = i + P::NS - 1;
-    if (nx < ntiles) load_tile<R>(ring + (nx % P::NS) * P::TILE, W, nx, C, col0);
+    if (nx < ntiles) load_tile<C>(ring + (nx % P::NS) * P::TILE, W, nx, col0);
     cp_async_commit();
     const int aoff = (i / KT) * a_tap_step + (i % KT) * P::KC;
     const bf16* tb = ring + (i % P::NS) * P::TILE + bcol;
@@ -251,23 +270,23 @@ __device__ __forceinline__ void sync_cluster() {
   }
 }
 
-template <int R>
+template <int C>
 __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
     const bf16* x0, const bf16* __restrict__ cond, const bf16* __restrict__ step,
     const bf16* __restrict__ wd, const float* __restrict__ bd, const bf16* __restrict__ wo,
-    const float* __restrict__ bo, bf16* xbuf, float* skip, int B, int T, int C, int L,
-    int dmax, Dilations dil, int write_last) {
-  using P = Tile<R>;
-  constexpr int NG = P::NG;
+    const float* __restrict__ bo, bf16* xbuf, float* skip, int B, int T, int L, int dmax,
+    Dilations dil, int write_last) {
+  using P = Tile<C>;
+  constexpr int NG = P::NG, R = P::R;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lda = C + 8;  // ldmatrix rows hit distinct banks
+  constexpr int lda = C + 8;  // ldmatrix rows hit distinct banks
   bf16* sA = reinterpret_cast<bf16*>(smem_raw);  // [R + 2*dmax][lda]: a, masked
   bf16* sG = sA + (size_t)(R + 2 * dmax) * lda;   // [R][lda]: gate
   bf16* ring = sG + (size_t)R * lda;               // [NS][KC][LDB]: weights
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp / P::WN, wn = warp % P::WN;
-  const int C2 = 2 * C;
+  constexpr int C2 = 2 * C;
   const int tiles_per_seq = (T + R - 1) / R;
   const int n_tiles = B * tiles_per_seq;
   // the (CL, 1, 1) cluster of this block, and its share of the channels
@@ -296,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
       const bf16* stepl = step + ((size_t)l * B + b) * C;
       // window rows dmax - d + i hold frame t0 - d + i: x comes in by
       // cp.async, every row in flight at once, then step is added in place
-      const int C8 = C / 8;
+      constexpr int C8 = C / 8;
       for (int e = threadIdx.x; e < (R + 2 * d) * C8; e += kThreads) {
         const int i = e / C8, c = (e % C8) * 8;
         const int t = t0 - d + i;
@@ -336,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
           for (int n = 0; n < 2 * NG; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
-        gemm<R>(acc, sA + (size_t)(dmax - d) * lda, lda, d * lda, 3, wdl, C, col0, ring);
+        gemm<C>(acc, sA + (size_t)(dmax - d) * lda, lda, d * lda, 3, wdl, col0, ring);
         const int cb = col0 + wn * NG * 8 + (lane & 3) * 2;  // this lane's first channel
 #pragma unroll
         for (int mt = 0; mt < P::MT; ++mt) {
@@ -392,7 +411,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
           for (int n = 0; n < 2 * NG; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
-        gemm<R>(acc, sG, lda, 0, 1, wol, C, col0, ring);
+        gemm<C>(acc, sG, lda, 0, 1, wol, col0, ring);
         const int cb = col0 + wn * NG * 8 + (lane & 3) * 2;  // this lane's first channel
 #pragma unroll
         for (int mt = 0; mt < P::MT; ++mt) {
@@ -439,15 +458,15 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_kernel(
   }
 }
 
-template <int R>
+template <int C>
 cudaError_t launch(const bf16* x0, const bf16* cond, const bf16* step, const bf16* wd,
                    const float* bd, const bf16* wo, const float* bo, bf16* xbuf, float* skip,
-                   int B, int T, int C, int L, int dmax, const Dilations& dil, int write_last,
+                   int B, int T, int L, int dmax, const Dilations& dil, int write_last,
                    int sms, cudaStream_t stream) {
-  constexpr int CL = Tile<R>::CL;
+  constexpr int CL = Tile<C>::CL, R = Tile<C>::R;
   const size_t smem =
-      ((size_t)(2 * R + 2 * dmax) * (C + 8) + (size_t)Tile<R>::NS * Tile<R>::TILE) * sizeof(bf16);
-  auto kern = residual_stack_bf16_kernel<R>;
+      ((size_t)(2 * R + 2 * dmax) * (C + 8) + (size_t)Tile<C>::NS * Tile<C>::TILE) * sizeof(bf16);
+  auto kern = residual_stack_bf16_kernel<C>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -477,7 +496,7 @@ cudaError_t launch(const bf16* x0, const bf16* cond, const bf16* step, const bf1
   if (err != cudaSuccess) return err;
   if (resident < 1) return cudaErrorInvalidConfiguration;
   cfg.gridDim = dim3((n_tiles < resident ? n_tiles : resident) * CL);
-  err = cudaLaunchKernelEx(&cfg, kern, x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, C, L,
+  err = cudaLaunchKernelEx(&cfg, kern, x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L,
                            dmax, dil, write_last);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -486,28 +505,39 @@ cudaError_t launch(const bf16* x0, const bf16* cond, const bf16* step, const bf1
 // ---- the wide path: wgmma over 128-frame tiles, weights by bulk copy ----
 namespace wide {
 
-constexpr int C = 256;                  // the only width K1 takes
-constexpr int R = 128;                  // frames a tile, 64 a consumer warpgroup
-constexpr int LDA = C + 8;              // row stride: ldmatrix rows hit distinct banks
+constexpr int R = 128;  // frames a tile up to C = 256, the tiles kWideTiles counts
+
+// The constants of one width (C % 64 == 0; the numbers in the comments are
+// C = 256's). Above C = 256 a 128-frame tile's window and gate buffer do
+// not fit beside the ring (at C = 512, 150 KB and 131 KB): a tile is 64
+// frames there, one consumer warpgroup.
+template <int C_>
+struct W {
+  static constexpr int C = C_;
+  static_assert(C % 64 == 0, "the wide path takes C % 64 == 0");
+  static constexpr int R = C <= 256 ? wide::R : wide::R / 2;  // frames a tile, 64 a warpgroup
+  static constexpr int LDA = C + 8;              // row stride: ldmatrix rows hit distinct banks
+  static constexpr int NP = 2 * C / 128;         // passes a GEMM: 4
+  static constexpr int kKT = C / 64;             // stages a tap: 4
+  static constexpr int kConvStages = 3 * kKT;    // a pass of the dilated conv: 12
+  static constexpr int kOutStages = kKT;         // a pass of the 1x1: 4
+  static constexpr int kLayerStages = NP * (kConvStages + kOutStages);  // 64, the packed order
+  static constexpr int kConsumers = 2 * R;       // a warpgroup per 64 rows: two
+  static constexpr int kThreads = kConsumers + 32;  // and the producer warp
+};
 constexpr int KC = 64;                  // K rows a ring stage, four k16 steps
 constexpr int N = 128;                  // columns a pass: 64 channels and their partners
-constexpr int NP = 2 * C / N;           // passes a GEMM: 4
 constexpr int NS = 5;                   // ring stages
 constexpr int kStageElems = KC * N;     // 8192
 constexpr uint32_t kStageBytes = kStageElems * sizeof(bf16);  // 16 KB, one bulk copy
-constexpr int kKT = C / KC;              // stages a tap: 4
-constexpr int kConvStages = 3 * kKT;     // a pass of the dilated conv: 12
-constexpr int kOutStages = kKT;          // a pass of the 1x1: 4
-constexpr int kLayerStages = NP * (kConvStages + kOutStages);  // 64, the packed layer's order
-constexpr int kConsumers = 256;          // two warpgroups
-constexpr int kThreads = kConsumers + 32;  // and the producer warp
 constexpr int kConsumerBar = 1;          // named barrier of the consumer threads
 constexpr uint32_t kLbo = 128, kSbo = KC * 16;  // core-matrix steps along K and N, bytes
 
 // the dynamic shared memory of the wide path: ring, barriers, window, gate
+template <int C>
 __host__ __device__ constexpr size_t smem_bytes(int dmax) {
   return (size_t)NS * kStageBytes + 2 * NS * sizeof(uint64_t) +
-         (size_t)(2 * R + 2 * dmax) * LDA * sizeof(bf16);
+         (size_t)(2 * W<C>::R + 2 * dmax) * W<C>::LDA * sizeof(bf16);
 }
 
 // a ring position: the slot of the next stage and the parity of its phase
@@ -527,11 +557,11 @@ struct Ring {
 // (s % kKT) * KC on). Keeps the products of one stage in flight while the
 // next stage's A is loaded; releases each slot (lane 0 of every warp) once
 // the wgmma_wait that retires its products has passed.
-template <int NST>
+template <int C, int NST>
 __device__ __forceinline__ void consume(float (&acc)[N / 2], Ring& rc, const bf16* arow,
                                         int tap_step, const bf16* ring, uint64_t* full,
                                         uint64_t* empty, int lane) {
-  static_assert(NST % 2 == 0, "stages come in pairs: the A registers alternate");
+  constexpr int kKT = W<C>::kKT;
   constexpr int KS = KC / 16;  // k16 steps a stage
   uint32_t a[2][KS][4];        // [A buffer][k16 step][fragment]
   auto load_a = [&](uint32_t(&dst)[KS][4], int s) {
@@ -545,6 +575,7 @@ __device__ __forceinline__ void consume(float (&acc)[N / 2], Ring& rc, const bf1
   for (int s = 0; s < NST; s += 2) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      if (NST % 2 != 0 && s + h >= NST) break;  // an odd count's last pair has one stage
       mbar_wait(full + rc.slot, rc.phase);
       const bf16* tb = ring + rc.slot * kStageElems;
       wgmma_fence();
@@ -570,9 +601,11 @@ __device__ __forceinline__ void consume(float (&acc)[N / 2], Ring& rc, const bf1
 // first NS, whose slots the consumers free within this layer. jp is the
 // next global stage to issue; per_layer the stages of a layer of this
 // block (its tiles x kLayerStages).
+template <int C>
 __device__ __forceinline__ void produce(uint32_t& jp, Ring& rp, int l, int L, uint32_t per_layer,
                                         const bf16* __restrict__ wpack, bf16* ring,
                                         uint64_t* full, uint64_t* empty, int lane) {
+  constexpr int kLayerStages = W<C>::kLayerStages;
   const uint32_t total = per_layer * (uint32_t)L;
   uint32_t until = per_layer * (uint32_t)(l + 1) + (l + 1 < L ? NS : 0);
   if (until > total) until = total;
@@ -594,11 +627,16 @@ __device__ __forceinline__ void produce(uint32_t& jp, Ring& rp, int l, int L, ui
   __syncwarp();
 }
 
-// one block a 128-frame tile; blocks walk the tiles in strides of the grid
-__global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_wgmma_kernel(
+// one block a tile of R frames; blocks walk the tiles in strides of the grid
+template <int C>
+__global__ void __launch_bounds__(W<C>::kThreads, 1) residual_stack_bf16_wgmma_kernel(
     const bf16* x0, const bf16* __restrict__ cond, const bf16* __restrict__ step,
     const bf16* __restrict__ wpack, const float* __restrict__ bd, const float* __restrict__ bo,
     bf16* xbuf, float* skip, int B, int T, int L, int dmax, Dilations dil, int write_last) {
+  using P = W<C>;
+  constexpr int R = P::R, LDA = P::LDA, NP = P::NP, kConsumers = P::kConsumers;
+  constexpr int kConvStages = P::kConvStages, kOutStages = P::kOutStages;
+  constexpr int kLayerStages = P::kLayerStages;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [NS][kStageElems]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_raw + (size_t)NS * kStageBytes);
@@ -631,7 +669,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_wgmma_kernel(
   const int cq = 2 * (lane & 3);
   for (int l = 0; l < L; ++l) {
     if (producer) {
-      produce(jp, rp, l, L, per_layer, wpack, ring, full, empty, lane);
+      produce<C>(jp, rp, l, L, per_layer, wpack, ring, full, empty, lane);
     } else {
       const int d = dil.d[l];
       const bool keep_x = l + 1 < L || write_last;
@@ -684,7 +722,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_wgmma_kernel(
         const bf16* arow_a =
             sA + (size_t)(dmax - d + wg * 64 + wq * 16 + (lane & 15)) * LDA + (lane >> 4) * 8;
         for (int p = 0; p < NP; ++p) {
-          consume<kConvStages>(acc, rc, arow_a, d * LDA, ring, full, empty, lane);
+          consume<C, kConvStages>(acc, rc, arow_a, d * LDA, ring, full, empty, lane);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = rl + 8 * h;
@@ -726,7 +764,7 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_wgmma_kernel(
         const bf16* arow_g =
             sG + (size_t)(wg * 64 + wq * 16 + (lane & 15)) * LDA + (lane >> 4) * 8;
         for (int p = 0; p < NP; ++p) {
-          consume<kOutStages>(acc, rc, arow_g, 0, ring, full, empty, lane);
+          consume<C, kOutStages>(acc, rc, arow_g, 0, ring, full, empty, lane);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int t = t0 + rl + 8 * h;
@@ -766,12 +804,14 @@ __global__ void __launch_bounds__(kThreads, 1) residual_stack_bf16_wgmma_kernel(
   }
 }
 
+template <int C>
 cudaError_t launch(const bf16* x0, const bf16* cond, const bf16* step, const bf16* wpack,
                    const float* bd, const float* bo, bf16* xbuf, float* skip, int B, int T,
                    int L, int dmax, const Dilations& dil, int write_last, int sms,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes(dmax);
-  auto kern = residual_stack_bf16_wgmma_kernel;
+  constexpr int R = W<C>::R, kThreads = W<C>::kThreads;
+  const size_t smem = smem_bytes<C>(dmax);
+  auto kern = residual_stack_bf16_wgmma_kernel<C>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -801,33 +841,57 @@ cudaError_t launch(const bf16* x0, const bf16* cond, const bf16* step, const bf1
 
 // the wide path from this many 128-frame tiles (on an H100: 1.33-1.49 ms
 // against the narrow path's 1.86-1.90 at 32, B=4, T=1024; 1.27-1.49
-// against 0.43-0.48 at 8, B=4, T=256; PERF.md); ops/diffnet_stack.py
+// against 0.43-0.48 at 8, B=4, T=256; C = 256, PERF.md); ops/diffnet_stack.py
 // `WIDE_TILES` is the same number (the wrapper packs the weights only then)
 constexpr int kWideTiles = 32;
+
+#ifndef KERNEL_WIDTH
+#error "build with -DKERNEL_WIDTH=<C> (ops/_build.py WIDTHS lists the widths)"
+#endif
+constexpr int kC = KERNEL_WIDTH;  // this library's width
+static_assert(kC % 32 == 0 && kC >= 32 && kC <= 512, "K1 takes C % 32 == 0, 32 <= C <= 512");
+
+// the wide path where C % 64 == 0, from kWideTiles 128-frame tiles on and
+// where its window fits beside the ring; else the narrow path (the rule of
+// ops/diffnet_stack.py `uses_wide_path`, which packs the weights only then)
+template <int C>
+cudaError_t dispatch(const bf16* x0, const bf16* cond, const bf16* step, const bf16* wd,
+                     const float* bd, const bf16* wo, const float* bo, const bf16* wpack,
+                     bf16* xbuf, float* skip, int B, int T, int L, int dmax, const Dilations& dil,
+                     int write_last, int sms, int smem_max, cudaStream_t s) {
+  if constexpr (C % 64 == 0) {
+    if ((long long)B * ((T + wide::R - 1) / wide::R) >= kWideTiles &&
+        wide::smem_bytes<C>(dmax) <= (size_t)smem_max) {
+      if (wpack == nullptr) return cudaErrorInvalidValue;
+      return wide::launch<C>(x0, cond, step, wpack, bd, bo, xbuf, skip, B, T, L, dmax, dil,
+                              write_last, sms, s);
+    }
+  }
+  return launch<C>(x0, cond, step, wd, bd, wo, bo, xbuf, skip, B, T, L, dmax, dil, write_last,
+                    sms, s);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Both entry points take x0 [B,T,C] bf16 (C = 256, the flagship's width, which the tile shapes and
-// shared-memory sizes above are set for), cond [L,B,T,2C] bf16, step
-// [L,B,C] bf16, wd [L,3,C,2C] bf16, bd [L,2C] fp32, wo [L,C,2C] bf16, bo
-// [L,2C] fp32, wpack [L,64,8192] bf16 (wd and wo in the wide path's ring
-// order, ops/diffnet_stack.py `pack_weights_bf16`), all contiguous on
-// `device`; dilations is a host array of L ints; xbuf [2,B,T,C] bf16
-// scratch; skip [B,T,C] fp32 output. With write_last set, the state after
-// the last layer is stored too, in xbuf[(L - 1) % 2] (a pipeline stage's
-// output); else it is never formed. The narrow path reads wd and wo, the
-// wide one wpack (which may be null where the narrow path is taken:
-// ops/diffnet_stack.py `uses_wide_path`). It returns a cudaError_t (0 on
-// success).
+// Both entry points take x0 [B,T,C] bf16 (C = KERNEL_WIDTH, the width
+// this library is built for), cond [L,B,T,2C] bf16, step [L,B,C] bf16, wd
+// [L,3,C,2C] bf16, bd [L,2C] fp32, wo [L,C,2C] bf16, bo [L,2C] fp32, wpack
+// [L, 4 (C/64)^2, 8192] bf16 (wd and wo in the wide path's ring order,
+// ops/diffnet_stack.py `pack_weights_bf16`), all contiguous on `device`;
+// dilations is a host array of L ints; xbuf [2,B,T,C] bf16 scratch; skip
+// [B,T,C] fp32 output. With write_last set, the state after the last layer
+// is stored too, in xbuf[(L - 1) % 2] (a pipeline stage's output); else it
+// is never formed. The narrow path reads wd and wo, the wide one wpack
+// (which may be null where the narrow path is taken: ops/diffnet_stack.py
+// `uses_wide_path`). It returns a cudaError_t (0 on success).
 int diffnet_residual_stack_bf16(const void* x0, const void* cond, const void* step,
                                 const void* wd, const float* bd, const void* wo, const float* bo,
                                 const void* wpack, const int* dilations, void* xbuf, float* skip,
                                 int B, int T, int C, int L, int write_last, int device,
                                 void* stream) {
-  if (L < 1 || L > kMaxLayers || C != 256 || B < 1 || T < 1)
-    return (int)cudaErrorInvalidValue;
+  if (L < 1 || L > kMaxLayers || C != kC || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
   Dilations dil;
   int dmax = 0;
   for (int l = 0; l < L; ++l) {
@@ -842,23 +906,11 @@ int diffnet_residual_stack_bf16(const void* x0, const void* cond, const void* st
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  const bf16 *x0b = static_cast<const bf16*>(x0), *cb = static_cast<const bf16*>(cond),
-             *sb = static_cast<const bf16*>(step), *wdb = static_cast<const bf16*>(wd),
-             *wob = static_cast<const bf16*>(wo), *wpb = static_cast<const bf16*>(wpack);
-  bf16* xb = static_cast<bf16*>(xbuf);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the wide path from kWideTiles 128-frame tiles on (where its window fits
-  // beside the ring), else 16-frame tiles over clusters of two
-  const bool wide = (long long)B * ((T + wide::R - 1) / wide::R) >= kWideTiles &&
-                    wide::smem_bytes(dmax) <= (size_t)smem_max;
-  if (wide) {
-    if (wpb == nullptr) return (int)cudaErrorInvalidValue;
-    err = wide::launch(x0b, cb, sb, wpb, bd, bo, xb, skip, B, T, L, dmax, dil, write_last, sms, s);
-  } else {
-    err = launch<16>(x0b, cb, sb, wdb, bd, wob, bo, xb, skip, B, T, C, L, dmax, dil, write_last,
-                     sms, s);
-  }
-  return (int)err;
+  return (int)dispatch<kC>(static_cast<const bf16*>(x0), static_cast<const bf16*>(cond),
+                       static_cast<const bf16*>(step), static_cast<const bf16*>(wd), bd,
+                       static_cast<const bf16*>(wo), bo, static_cast<const bf16*>(wpack),
+                       static_cast<bf16*>(xbuf), skip, B, T, L, dmax, dil, write_last, sms,
+                       smem_max, static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -69,9 +69,14 @@
 //   - F = 128: CT = 2, 124.1 ms at B=32 and 4.5 ms at B=4, against 177.1
 //     and 5.6 ms for one block a chunk (along the channels, and 2 x 2,
 //     ran slower too);
-//   - F <= 64: one block a chunk.
+//   - F <= 64: one block a chunk (F = 16 and 8: a stage of F weight rows,
+//     its KC / 2 x F units fewer than the threads);
+//   - F = 512: 2 x 4 blocks (128 channels each: a block's window holds 183
+//     rows), 732.7 ms at B=32, T=1024 (U = 8192) against cuDNN's 428.9
+//     (tools/kernel_ab.py --widths; no other layout timed).
 // (H100 80GB HBM3 at 700 W; the losing layouts were timed by a probe
-// removed with them, PERF.md.)
+// removed with them, PERF.md.) One library a width (-DKERNEL_WIDTH,
+// ops/_build.py K2_WIDTHS).
 // Uc is set by shared memory and then cut to the shortest chunks that
 // fill as many waves of clusters as the widest would.
 //
@@ -80,8 +85,9 @@
 // fp32 adds of the partials, and mma.sync's rate, below wgmma's; wgmma
 // takes tf32 only K-major from shared memory, in 64-row tiles that the
 // shifted-row taps do not fit (a later step). ptxas (-Xptxas -v, CUDA
-// 12.8): 255 registers at every width; spills 28 bytes stored / 44 loaded
-// at F = 256, 4 / 4 at F = 128, none at F = 64, 60 / 76 at F = 32; no
+// 12.8): 255 registers at F = 32 to 512, 117 at F = 8, 190 at F = 16;
+// spills 28 bytes stored / 44 loaded at F = 256 and 512, 4 / 4 at F = 128,
+// none at F = 64, 16 and 8, 60 / 76 at F = 32; no
 // static shared memory (the windows and the ring are dynamic, sized at
 // launch to the 227 KB a block may opt into).
 
@@ -127,18 +133,19 @@ struct Cfg {
   static constexpr int FW = F / CC;
   static constexpr int FN = FW;
   static constexpr int LDS = FW + 8;
-  static constexpr int KC = F <= 32 ? 32 : (CT > 1 && CC == 1 && F >= 128) ? 8 : 16;
+  static constexpr int KC = F <= 32 ? F : (CT > 1 && CC == 1 && F >= 128) ? 8 : 16;
   static constexpr int KG = KC >= 16 ? 2 : 1;  // k8 steps a partial sum covers
   static constexpr int LDB = FN + 2;
   static constexpr int STAGE = KC / 2 * LDB * 4;  // 32-bit words
-  static constexpr int PU = KC / 2 * FN / kThreads;
+  static constexpr int UNITS = KC / 2 * FN;       // 16-byte units a stage
+  static constexpr int PU = (UNITS + kThreads - 1) / kThreads;
   static constexpr int WN = FN >= 256 ? 4 : FN >= 64 ? 2 : 1;
   static constexpr int WM = 8 / WN;
   static constexpr int NT = FN / (8 * WN);
   static constexpr int MT = F >= 128 ? 3 : 4;
   static constexpr int BM = 16 * MT * WM;
   static constexpr bool PF = F >= 128;  // A values loaded a stage ahead
-  static_assert(NT * 8 * WN == FN && PU * kThreads == KC / 2 * FN, "tiling");
+  static_assert(NT * 8 * WN == FN && F % KC == 0, "tiling");
 };
 
 __device__ __forceinline__ float2 lrelu2(float2 v) {
@@ -160,6 +167,7 @@ __device__ __forceinline__ void load_b(float (&v)[G::PU][2], const float* __rest
 #pragma unroll
   for (int u = 0; u < G::PU; ++u) {
     const int e = threadIdx.x + u * kThreads;
+    if (G::UNITS % kThreads != 0 && e >= G::UNITS) break;  // F <= 16: fewer units than threads
     const int p = e / G::FN, n = e % G::FN;
     v[u][0] = __ldg(src + (size_t)(2 * p) * F + n);
     v[u][1] = __ldg(src + (size_t)(2 * p + 1) * F + n);
@@ -171,6 +179,7 @@ __device__ __forceinline__ void store_b(uint32_t* stage, const float (&v)[G::PU]
 #pragma unroll
   for (int u = 0; u < G::PU; ++u) {
     const int e = threadIdx.x + u * kThreads;
+    if (G::UNITS % kThreads != 0 && e >= G::UNITS) break;
     const int p = e / G::FN, n = e % G::FN;
     uint32_t h0, l0, h1, l1;
     split(v[u][0], h0, l0);
@@ -562,16 +571,32 @@ cudaError_t launch(const float* x, const float* w, const float* bias, float* out
   return cudaGetLastError();
 }
 
+#ifndef KERNEL_WIDTH
+#error "build with -DKERNEL_WIDTH=<F> (ops/_build.py WIDTHS lists the widths)"
+#endif
+constexpr int kF = KERNEL_WIDTH;  // this library's width
+
+// the layout of each width (CT blocks along time x CC along the channels):
+// F <= 64 one block a chunk, F = 128 CT = 2, F = 256 2 x 2, F = 512 2 x 4
+// (128 channels a block: a block's window holds 183 rows of them)
+template <int F>
+cudaError_t dispatch(const float* x, const float* w, const float* bias, float* out, int B, int U,
+                     int H, int M, const Plan& plan, int smem_max, int sms, cudaStream_t s) {
+  constexpr int CT = F >= 128 ? 2 : 1, CC = F == 512 ? 4 : F == 256 ? 2 : 1;
+  return launch<F, CT, CC>(x, w, bias, out, B, U, H, M, plan, smem_max, sms, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// x, out [B,U,F] fp32 contiguous on `device`; w, bias as described above;
+// x, out [B,U,F] fp32 contiguous on `device`, F = KERNEL_WIDTH (the width
+// this library is built for); w, bias as described above;
 // ks [n_blocks] and dils [n_blocks * n_dils] are host arrays (odd kernels).
 // Returns a cudaError_t (0 on success).
 int mrf_stage(const float* x, const float* w, const float* bias, float* out, int B, int U, int F,
               int n_blocks, int n_dils, const int* ks, const int* dils, int device, void* stream) {
-  if (B < 1 || U < 1 || n_blocks < 1 || n_blocks > kMaxBlocks || n_dils < 1 ||
+  if (B < 1 || U < 1 || F != kF || n_blocks < 1 || n_blocks > kMaxBlocks || n_dils < 1 ||
       n_dils > kMaxDils)
     return (int)cudaErrorInvalidValue;
   Plan plan;
@@ -599,15 +624,8 @@ int mrf_stage(const float* x, const float* w, const float* bias, float* out, int
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (F) {
-    case 32: err = launch<32, 1, 1>(x, w, bias, out, B, U, H, M, plan, smem_max, sms, s); break;
-    case 64: err = launch<64, 1, 1>(x, w, bias, out, B, U, H, M, plan, smem_max, sms, s); break;
-    case 128: err = launch<128, 2, 1>(x, w, bias, out, B, U, H, M, plan, smem_max, sms, s); break;
-    case 256: err = launch<256, 2, 2>(x, w, bias, out, B, U, H, M, plan, smem_max, sms, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)err;
+  return (int)dispatch<kF>(x, w, bias, out, B, U, H, M, plan, smem_max, sms,
+                           static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -61,7 +61,20 @@
 //   - F = 128: CT = 2, products in flight (15.9 ms at B=32 against 16.5
 //     without, 18.9 for one block a chunk);
 //   - F <= 64: one block a chunk (their windows hold 3x or more own rows
-//     per halo row already), products in flight.
+//     per halo row already), products in flight; F = 16 and 8 the same,
+//     on m64n16k16 and m64n8k16 products, F = 8 with K padded to 16 by 8
+//     zero channels in the window rows and zero rows in the weight tiles;
+//   - F = 512: a block's window holds only 99 rows (against 2H = 120 halo
+//     rows at the flagship's kernels and dilations), so a chunk is shared
+//     by a cluster of CT = 8 blocks along time (Uc = 322: 1.37x the rows
+//     computed), and each row tile runs in two passes of 256 columns, 128
+//     sums a thread: 235.5 ms at B=32, T=1024 (U=8192) and 8.66 ms at B=4,
+//     T=256 on an H100, against CT = 4's 297.8 / 12.80, CT = 2's 658.7 /
+//     22.76, CT = 4 with 32-row stages 444.6 / 16.06 and with products in
+//     flight 327.1 / 12.75 (those layouts are no longer built). It loses
+//     to cuDNN's conv1d chain (187.7 / 7.9 ms): each block streams a conv's
+//     5.8 MB of weights through 8 KB stages, a block barrier each, for the
+//     50 rows it owns.
 // The first design, one block a chunk at every width, recomputed the widest
 // ResBlock's halo 2.58x at F = 256 (Uc = 76 in a 196-row window) and lost
 // to cuDNN there. lrelu is two bf16x2 instructions (max(v, slope * v)),
@@ -70,7 +83,9 @@
 // ptxas (CUDA 12.8), the layouts taken: 168 registers at F = 256 and 128
 // (the 384 threads' share), spilling 540 bytes at F = 256 and 96 at F =
 // 128 (with products in flight); F = 64 168 registers, 96 bytes; F = 32
-// 158, none.
+// 158, none; F = 512 158 (162 with 32-row stages), none; F = 16 100 and
+// F = 8 96, none. One library a width (-DKERNEL_WIDTH, ops/_build.py
+// K2_WIDTHS) builds its own layouts.
 //
 // Barriers, and what each answers. The weight ring keeps cp.async and a
 // block barrier per stage, which every thread passes: a ring of bulk
@@ -132,37 +147,51 @@ __device__ __forceinline__ uint32_t lrelu2(uint32_t v) {
   return *reinterpret_cast<const uint32_t*>(&y);
 }
 
-// three warpgroups own MT m64 row tiles each (BM rows together) over all
-// F output columns, F / 2 fp32 sums a thread per m64 tile; KC weight rows a
-// ring stage. PIPE: a stage's products stay in flight across the next
-// stage's barrier (wgmma_wait<1>, two A register sets), the ring one stage
-// deeper and loaded NS - 2 tiles ahead; else each stage waits for its
-// products and the ring loads NS - 1 ahead.
+// three warpgroups own MT m64 row tiles each (BM rows together) over NW
+// output columns a pass (all F up to 256; F = 512 in two passes of 256:
+// F / 2 sums a thread would not fit in its registers), NW / 2 fp32 sums a
+// thread per m64 tile; KC weight rows a ring stage. K runs over FK >= 16
+// input channels: at F = 8 the window rows and the weight tiles carry 8
+// zero channels, since a wgmma step is 16 deep. PIPE: a stage's products
+// stay in flight across the next stage's barrier (wgmma_wait<1>, two A
+// register sets), the ring one stage deeper and loaded NS - 2 tiles ahead;
+// else each stage waits for its products and the ring loads NS - 1 ahead.
 template <int F, int KC_, bool PIPE_>
 struct Cfg {
   static constexpr int NWG = 3;
   static constexpr int THREADS = 128 * NWG;
   static constexpr int MT = F >= 256 ? 1 : 2;
   static constexpr int BM = 64 * MT * NWG;
-  static constexpr int LDS = F + 8;  // window row stride: ldmatrix rows hit distinct banks
+  static constexpr int FK = F < 16 ? 16 : F;  // input channels as K sees them
+  static constexpr int LDS = FK + 8;  // window row stride: ldmatrix rows hit distinct banks
+  static constexpr int NW = F > 256 ? 256 : F;  // output columns a pass
+  static constexpr int NPASS = F / NW;
   static constexpr int KC = KC_;
   static constexpr bool PIPE = PIPE_;
   static constexpr int NS = PIPE ? 4 : 3;  // ring stages
   static constexpr int AHEAD = PIPE ? NS - 2 : NS - 1;  // tiles loaded ahead
-  static constexpr int TILE = KC * F;  // core-matrix layout, no padding
-  static_assert(KC % 16 == 0 && F % KC == 0, "stage depth");
+  static constexpr int TILE = KC * NW;  // core-matrix layout, no padding
+  static_assert(KC % 16 == 0 && FK % KC == 0 && F % NW == 0, "stage depth");
 };
 
 // ring stage <- rows [kc, kc + KC) of tap q of one conv's [k][F][F] weights,
-// as the core matrices of an MN-major wgmma B operand: core (K group g,
-// N group n) at element (n * KC / 8 + g) * 64, its K-row r % 8 at 8 more
-template <int F, int KC, class G>
-__device__ __forceinline__ void load_tile(bf16* slot, const bf16* __restrict__ w, int t) {
-  constexpr int KT = F / KC;
-  const bf16* src = w + ((size_t)(t / KT) * F + (t % KT) * KC) * F;
-  for (int c = threadIdx.x; c < KC * (F / 8); c += G::THREADS) {
+// columns [col0, col0 + NW), as the core matrices of an MN-major wgmma B
+// operand: core (K group g, N group n) at element (n * KC / 8 + g) * 64,
+// its K-row r % 8 at 8 more; K rows at F and above (F = 8) are zeros
+template <int F, class G>
+__device__ __forceinline__ void load_tile(bf16* slot, const bf16* __restrict__ w, int t,
+                                          int col0) {
+  constexpr int KC = G::KC, KT = G::FK / KC, NW = G::NW;
+  const int kc = (t % KT) * KC;
+  const bf16* src = w + ((size_t)(t / KT) * F + kc) * F + col0;
+  for (int c = threadIdx.x; c < KC * (NW / 8); c += G::THREADS) {
     const int r = c % KC, n = c / KC;  // neighbouring threads fill neighbouring rows
-    cp_async16(slot + (n * (KC / 8) + r / 8) * 64 + (r % 8) * 8, src + (size_t)r * F + n * 8);
+    bf16* dst = slot + (n * (KC / 8) + r / 8) * 64 + (r % 8) * 8;
+    if (F >= 16 || kc + r < F) {
+      cp_async16(dst, src + (size_t)r * F + n * 8);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
   }
 }
 
@@ -174,105 +203,108 @@ __device__ void conv(const bf16* src, bf16* dst, const bf16* __restrict__ w,
                      const float* __restrict__ bias, int k, int d, int lo, int hi,
                      bool residual, int pos0, int U, bf16* ring) {
   using G = Cfg<F, KC, PIPE>;
-  constexpr int KT = F / KC;
-  constexpr int NA = F / 2;  // accumulators per thread per m64 tile
+  constexpr int KT = G::FK / KC, NW = G::NW;
+  constexpr int NA = NW / 2;  // accumulators per thread per m64 tile
   constexpr uint32_t kLbo = 128, kSbo = KC * 16;  // core-matrix steps along K and N, bytes
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wg = warp >> 2, wq = warp & 3;
   const int half = (k - 1) / 2;
   const int ntiles = k * KT;
   for (int m0 = lo; m0 < hi; m0 += G::BM) {
-    const int r0 = m0 + wg * G::MT * 64;  // this warpgroup's first row
-    const bool active = r0 < hi;          // the same for the whole warpgroup
-    float acc[G::MT][NA];  // the sums start from the bias
+    for (int col0 = 0; col0 < F; col0 += NW) {  // the passes over the output columns
+      const int r0 = m0 + wg * G::MT * 64;  // this warpgroup's first row
+      const bool active = r0 < hi;          // the same for the whole warpgroup
+      float acc[G::MT][NA];  // the sums start from the bias
 #pragma unroll
-    for (int nt = 0; nt < F / 8; ++nt) {
-      const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + nt * 8 + (lane & 3) * 2));
-#pragma unroll
-      for (int mt = 0; mt < G::MT; ++mt) {
-        acc[mt][4 * nt] = acc[mt][4 * nt + 2] = bv.x;
-        acc[mt][4 * nt + 1] = acc[mt][4 * nt + 3] = bv.y;
-      }
-    }
-    const bf16* arow[G::MT];
-#pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt) {
-      const int r = min(r0 + mt * 64 + wq * 16 + (lane & 15), hi - 1);  // tail rows repeat
-      arow[mt] = src + r * G::LDS + (lane >> 4) * 8;
-    }
-#pragma unroll
-    for (int s = 0; s < G::AHEAD; ++s) {
-      if (s < ntiles) load_tile<F, KC, G>(ring + s * G::TILE, w, s);
-      cp_async_commit();
-    }
-    uint32_t a[2][KC / 16][G::MT][4];  // this stage's A, and (PIPE) the previous one's
-    // stage i: tile i landed for every thread and the slot it refills free, its
-    // A into a[h], its products issued
-    auto stage = [&](int i, uint32_t(&ah)[KC / 16][G::MT][4]) {
-      cp_async_wait<G::AHEAD - 1>();
-      fence_proxy_async();
-      // tile i landed for every thread; the products of the stage whose slot
-      // is refilled now (i - 1, or with PIPE i - 2) are done in every warpgroup
-      __syncthreads();
-      const int nx = i + G::AHEAD;
-      if (nx < ntiles) load_tile<F, KC, G>(ring + (nx % G::NS) * G::TILE, w, nx);
-      cp_async_commit();
-      if (!active) return;
-      const bf16* tb = ring + (i % G::NS) * G::TILE;
-      const int aoff = ((i / KT) - half) * d * G::LDS + (i % KT) * KC;
-#pragma unroll
-      for (int ks = 0; ks < KC / 16; ++ks)
+      for (int nt = 0; nt < NW / 8; ++nt) {
+        const float2 bv =
+            __ldg(reinterpret_cast<const float2*>(bias + col0 + nt * 8 + (lane & 3) * 2));
 #pragma unroll
         for (int mt = 0; mt < G::MT; ++mt) {
-          ldmatrix_a(ah[ks][mt], arow[mt] + aoff + ks * 16);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) ah[ks][mt][e] = lrelu2(ah[ks][mt][e]);
+          acc[mt][4 * nt] = acc[mt][4 * nt + 2] = bv.x;
+          acc[mt][4 * nt + 1] = acc[mt][4 * nt + 3] = bv.y;
         }
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < KC / 16; ++ks) {
-        const uint64_t desc = smem_desc(tb + ks * 128, kLbo, kSbo);  // K groups 2ks, 2ks + 1
-#pragma unroll
-        for (int mt = 0; mt < G::MT; ++mt) wgmma_rs<F>(acc[mt], ah[ks][mt], desc, 1);
       }
-      wgmma_commit();
-      if constexpr (PIPE) {
-        wgmma_wait<1>();  // the previous stage's products (and its A registers) are done
-      } else {
-        wgmma_wait<0>();
+      const bf16* arow[G::MT];
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt) {
+        const int r = min(r0 + mt * 64 + wq * 16 + (lane & 15), hi - 1);  // tail rows repeat
+        arow[mt] = src + r * G::LDS + (lane >> 4) * 8;
       }
-    };
-    for (int i = 0; i < ntiles; i += 2) {  // the A register sets alternate
-      stage(i, a[0]);
-      if (i + 1 < ntiles) stage(i + 1, a[1]);
-    }
-    if constexpr (PIPE) wgmma_wait<0>();
 #pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt)
+      for (int s = 0; s < G::AHEAD; ++s) {
+        if (s < ntiles) load_tile<F, G>(ring + s * G::TILE, w, s, col0);
+        cp_async_commit();
+      }
+      uint32_t a[2][KC / 16][G::MT][4];  // this stage's A, and (PIPE) the previous one's
+      // stage i: tile i landed for every thread and the slot it refills free, its
+      // A into a[h], its products issued
+      auto stage = [&](int i, uint32_t(&ah)[KC / 16][G::MT][4]) {
+        cp_async_wait<G::AHEAD - 1>();
+        fence_proxy_async();
+        // tile i landed for every thread; the products of the stage whose slot
+        // is refilled now (i - 1, or with PIPE i - 2) are done in every warpgroup
+        __syncthreads();
+        const int nx = i + G::AHEAD;
+        if (nx < ntiles) load_tile<F, G>(ring + (nx % G::NS) * G::TILE, w, nx, col0);
+        cp_async_commit();
+        if (!active) return;
+        const bf16* tb = ring + (i % G::NS) * G::TILE;
+        const int aoff = ((i / KT) - half) * d * G::LDS + (i % KT) * KC;
 #pragma unroll
-      for (int e = 0; e < NA; ++e) reg_fence(acc[mt][e]);
-    __syncthreads();  // the ring is refilled by the next row tile
-    if (!active) continue;
+        for (int ks = 0; ks < KC / 16; ++ks)
 #pragma unroll
-    for (int mt = 0; mt < G::MT; ++mt) {
+          for (int mt = 0; mt < G::MT; ++mt) {
+            ldmatrix_a(ah[ks][mt], arow[mt] + aoff + ks * 16);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + mt * 64 + wq * 16 + (lane >> 2) + 8 * h;
-        if (r >= hi) continue;
-        const int p = pos0 + r;
-        const bool inside = p >= 0 && p < U;
-#pragma unroll
-        for (int nt = 0; nt < F / 8; ++nt) {
-          const int col = nt * 8 + (lane & 3) * 2;
-          float y0 = acc[mt][4 * nt + 2 * h];
-          float y1 = acc[mt][4 * nt + 2 * h + 1];
-          uint32_t* o = reinterpret_cast<uint32_t*>(dst + r * G::LDS + col);
-          if (residual) {
-            const float2 old = unpack_bf16x2(*o);
-            y0 = old.x + y0;
-            y1 = old.y + y1;
+            for (int e = 0; e < 4; ++e) ah[ks][mt][e] = lrelu2(ah[ks][mt][e]);
           }
-          *o = pack_bf16x2(inside ? y0 : 0.f, inside ? y1 : 0.f);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KC / 16; ++ks) {
+          const uint64_t desc = smem_desc(tb + ks * 128, kLbo, kSbo);  // K groups 2ks, 2ks + 1
+#pragma unroll
+          for (int mt = 0; mt < G::MT; ++mt) wgmma_rs<NW>(acc[mt], ah[ks][mt], desc, 1);
+        }
+        wgmma_commit();
+        if constexpr (PIPE) {
+          wgmma_wait<1>();  // the previous stage's products (and its A registers) are done
+        } else {
+          wgmma_wait<0>();
+        }
+      };
+      for (int i = 0; i < ntiles; i += 2) {  // the A register sets alternate
+        stage(i, a[0]);
+        if (i + 1 < ntiles) stage(i + 1, a[1]);
+      }
+      if constexpr (PIPE) wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < NA; ++e) reg_fence(acc[mt][e]);
+      __syncthreads();  // the ring is refilled by the next row tile or pass
+      if (!active) continue;
+#pragma unroll
+      for (int mt = 0; mt < G::MT; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + mt * 64 + wq * 16 + (lane >> 2) + 8 * h;
+          if (r >= hi) continue;
+          const int p = pos0 + r;
+          const bool inside = p >= 0 && p < U;
+#pragma unroll
+          for (int nt = 0; nt < NW / 8; ++nt) {
+            const int col = col0 + nt * 8 + (lane & 3) * 2;
+            float y0 = acc[mt][4 * nt + 2 * h];
+            float y1 = acc[mt][4 * nt + 2 * h + 1];
+            uint32_t* o = reinterpret_cast<uint32_t*>(dst + r * G::LDS + col);
+            if (residual) {
+              const float2 old = unpack_bf16x2(*o);
+              y0 = old.x + y0;
+              y1 = old.y + y1;
+            }
+            *o = pack_bf16x2(inside ? y0 : 0.f, inside ? y1 : 0.f);
+          }
         }
       }
     }
@@ -337,6 +369,12 @@ __global__ void __launch_bounds__(Cfg<F, KC, PIPE>::THREADS, 1) mrf_stage_bf16_k
   const float* xb = x + (size_t)b * U * F;
   float* ob = out + (size_t)b * U * F;
   constexpr int Q = F / 4;  // float4 chunks per row
+  if constexpr (G::FK > F) {  // the zero channels K reads past F (F = 8), in both buffers
+    constexpr int QP = (G::FK - F) / 8;  // 16-byte chunks of them a row
+    for (int e = threadIdx.x; e < 2 * Lb * QP; e += NTH)
+      *reinterpret_cast<uint4*>(sx + (size_t)(e / QP) * G::LDS + F + (e % QP) * 8) =
+          make_uint4(0u, 0u, 0u, 0u);
+  }
   size_t woff = 0;
   int slot = 0;
   for (int j = 0; j < plan.n_blocks; ++j) {
@@ -476,14 +514,37 @@ cudaError_t launch(const float* x, const bf16* w, const float* bias, float* out,
   return cudaGetLastError();
 }
 
-// The layouts built, as (F, CT, KC, PIPE): the one each width takes (two
-// at F = 256; mrf_stage_bf16 chooses)
+// The layouts, as (F, CT, KC, PIPE): the one each width takes (two at F =
+// 256; mrf_stage_bf16 chooses); a library builds those of its width
 #define MRF_BF16_LAYOUTS(X) \
+  X(512, 8, 16, 0)          \
   X(256, 1, 16, 0)          \
   X(256, 2, 16, 0)          \
   X(128, 2, 16, 1)          \
   X(64, 1, 32, 1)           \
-  X(32, 1, 32, 1)
+  X(32, 1, 32, 1)           \
+  X(16, 1, 16, 1)           \
+  X(8, 1, 16, 1)
+
+#ifndef KERNEL_WIDTH
+#error "build with -DKERNEL_WIDTH=<F> (ops/_build.py WIDTHS lists the widths)"
+#endif
+constexpr int kF = KERNEL_WIDTH;  // this library's width
+
+// the launch of layout (ct, kc, pipe) at this library's width F
+template <int F>
+cudaError_t dispatch(int ct, int kc, int pipe, const float* x, const bf16* w, const float* bias,
+                     float* out, int B, int U, int H, int M, const Plan& plan, int smem_max,
+                     int sms, cudaStream_t s) {
+#define MRF_BF16_CASE(f, c, k, p)                                                          \
+  if constexpr (F == f) {                                                                  \
+    if (ct == c && kc == k && pipe == p)                                                   \
+      return launch<f, c, k, (p != 0)>(x, w, bias, out, B, U, H, M, plan, smem_max, sms, s); \
+  }
+  MRF_BF16_LAYOUTS(MRF_BF16_CASE)
+#undef MRF_BF16_CASE
+  return cudaErrorInvalidValue;
+}
 
 // the plan of a stage; returns a cudaError_t (0 on success)
 int make_plan(int n_blocks, int n_dils, const int* ks, const int* dils, Plan& plan, int& H,
@@ -515,18 +576,20 @@ int make_plan(int n_blocks, int n_dils, const int* ks, const int* dils, Plan& pl
 
 extern "C" {
 
-// x, out [B,U,F] fp32 contiguous on `device`; w bf16 and bias fp32 as
-// described above; ks [n_blocks] and dils [n_blocks * n_dils] are host
-// arrays (odd kernels). The layout of each width: F = 256 clusters of two
-// along time where one block a chunk would take more than one wave of
-// blocks (the bench's B=32), else one block a chunk (B=4, T=256: the same
-// blocks, and no cluster barriers); F = 128 clusters of two, products in
-// flight; F <= 64 one block a chunk, products in flight. Returns a
-// cudaError_t (0 on success).
+// x, out [B,U,F] fp32 contiguous on `device`, F = KERNEL_WIDTH (the width
+// this library is built for); w bf16 and bias fp32 as described above; ks
+// [n_blocks] and dils [n_blocks * n_dils] are host arrays (odd kernels).
+// The layout of each width: F = 512 clusters of eight along time (a block's
+// window holds 99 rows at F = 512, under the 2H = 120 halo rows of the
+// flagship's widest ResBlock); F = 256 clusters of two along time where one
+// block a chunk would take more than one wave of blocks (the bench's B=32),
+// else one block a chunk (B=4, T=256: the same blocks, and no cluster
+// barriers); F = 128 clusters of two, products in flight; F <= 64 one
+// block a chunk, products in flight. Returns a cudaError_t (0 on success).
 int mrf_stage_bf16(const float* x, const void* w, const float* bias, float* out, int B, int U,
                    int F, int n_blocks, int n_dils, const int* ks, const int* dils, int device,
                    void* stream) {
-  if (B < 1 || U < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || U < 1 || F != kF) return (int)cudaErrorInvalidValue;
   Plan plan;
   int H = 0, M = 0, smem_max = 0, sms = 0;
   int err = make_plan(n_blocks, n_dils, ks, dils, plan, H, M);
@@ -548,19 +611,14 @@ int mrf_stage_bf16(const float* x, const void* w, const float* bias, float* out,
       pipe = 0;
       break;
     }
+    case 512: ct = 8; kc = 16; pipe = 0; break;
     case 128: ct = 2; kc = 16; break;
     case 64: case 32: break;
+    case 16: case 8: kc = 16; break;
     default: return (int)cudaErrorInvalidValue;
   }
-  const bf16* wb = static_cast<const bf16*>(w);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MRF_BF16_CASE(f, c, k, p)                                                           \
-  if (F == f && ct == c && kc == k && pipe == p)                                            \
-    return (int)launch<f, c, k, (p != 0)>(x, wb, bias, out, B, U, H, M, plan, smem_max, sms, \
-                                          s);
-  MRF_BF16_LAYOUTS(MRF_BF16_CASE)
-#undef MRF_BF16_CASE
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch<kF>(ct, kc, pipe, x, static_cast<const bf16*>(w), bias, out, B, U, H, M,
+                           plan, smem_max, sms, static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -8,13 +8,24 @@ so the next batch is staged while the card runs the current step.
 
 Ordering is preserved (single worker thread); exceptions raised while
 producing are re-raised on the consuming thread at the point of `next()`.
+
+`DevicePut` is the trainer's `dataloader_prefetch_put: worker` (JAX's
+`trainer.py:230-239`): the copy of each batch to the device runs in the
+prefetcher's transform, on its thread. On the card the batch goes through
+pinned host memory on a side stream, and an event recorded after the
+copies is what the consuming step waits on (`take`); the tensors are then
+marked as used on the consuming stream, so that the allocator does not
+hand their memory out again while the step still reads it. The batches are
+the ones `batch_to_device` makes on the main thread, bit for bit.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Callable, Iterable, Iterator, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
+
+import torch
 
 
 class _Stop:
@@ -105,3 +116,35 @@ class Prefetcher:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class DevicePut:
+    """`stage` (the prefetcher's transform, on its thread): a collated batch
+    -> (its tensors on `device`, the event that ends their copy, or None off
+    the card); `take` (on the consuming thread): the tensors, once the
+    current stream waits on that event."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    def stage(self, batch) -> Tuple[Dict[str, torch.Tensor], Optional["torch.cuda.Event"]]:
+        from bisinger_tpu_torch.data.dataset import batch_to_device
+
+        if self.stream is None:
+            return batch_to_device(batch, self.device), None
+        host = batch_to_device(batch, "cpu")
+        with torch.cuda.stream(self.stream):
+            out = {k: v.pin_memory().to(self.device, non_blocking=True) for k, v in host.items()}
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return out, done
+
+    def take(self, staged) -> Dict[str, torch.Tensor]:
+        out, done = staged
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            for v in out.values():
+                v.record_stream(cur)
+        return out

@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from bisinger_tpu_torch.parallel import groups
@@ -104,6 +105,34 @@ def set_dropout_generator(module: nn.Module, generator) -> None:
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def checkpointed(layer: nn.Module, *args):
+    """`layer(*args)` under `torch.utils.checkpoint` (JAX's `nn.remat`): the
+    layer's activations are not kept for the backward pass but recomputed
+    there. checkpoint's `preserve_rng_state` restores the global generators
+    only, and the layer's Dropouts draw from their own (`set_dropout_generator`),
+    so each of those is rewound for the recompute to the state it had when
+    the forward pass drew, and set back after it: the recompute draws the
+    forward's masks, and the draws after the step are the ones without remat."""
+    gens = list({id(m.generator): m.generator for m in layer.modules()
+                 if isinstance(m, Dropout) and m.generator is not None}.values())
+    drawn = []
+
+    def run(*a):
+        if not drawn:  # the forward pass
+            drawn.append([g.get_state() for g in gens])
+            return layer(*a)
+        now = [g.get_state() for g in gens]  # the recompute, in the backward pass
+        for g, st in zip(gens, drawn[0]):
+            g.set_state(st)
+        try:
+            return layer(*a)
+        finally:
+            for g, st in zip(gens, now):
+                g.set_state(st)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def gelu_tanh(x):
@@ -425,14 +454,20 @@ class FFTBlocks(nn.Module):
     """EncSALayer stack with optional sinusoidal positions and a final LN
     (`common.py:304-345`): the stack runs in `dtype`, the final LN in
     fp32, and the output is cast back to the input's dtype. `padding` and
-    `act` are the FFNs' (`ffn_padding`, `ffn_act`)."""
+    `act` are the FFNs' (`ffn_padding`, `ffn_act`). With `remat` (the
+    config's `remat`, JAX's `nn.remat` on each block) every layer runs under
+    `checkpointed` where gradients are taken: the same values, gradients
+    and dropout masks, with the layers' activations recomputed in the
+    backward pass instead of kept."""
 
     def __init__(self, hidden: int, num_layers: int, ffn_kernel_size: int = 9,
                  num_heads: int = 2, use_pos_embed: bool = True, dtype=torch.float32,
-                 dropout: float = 0.0, padding: str = "SAME", act: str = "gelu"):
+                 dropout: float = 0.0, padding: str = "SAME", act: str = "gelu",
+                 remat: bool = False):
         super().__init__()
         self.hidden, self.num_layers, self.use_pos_embed = hidden, num_layers, use_pos_embed
         self.dtype_ = dtype
+        self.remat = bool(remat)
         if use_pos_embed:
             self.pos_embed_alpha = nn.Parameter(torch.ones(1))
             self.pos_dropout = Dropout(dropout)
@@ -451,6 +486,9 @@ class FFTBlocks(nn.Module):
             x = self.pos_dropout(x + (self.pos_embed_alpha * sinusoidal_positions(
                 (~padding_mask).long(), self.hidden)).to(x.dtype))
         x = x * nonpad
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, padding_mask) * nonpad
+            layer = getattr(self, f"layer_{i}")
+            x = (checkpointed(layer, x, padding_mask) if remat else layer(x, padding_mask)) \
+                * nonpad
         return (layer_norm(self.final_ln, x) * nonpad).to(out_dtype)

@@ -12,6 +12,15 @@ under compute_dtype bfloat16 (the default), `residual_stack` under
 float32. As `bisinger_tpu/models/diffnet.py:100-130`, every projection but
 the last computes in `compute_dtype`, and the output is fp32.
 
+K1 takes every `residual_channels` C that is a multiple of 32 from 32 to
+512 (`ops/_build.py` K1_WIDTHS: the flagship's 256, the JAX scripts'
+default 64, and the others), so sampling on the card runs through it at
+any of them. At any other width the wrapper raises on the card, naming the
+widths taken: nothing runs the layers in the kernel's place. There the
+port differs from JAX, whose DiffNet takes its Pallas kernel at C % 128 ==
+0 only (`DiffNet._use_pallas`, `bisinger_tpu/models/diffnet.py:136-161`)
+and runs every other width through XLA.
+
 Training passes `cond` (the fs2 decoder input) instead of `cond_proj`, as
 `bisinger_tpu/models/diffnet.py:164-174` does: that path runs the layers
 one by one in plain autograd ops (`ResidualBlock.forward`), rounding where

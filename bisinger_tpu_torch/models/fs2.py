@@ -93,12 +93,12 @@ class FastSpeech2(nn.Module):
         self.embed_dropout = Dropout(drop)
         self.encoder = FFTBlocks(h, hp["enc_layers"], hp["enc_ffn_kernel_size"],
                                  hp["num_heads"], use_pos_embed=False, dtype=dtype, dropout=drop,
-                                 **ffn)
+                                 remat=hp.get("remat", False), **ffn)
         self.with_decoder = with_decoder
         if with_decoder:
             self.decoder = FFTBlocks(h, hp["dec_layers"], hp["dec_ffn_kernel_size"],
                                      hp["num_heads"], use_pos_embed=True, dtype=dtype,
-                                     dropout=drop, **ffn)
+                                     dropout=drop, remat=hp.get("remat", False), **ffn)
             self.mel_out = nn.Linear(h, out_dims or hp["audio_num_mel_bins"])
         ph = hp["predictor_hidden"] if hp["predictor_hidden"] > 0 else h
         pdrop = hp.get("predictor_dropout", 0.0)

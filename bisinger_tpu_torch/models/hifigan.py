@@ -18,7 +18,14 @@ noise_conv strides n times further.
 
 The MRF stage has two paths. In eval mode it runs K2 (`ops/mrf_stage`):
 `mrf_stage_bf16` (the TPU kernel's bf16 rounding) under bfloat16,
-`mrf_stage` under float32. In train mode it runs the ResBlock1 layers
+`mrf_stage` under float32, at stage widths F = 8 to 512 (powers of two,
+`ops/_build.py` K2_WIDTHS: the stages of an `upsample_initial_channel`
+from 16 to 1024 over four upsamplings, such as the JAX scripts' default
+128-channel vocoder, F = 64 to 8). At any other width the wrapper raises on
+the card, naming the widths taken, and nothing runs the layers in the
+kernel's place; JAX's `fused_mrf_stage` takes any F, and its generator
+runs every width through XLA under the default backend
+(`bisinger_tpu/models/hifigan.py:365-386`). In train mode it runs the ResBlock1 layers
 under autograd, as flax's layers run in a train step (the kernels have no
 backward): each conv in `compute_dtype`, its sums rounded there, the
 residual state fp32, the mean over the blocks fp32. As

@@ -1,27 +1,34 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface (no PyTorch headers) and is
-compiled on its own into `bisinger_tpu_torch/_build/lib<name>_<hash>.so`
-(the bf16 sources include `csrc/mma_bf16.cuh`, the fp32 ones
-`csrc/mma_tf32.cuh`):
+templated on the width it computes (K1's residual channels C, K2's stage
+channels F). It is compiled once per width listed in `WIDTHS`, the one
+list of the instantiations, into
+`bisinger_tpu_torch/_build/lib<name>_w<width>_<hash>.so` (the bf16
+sources include `csrc/mma_bf16.cuh`, the fp32 ones `csrc/mma_tf32.cuh`):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o ... csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -DKERNEL_WIDTH=<width> -o ... csrc/<name>.cu
 
-The file name carries a hash of the source, the headers of `csrc/` and
-the flags, so an edited source or header builds anew and an unchanged one
-is loaded as it is. `build_all` starts one nvcc per source at once and
-waits for all of them; it prints each build's time and the `-Xptxas -v`
-lines (registers, shared memory, spills) once. Builds and loads hold a
-lock (a thread lock and a file lock on `_build/.lock`), so threads or
-processes that reach a kernel first together build it once. Nothing here
-runs at import.
+The file name carries a hash of the source, the headers of `csrc/`, the
+flags and the width, so an edited source or header builds anew and an
+unchanged one is loaded as it is. A run loads only the widths its models
+have (the flagship's: K1 at 256, K2 at 256, 128, 64 and 32). `build_all`
+starts one nvcc per library, all at once (with `nice`, for a build in the
+background of other work: at a lower priority, at most one per CPU core)
+and waits for all of them; it prints each build's time and the `-Xptxas -v`
+lines (registers, shared memory, spills) once. Builds hold a lock (a
+thread lock and a file lock on `_build/.lock`), so threads or processes
+that reach a kernel first together build it once; a library that exists
+loads without the file lock (a build renames its file into place whole),
+so a build of other widths in the background holds up no load. Nothing
+here runs at import.
 
 Host libraries (the record codec, `native/record_codec.cc`) take the same
-directory, lock and hashing through `load_host`: the host C++ compiler
-`CXX` (default `c++`, the environment's CXX if set) with `CXX_FLAGS`, the
-file name keyed by a hash of the source, the compiler and the flags; a
-compiler that fails or cannot run raises with its output.
+directory and hashing, and a lock of their own, through `load_host`: the
+host C++ compiler `CXX` (default `c++`, the environment's CXX if set) with
+`CXX_FLAGS`, the file name keyed by a hash of the source, the compiler and
+the flags; a compiler that fails or cannot run raises with its output.
 """
 
 from __future__ import annotations
@@ -52,6 +59,15 @@ SIGNATURES = {
     "mrf_stage_bf16": {"mrf_stage_bf16": ([_P] * 4 + [_I] * 5 + [_P] * 2 + [_I, _P], _I)},
 }
 KERNELS = tuple(SIGNATURES)
+# The widths each kernel is instantiated for, one library a width: K1 (both
+# routes) every residual channel count C that is a multiple of 32 from 32
+# to 512, K2 (both routes) the stage channels F of a HiFi-GAN whose
+# upsample_initial_channel is a power of two from 16 to 1024. The wrappers
+# take these widths and raise on any other.
+K1_WIDTHS = tuple(range(32, 513, 32))
+K2_WIDTHS = (8, 16, 32, 64, 128, 256, 512)
+WIDTHS = {"diffnet_stack": K1_WIDTHS, "diffnet_stack_bf16": K1_WIDTHS,
+          "mrf_stage": K2_WIDTHS, "mrf_stage_bf16": K2_WIDTHS}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -59,15 +75,17 @@ CXX = os.environ.get("CXX") or "c++"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()  # kernel builds (with the file lock `.lock`)
+_host_lock = threading.Lock()  # host builds (with `.host.lock`)
+_loaded_lock = threading.Lock()  # _loaded
 
 
 @contextlib.contextmanager
-def _locked():
+def _locked(thread_lock=_lock, name: str = ".lock"):
     """This process's threads one at a time, and then other processes too."""
-    with _lock:
+    with thread_lock:
         os.makedirs(BUILD_DIR, exist_ok=True)
-        with open(os.path.join(BUILD_DIR, ".lock"), "w") as f:
+        with open(os.path.join(BUILD_DIR, name), "w") as f:
             fcntl.flock(f, fcntl.LOCK_EX)
             try:
                 yield
@@ -85,49 +103,80 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, width: int) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + [f"-DKERNEL_WIDTH={width}"]).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for fn in [f"{name}.cu"] + headers:
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
     digest = h.hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}_w{width}_{digest}.so")
 
 
-def build_all(names: Iterable[str] = KERNELS, log=None) -> Dict[str, float]:
-    """Compile every listed kernel whose library is missing, one nvcc per
-    source, all started together. Returns {name: seconds} of the builds
-    that ran; raises with nvcc's output if any fails."""
+def targets(names: Iterable[str] = KERNELS, widths=None):
+    """[(name, width)] of every listed kernel at each of `widths`: every
+    width in `WIDTHS` (None), the same list for each name, or {name: list}."""
+    out = []
+    for name in names:
+        if name not in WIDTHS:
+            raise ValueError(f"no kernel source {name!r}: one of {KERNELS}")
+        ws = widths.get(name, ()) if isinstance(widths, dict) else widths
+        for w in (WIDTHS[name] if ws is None else ws):
+            if w not in WIDTHS[name]:
+                raise ValueError(f"{name} is built for widths {WIDTHS[name]}, not {w}")
+            out.append((name, int(w)))
+    return out
+
+
+def build_all(names: Iterable[str] = KERNELS, widths=None, log=None,
+              nice: int = 0) -> Dict[str, float]:
+    """Compile every listed kernel at each of `widths` (default: all of its
+    `WIDTHS`) whose library is missing, one nvcc a library, all at once;
+    with `nice`, each that many steps below this process's priority and at
+    most as many at once as there are CPU cores. Returns {"name@width": seconds} of the builds that ran;
+    raises with nvcc's output if any fails."""
     with _locked():
-        return _build(names, log)
+        return _build(targets(names, widths), log, nice)
 
 
-def _build(names: Iterable[str], log=None) -> Dict[str, float]:
-    """`build_all` for a caller that holds the lock."""
+def _build(todo_all, log=None, nice: int = 0) -> Dict[str, float]:
+    """`build_all` of [(name, width)] for a caller that holds the lock."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
-    todo = [n for n in names if not os.path.exists(library_path(n))]
-    procs = {}
+    todo = [t for t in todo_all if not os.path.exists(library_path(*t))]
     nvcc = nvcc_path() if todo else None
-    for name in todo:
-        out = library_path(name)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", out + ".tmp", os.path.join(CSRC, f"{name}.cu")]
-        procs[name] = (time.perf_counter(), subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    seconds, failed = {}, []
-    for name, (t0, proc) in procs.items():
+    seconds, failed, running = {}, [], []
+    slots = max(1, os.cpu_count() or 1) if nice else max(1, len(todo))
+
+    def finish(entry):
+        (name, width), t0, proc = entry
         text, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+        key = f"{name}@{width}"
+        seconds[key] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{text}")
-            continue
-        os.replace(library_path(name) + ".tmp", library_path(name))
+            failed.append(f"nvcc {name}.cu -DKERNEL_WIDTH={width} failed ({proc.returncode}):\n"
+                          f"{text}")
+            return
+        os.replace(library_path(name, width) + ".tmp", library_path(name, width))
         lines = [ln.strip() for ln in text.splitlines()
                  if "Used" in ln or "spill" in ln or "Compiling entry" in ln
                  or "arning" in ln]
-        log(f"[build] {name}.cu in {seconds[name]:.1f} s")
+        log(f"[build] {name}.cu at width {width} in {seconds[key]:.1f} s")
         for ln in lines:
             log(f"[build]   {ln}")
+
+    for name, width in todo:
+        if len(running) >= slots:
+            finish(running.pop(0))
+        out = library_path(name, width)
+        # lowered by the `nice` command, not in the child before exec: the
+        # caller may have other threads running
+        cmd = (["nice", "-n", str(nice)] if nice else []) + [
+            nvcc, *NVCC_FLAGS, f"-DKERNEL_WIDTH={width}", "-o", out + ".tmp",
+            os.path.join(CSRC, f"{name}.cu")]
+        running.append(((name, width), time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for entry in running:
+        finish(entry)
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
@@ -160,22 +209,34 @@ class LaunchCounter:
         self.shapes.add(tuple(shape))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library of `csrc/<name>.cu`, built at first use, with the
-    argument and result types of its entry points set."""
-    lib = _loaded.get(name)
+def check_width(name: str, width: int, what: str) -> None:
+    """Raise ValueError, naming the widths taken, unless `name` is built for
+    `width`."""
+    if width not in WIDTHS[name]:
+        raise ValueError(f"{what}: the kernel takes widths {', '.join(map(str, WIDTHS[name]))}, "
+                         f"got {width}")
+
+
+def load(name: str, width: int) -> ctypes.CDLL:
+    """The library of `csrc/<name>.cu` at `width`, built at first use, with
+    the argument and result types of its entry points set."""
+    key = f"{name}@{width}"
+    lib = _loaded.get(key)
     if lib is not None:
         return lib
-    with _locked():
-        lib = _loaded.get(name)
+    path = library_path(name, width)
+    if not os.path.exists(path):
+        with _locked():
+            _build(targets([name], [width]))
+    with _loaded_lock:
+        lib = _loaded.get(key)
         if lib is None:
-            _build([name])
-            lib = ctypes.CDLL(library_path(name))
+            lib = ctypes.CDLL(path)
             for fn, (argtypes, restype) in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
             lib.kernel_error_string.argtypes = [_I]
             lib.kernel_error_string.restype = ctypes.c_char_p
-            _loaded[name] = lib
+            _loaded[key] = lib
     return lib
 
 
@@ -198,7 +259,7 @@ def load_host(source: str, signatures) -> ctypes.CDLL:
     lib = _loaded.get(path)
     if lib is not None:
         return lib
-    with _locked():
+    with _locked(_host_lock, ".host.lock"):  # not held up by a kernel build
         lib = _loaded.get(path)
         if lib is None:
             if not os.path.exists(path):

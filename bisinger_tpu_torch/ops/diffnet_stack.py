@@ -5,12 +5,19 @@ Two routes, chosen by the model's `compute_dtype`:
 - fp32: `residual_stack` runs `csrc/diffnet_stack.cu` (TF32 tensor cores
   in 3xTF32, to fp32 accuracy; `_tf32.py` models the arithmetic);
 - bf16: `residual_stack_bf16` runs `csrc/diffnet_stack_bf16.cu` (tensor
-  cores), rounding where the TPU kernel rounds. Where a call has at least
-  32 tiles of 128 frames (`uses_wide_path`: the bench's B=32, T=1024, and
-  B=4, T=1024) it takes the wide path: wgmma, the weights streamed by bulk
-  copies in the order `pack_weights_bf16` gives them; else (B=4, T=256,
-  and every shape of fewer tiles) the narrow path, mma.sync over 16-frame
-  tiles, which reads wd and wo as they are and takes no pack.
+  cores), rounding where the TPU kernel rounds. Where C % 64 == 0, a
+  call has at least 32 tiles of 128 frames and the window fits in shared
+  memory (`uses_wide_path`: the bench's B=32, T=1024, and B=4, T=1024) it
+  takes the wide path: wgmma, the
+  weights streamed by bulk copies in the order `pack_weights_bf16` gives
+  them (128-frame tiles up to C = 256, 64-frame ones above); else (B=4,
+  T=256, every shape of fewer tiles, and C % 64 != 0) the narrow path,
+  mma.sync over tiles of 16 to 64 frames, which reads wd and wo as they
+  are and takes no pack.
+Both take every residual channel count C that is a multiple of 32 from 32
+to 512 (`_build.K1_WIDTHS`, one library a width, built at first use) and
+raise on any other width on the card: nothing runs the layers in their
+place (JAX's DiffNet runs such widths through XLA).
 Each runs its kernel (one cooperative launch for all layers) on CUDA
 tensors and its plain version (`residual_stack_plain`,
 `residual_stack_plain_bf16`) on CPU tensors. Inference only: on any device,
@@ -128,15 +135,32 @@ def residual_stack_plain_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo,
     return (skip, x) if write_last else skip
 
 
-# The wide path's tiles (csrc/diffnet_stack_bf16.cu, `kWideTiles`, `wide::R`)
-WIDE_TILES, WIDE_FRAMES = 32, 128
+# The wide path's threshold (csrc/diffnet_stack_bf16.cu, `kWideTiles`
+# tiles of 128 frames) and its shared memory (`wide::smem_bytes`): a ring
+# of WIDE_RING stages of 16 KB and their 2 WIDE_RING mbarriers, and a
+# window and gate buffer of 2 R + 2 dmax rows of C + 8 bf16 (R = 128 frames
+# a tile up to C = 256, 64 above), within the 227 KB a block of sm_90 may
+# take (cudaDevAttrMaxSharedMemoryPerBlockOptin, which the kernel reads)
+WIDE_TILES, WIDE_FRAMES, WIDE_RING = 32, 128, 5
+SMEM_MAX = 227 * 1024
 
 
-def uses_wide_path(B: int, T: int) -> bool:
-    """Whether K1-bf16 at this batch and length takes the wide path, which
-    reads the packed weights (the kernel also needs its window to fit in
-    shared memory, as it does at dilations up to 14)."""
-    return B * -(-T // WIDE_FRAMES) >= WIDE_TILES
+def wide_smem_bytes(C: int, dmax: int) -> int:
+    """The dynamic shared memory of K1-bf16's wide path at width C and
+    largest dilation dmax."""
+    R = WIDE_FRAMES if C <= 256 else WIDE_FRAMES // 2
+    return WIDE_RING * (16 * 1024 + 16) + (2 * R + 2 * dmax) * (C + 8) * 2
+
+
+def uses_wide_path(B: int, T: int, C: int = 256, dmax: int = 1) -> bool:
+    """Whether K1-bf16 at this batch, length, width and largest dilation
+    takes the wide path, which reads the packed weights, as the C entry
+    decides: C % 64 == 0, at least WIDE_TILES tiles of 128 frames, and a
+    window that fits in shared memory (at C = 256 for dilations up to 14,
+    at C = 512 up to 8). Else it takes the narrow path, and no pack is
+    made."""
+    return (C % 64 == 0 and B * -(-T // WIDE_FRAMES) >= WIDE_TILES
+            and wide_smem_bytes(C, dmax) <= SMEM_MAX)
 
 
 # The wide path's ring (csrc/diffnet_stack_bf16.cu, namespace `wide`): a
@@ -165,13 +189,16 @@ def _pack_gemm(w):
 
 
 def pack_weights_bf16(wd, wo):
-    """wd [L,3,C,2C] and wo [L,C,2C] (bf16, C = 256) -> [L, 64, PACK_KC *
-    PACK_N] bf16, each layer's ring stages in the order the wide path takes
-    them: the dilated conv's 12 stages (K = 3C rows, tap-major) for each of
-    its 4 passes, then the 1x1's 4 for each. Counted in `pack_counter`."""
+    """wd [L,3,C,2C] and wo [L,C,2C] (bf16, C % 64 == 0) -> [L, 4 (C/64)^2,
+    PACK_KC * PACK_N] bf16, each layer's ring stages in the order the wide
+    path takes them: the dilated conv's 3C / 64 stages (K = 3C rows,
+    tap-major) for each of its 2C / 128 passes, then the 1x1's C / 64 for
+    each (at C = 256: 12 stages for each of 4 passes, then 4 for each, 64 a
+    layer). Counted in `pack_counter`."""
     L, _, C, C2 = wd.shape
-    if C != 256 or C2 != 2 * C:
-        raise ValueError(f"pack_weights_bf16 takes C = 256, got wd {tuple(wd.shape)}")
+    if C % PACK_KC or C2 != 2 * C or tuple(wo.shape) != (L, C, C2):
+        raise ValueError(f"pack_weights_bf16 takes C % {PACK_KC} == 0, got wd "
+                         f"{tuple(wd.shape)}, wo {tuple(wo.shape)}")
     conv = _pack_gemm(wd.reshape(L, 3 * C, C2)).reshape(L, -1, PACK_KC * PACK_N)
     out = _pack_gemm(wo).reshape(L, -1, PACK_KC * PACK_N)
     pack_counter.add((L, C))
@@ -188,8 +215,8 @@ def _unpack_gemm(packed, K, C):
 
 
 def unpack_weights_bf16(packed, C: int = 256):
-    """[L, 64, PACK_KC * PACK_N] -> (wd [L,3,C,2C], wo [L,C,2C]), the inverse of
-    `pack_weights_bf16`."""
+    """[L, 4 (C/64)^2, PACK_KC * PACK_N] -> (wd [L,3,C,2C], wo [L,C,2C]), the
+    inverse of `pack_weights_bf16`."""
     L, P = packed.shape[0], 2 * C // PACK_N
     n_conv = P * 3 * C // PACK_KC
     conv = packed[:, :n_conv].reshape(L, P, n_conv // P, -1)
@@ -213,6 +240,15 @@ def packed_weights_bf16(wd, wo):
     _packs[key] = (weakref.ref(wd, lambda _, k=key: _packs.pop(k, None)), weakref.ref(wo),
                    wd._version, wo._version, packed)
     return packed
+
+
+def _check_stack(name, lib, C: int, L: int, dilations) -> None:
+    """Raise ValueError unless the kernel takes width C and L layers of
+    dilation >= 1."""
+    _build.check_width(lib, C, name)
+    if not 1 <= L <= 64 or min(dilations) < 1:
+        raise ValueError(f"{name} kernel takes 1 <= L <= 64 layers of dilation >= 1, "
+                         f"got L={L}, dilations {list(dilations)}")
 
 
 def _check(name, t, shape, device, dtype=torch.float32):
@@ -245,12 +281,10 @@ def residual_stack(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence
     _check("bd", bd, (L, 2 * C), dev)
     _check("wo", wo, (L, C, 2 * C), dev)
     _check("bo", bo, (L, 2 * C), dev)
-    if C != 256 or not 1 <= L <= 64 or min(dilations) < 1:
-        raise ValueError(f"residual_stack kernel takes C = 256 and 1 <= L <= 64, "
-                         f"got C={C}, L={L}")
+    _check_stack("residual_stack", "diffnet_stack", C, L, dilations)
     xbuf = torch.empty((2, B, T, C), device=dev, dtype=torch.float32)
     skip = torch.empty((B, T, C), device=dev, dtype=torch.float32)
-    lib = _build.load("diffnet_stack")
+    lib = _build.load("diffnet_stack", C)
     err = lib.diffnet_residual_stack(
         x0.data_ptr(), cond_proj.data_ptr(), step_proj.data_ptr(), wd.data_ptr(),
         bd.data_ptr(), wo.data_ptr(), bo.data_ptr(),
@@ -283,12 +317,10 @@ def residual_stack_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Seq
     _check("bd", bd, (L, 2 * C), dev)
     _check("wo", wo, (L, C, 2 * C), dev, b16)
     _check("bo", bo, (L, 2 * C), dev)
-    if C != 256 or not 1 <= L <= 64 or min(dilations) < 1:
-        raise ValueError(f"residual_stack_bf16 kernel takes C = 256 and 1 <= L <= 64, "
-                         f"got C={C}, L={L}")
+    _check_stack("residual_stack_bf16", "diffnet_stack_bf16", C, L, dilations)
     launch, skip, xbuf = launcher_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations,
                                        write_last)
-    _build.check(launch(), "diffnet_residual_stack_bf16", _build.load("diffnet_stack_bf16"))
+    _build.check(launch(), "diffnet_residual_stack_bf16", _build.load("diffnet_stack_bf16", C))
     return _counted(counter_bf16, skip, xbuf, dilations, write_last)
 
 
@@ -302,10 +334,11 @@ def launcher_bf16(x0, cond_proj, step_proj, wd, bd, wo, bo, dilations: Sequence[
     calls it back to back."""
     B, T, C = x0.shape
     L, dev = len(dilations), x0.device
-    wpack = packed_weights_bf16(wd, wo) if uses_wide_path(B, T) else None
+    wide = uses_wide_path(B, T, C, max(dilations))
+    wpack = packed_weights_bf16(wd, wo) if wide else None
     xbuf = torch.empty((2, B, T, C), device=dev, dtype=torch.bfloat16)
     skip = torch.empty((B, T, C), device=dev, dtype=torch.float32)
-    lib = _build.load("diffnet_stack_bf16")
+    lib = _build.load("diffnet_stack_bf16", C)
     args = (x0.data_ptr(), cond_proj.data_ptr(), step_proj.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), wo.data_ptr(), bo.data_ptr(),
             None if wpack is None else wpack.data_ptr(),

@@ -13,7 +13,9 @@ dir and served by `SVSInferTorch.from_work_dir` over the phone set of a
 time; each batch-axis bucket is warmed up first.
 
 Knobs, as the JAX script's: SB_PLATFORM (`cpu` for the CPU and a tiny
-model, else the card), SB_N (48; 16 on the CPU), SB_CONC (16; 8 on the
+model: a 2 x 32 DiffNet, which K1 takes, but a 32-channel HiFi-GAN whose
+MRF stages run at F = 16, 8, 4 and 2, and K2 takes F >= 8 only, so the
+tiny model stays on the CPU; else the card), SB_N (48; 16 on the CPU), SB_CONC (16; 8 on the
 CPU), SB_MAX_BATCH (8; 0/1 the serial lock path), SB_WINDOW_MS (25),
 SB_COMPARE (1: the serial baseline after the batched run), SB_SAMPLER
 (plms; dpmpp the 40-call DPM-Solver++). Prints one JSON line a metric: the

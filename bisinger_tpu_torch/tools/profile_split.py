@@ -14,7 +14,9 @@ whole pipeline's less the conditioner's. The ratio between stages is the
 map of where to optimise; their sum is a little over one fused call.
 
 Knobs, as the JAX script's: PS_PLATFORM (`cpu` for the CPU and a tiny
-model, else the card), PS_B (32; 4 on the CPU), PS_T (1024; 64 on the CPU),
+model: a 2 x 32 DiffNet, which K1 takes, but a 32-channel HiFi-GAN whose
+MRF stages run at F = 16, 8, 4 and 2, and K2 takes F >= 8 only, so the
+tiny model stays on the CPU; else the card), PS_B (32; 4 on the CPU), PS_T (1024; 64 on the CPU),
 PS_SAMPLER (plms | dpmpp). Prints one JSON line with the card's name and
 power limit.
 """

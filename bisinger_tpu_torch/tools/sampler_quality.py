@@ -10,10 +10,12 @@ DPM-Solver++(2M) at 40 calls, every call of the DiffNet through K1 on the
 card; reported: each fast sampler's mel MAE and mean SSIM against
 DDPM-1000. Durations are predicted, as a request's are.
 
-Two modes. By default a small DiffSingerMIDI (hidden 64, 10 x 64 DiffNet)
-is trained SQ_STEPS steps on a 24-item synthetic corpus, SQ_FRAMES frames a
-bucket: the figures then measure the samplers' agreement on a non-random
-denoiser, not audio quality (PLMS can drift on an under-trained one).
+Two modes. By default a small DiffSingerMIDI (hidden 64, 10 x 64 DiffNet,
+K1 at C = 64 on the card) is trained SQ_STEPS steps on a 24-item synthetic
+corpus, SQ_FRAMES frames a bucket, in SQ_DTYPE (the port's knob:
+`compute_dtype`, bfloat16 by default, or float32): the figures then
+measure the samplers' agreement on a non-random denoiser, not audio
+quality (PLMS can drift on an under-trained one).
 SQ_CKPT=<an assets dir> (e.g. artifacts/flagship) samples its trained
 model over the validation batch of SQ_DATA (a training run's dir with
 raw/ and binary/, binarized from the synthetic corpus if missing), SQ_B
@@ -131,7 +133,8 @@ def _toy(dev, root, steps, frames) -> dict:
         residual_channels=64, dilation_cycle_length=4, timesteps=1000, K_step=1000,
         schedule_type="linear", max_beta=0.02, gaussian_start=True, use_pitch_embed=False,
         num_spk=4, max_frames=frames, bucket_tokens=[48], bucket_frames=[frames],
-        max_tokens=8000, lr=2e-4, **sampler_keys("plms")))
+        max_tokens=8000, lr=2e-4, compute_dtype=os.environ.get("SQ_DTYPE", "bfloat16"),
+        **sampler_keys("plms")))
     M4SingerBinarizer(hp).process()
     it = iter(DataLoader(M4SingerDataset(hp, "train", shuffle=True), hp, shuffle=True,
                          endless=True))

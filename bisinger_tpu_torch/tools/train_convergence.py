@@ -18,8 +18,12 @@ Knobs, as the JAX script's: TC_PLATFORM (`cpu` for the CPU, else the card),
 TC_STEPS (2000), TC_ITEMS (64), TC_HIDDEN (64), TC_OUT (default
 checkpoints/convergence), TC_VOC (a trained generator's dir; without it the
 wav comes from a random generator, a plumbing artifact), TC_VOC_CHANNELS
-(128), TC_SMOKE. Prints the summary as one JSON line with the card's name
-and power limit; exits 1 unless converged.
+(128), TC_SMOKE; and the port's TC_DTYPE (`compute_dtype`: bfloat16, the
+default config's, or float32, K1's and K2's fp32 routes). At the default
+TC_HIDDEN 64 the DiffNet is 10 x 64 and a TC_VOC_CHANNELS 128 vocoder's MRF
+stages run at F = 64, 32, 16 and 8, all through the kernels on the card.
+Prints the summary as one JSON line with the card's name and power limit;
+exits 1 unless converged.
 """
 
 from __future__ import annotations
@@ -105,7 +109,8 @@ def main() -> int:
         val_check_interval=max(steps // 4, 50), num_sanity_val_steps=1, num_ckpt_keep=1,
         warmup_updates=min(200, steps // 4),
         lr=1.0,  # the rsqrt scale of the fs2 stage; the diffusion stage sets its own
-        clip_grad_norm=1.0, save_codes=False)
+        clip_grad_norm=1.0, save_codes=False,
+        compute_dtype=os.environ.get("TC_DTYPE", "bfloat16"))
     hp_fs2 = make_hparams(dict(base, work_dir=os.path.join(out_dir, "fs2")))
     if not os.path.exists(os.path.join(hp_fs2["binary_data_dir"], "phone_set.json")):
         M4SingerBinarizer(hp_fs2).process()

@@ -7,10 +7,18 @@ One directory per saved step, `<directory>/<step>/`:
     `weights.load_flax_params` reads and a server loads;
   - `opt_state.npz`: the optimizer's moments and accumulated gradients
     under the parameters' state_dict names;
-  - `meta.json`: the step and the optimizer's counters;
+  - `meta.json`: the step, the optimizer's counters and the save's
+    metrics (`val_loss`);
   - `rng_state.npy`: the trainer generator's state.
 A step is written into a temporary directory and renamed into place, so a
-directory with `meta.json` is complete; the newest `max_to_keep` stay.
+directory with `meta.json` is complete. The newest `max_to_keep` stay; with
+`save_best`, as orbax's manager with `best_fn` keeps them
+(`bisinger_tpu/training/checkpoints.py:21-35`), the `max_to_keep` of lowest
+`val_loss` (of two alike, the newer), a save without a `val_loss` kept
+whatever it holds: a worse one is deleted as soon as it is written. The
+trainer saves a preemption checkpoint with the sentinel 1e30, so it is
+never among the best. `latest_step` (what a resume and a server load) is
+the highest step kept.
 `load_params_into` merges a source's parameters into a target's where the
 names and shapes agree (the FFT-Singer warm start of the diffusion stage).
 Data-parallel, rank 0 alone saves (its generator state is every rank's: the
@@ -32,9 +40,10 @@ from bisinger_tpu_torch.weights import load_npz
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, save_best: bool = False):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.save_best = bool(save_best)
         os.makedirs(self.directory, exist_ok=True)
 
     def steps(self):
@@ -46,8 +55,23 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
+    def metrics(self, step: int) -> Dict[str, float]:
+        with open(os.path.join(self.directory, str(step), "meta.json")) as f:
+            return json.load(f).get("metrics") or {}
+
+    def _to_remove(self):
+        """The steps past what `max_to_keep` (and `save_best`) keep."""
+        steps = self.steps()
+        if self.max_to_keep <= 0:
+            return []
+        if not self.save_best:
+            return steps[:-self.max_to_keep]
+        scored = [(self.metrics(s)["val_loss"], -s) for s in steps
+                  if "val_loss" in self.metrics(s)]
+        return sorted(-s for _, s in sorted(scored)[self.max_to_keep:])
+
     def save(self, step: int, params: Dict[str, np.ndarray], opt_state: Dict[str, Any],
-             rng_state: torch.Tensor):
+             rng_state: torch.Tensor, metrics: Optional[Dict[str, float]] = None):
         final = os.path.join(self.directory, str(step))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -59,10 +83,11 @@ class CheckpointManager:
                     if torch.is_tensor(v)})
         np.save(os.path.join(tmp, "rng_state.npy"), rng_state.cpu().numpy())
         with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump({"step": int(step), "optimizer": counters}, f)
+            json.dump({"step": int(step), "optimizer": counters,
+                       "metrics": {k: float(v) for k, v in (metrics or {}).items()}}, f)
         shutil.rmtree(final, ignore_errors=True)
         os.rename(tmp, final)
-        for old in self.steps()[:-self.max_to_keep] if self.max_to_keep > 0 else []:
+        for old in self._to_remove():
             shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
 
     def restore(self, step: Optional[int] = None) -> Optional[Dict[str, Any]]:

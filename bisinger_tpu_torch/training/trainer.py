@@ -4,10 +4,13 @@ process a rank (`parallel/mesh.py`):
 
   - batches from the device-resident corpus (`device_resident_corpus`,
     the flagship's) or from the streaming `DataLoader` behind a
-    `Prefetcher` thread (`dataloader_prefetch`, default depth 2);
+    `Prefetcher` thread (`dataloader_prefetch`, default depth 2), copied
+    to the device on the training thread or, with
+    `dataloader_prefetch_put: worker`, on the prefetch thread (`DevicePut`);
   - a sanity validation before the first step (`num_sanity_val_steps`),
     a validation and a checkpoint every `val_check_interval` updates and
-    at the end, the newest `num_ckpt_keep` checkpoints kept; a task with
+    at the end, the newest `num_ckpt_keep` checkpoints kept (with
+    `save_best`, the `num_ckpt_keep` of lowest val_loss); a task with
     an `export` (the PitchExtractor's) also writes its serving files into
     the work dir at each checkpoint;
   - resume from the latest checkpoint (`| resumed from step N`), else the
@@ -15,6 +18,8 @@ process a rank (`parallel/mesh.py`):
     the path holds nothing;
   - SIGTERM or SIGINT during `fit` checkpoints at the next step boundary
     and returns;
+  - `save_codes` (default on): rank 0 copies the package's source into
+    work_dir/codes/<timestamp> (`snapshot_code`);
   - `| step N [tr] ...` and `| step N [val] ...` lines on stdout. There is
     no TensorBoard writer, so no validation media, as the JAX package
     skips them without one.
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import signal
 import threading
 import time
@@ -55,7 +61,7 @@ import numpy as np
 import torch
 
 from bisinger_tpu_torch.data.dataset import DataLoader, M4SingerDataset, batch_to_device
-from bisinger_tpu_torch.data.prefetch import Prefetcher
+from bisinger_tpu_torch.data.prefetch import DevicePut, Prefetcher
 from bisinger_tpu_torch.parallel import groups
 from bisinger_tpu_torch.parallel import mesh as dp
 from bisinger_tpu_torch.training.checkpoints import CheckpointManager
@@ -128,7 +134,8 @@ class Trainer:
         self.work_dir = work_dir or hp.get("work_dir") or "checkpoints/default"
         os.makedirs(self.work_dir, exist_ok=True)
         self.ckpt = CheckpointManager(os.path.join(self.work_dir, "ckpt"),
-                                      max_to_keep=hp["num_ckpt_keep"])
+                                      max_to_keep=hp["num_ckpt_keep"],
+                                      save_best=hp.get("save_best", False))
         self.global_step = 0
         self.corpus_bytes = 0  # the device-resident corpus's, when there is one
         self.loop_started = None  # perf_counter at the first train step of the last fit
@@ -146,6 +153,26 @@ class Trainer:
             with open(path + ".tmp", "w") as f:
                 json.dump(hp, f, indent=2, default=str)
             os.replace(path + ".tmp", path)
+            if hp.get("save_codes", True):
+                self.snapshot_code()
+
+    def snapshot_code(self) -> Optional[str]:
+        """Copy the package's source (without `_build/` and bytecode) into
+        work_dir/codes/<%Y%m%d%H%M%S>/bisinger_tpu_torch, as JAX's trainer
+        copies its package (`bisinger_tpu/training/trainer.py:114-138`);
+        best-effort, as there. Returns the copy's directory, or None where
+        one of that second exists or the copy failed."""
+        src = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        dst = os.path.join(self.work_dir, "codes", time.strftime("%Y%m%d%H%M%S"))
+        if os.path.exists(dst):
+            return None
+        try:
+            shutil.copytree(src, os.path.join(dst, "bisinger_tpu_torch"),
+                            ignore=shutil.ignore_patterns("_build", "__pycache__", "*.pyc",
+                                                          "*.so", "*.o"))
+        except OSError:
+            return None
+        return dst
 
     def say(self, msg: str):
         if self.is_main:
@@ -185,6 +212,13 @@ class Trainer:
                      f"{feeder.bytes_resident / 1e6:.0f} MB on {self.device}")
             return iter(feeder), None
         depth = int(hp.get("dataloader_prefetch", 2) or 0)
+        put_on = str(hp.get("dataloader_prefetch_put", "main"))
+        if put_on not in ("main", "worker"):
+            raise ValueError(f"dataloader_prefetch_put must be 'main' or 'worker', got {put_on!r}")
+        if depth > 0 and put_on == "worker":  # the copy to the device on the prefetch thread
+            put = DevicePut(self.device)
+            prefetcher = Prefetcher(iter(train_dl), depth=depth, transform=put.stage)
+            return map(put.take, prefetcher), prefetcher
         to_dev = lambda b: batch_to_device(b, self.device)  # noqa: E731
         if depth > 0:
             prefetcher = Prefetcher(iter(train_dl), depth=depth)
@@ -192,13 +226,13 @@ class Trainer:
         return map(to_dev, iter(train_dl)), None
 
     # ---- state -----------------------------------------------------------
-    def save(self):
-        """Rank 0 writes the checkpoint (and the PE's export); every rank
-        waits until it is complete."""
+    def save(self, val_loss: float):
+        """Rank 0 writes the checkpoint with its `val_loss` (and the PE's
+        export); every rank waits until it is complete."""
         if self.is_main:
             st = self.task.state()
             self.ckpt.save(self.global_step, st["params"], st["opt_state"],
-                           self.generator.get_state())
+                           self.generator.get_state(), metrics={"val_loss": val_loss})
             export = getattr(self.task, "export", None)
             if export is not None:  # the PitchExtractor's files for serving
                 export(self.work_dir)
@@ -292,17 +326,18 @@ class Trainer:
             # the first boundary where any rank has it
             if dp.any_rank(self._preempted):
                 if hp.get("save_ckpt", True):
-                    self.save()
+                    # no validation in a preemption's grace window: the
+                    # sentinel keeps save_best from ever choosing this one
+                    self.save(1e30)
                     self.say(f"| preemption checkpoint saved at step {self.global_step}")
                 return
             if self.global_step % hp["val_check_interval"] == 0:
-                self._run_validation(valid_dl)
+                val_loss = self._run_validation(valid_dl)
                 if hp.get("save_ckpt", True):
-                    self.save()
+                    self.save(val_loss)
                 t0, tcount = time.time(), 0
         if hp.get("save_ckpt", True) and self.global_step % hp["val_check_interval"] != 0:
-            self._run_validation(valid_dl)
-            self.save()
+            self.save(self._run_validation(valid_dl))
         if dp.active():
             self.agree(f"after step {self.global_step}")
 

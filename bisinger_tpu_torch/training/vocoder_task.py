@@ -12,8 +12,10 @@ departure from JAX's task, which hands it the batch's f0 whatever
 `use_nsf` says (`vocoder_task.py:106-108, 152-157`), so trains a source
 that its wrapper then never runs (`vocoders/hifigan.py:90, 108`); given
 f0=None, JAX's task computes the port's step. Every kernel trains
-as a weight-norm pair (`training/weight_norm.py`; the JAX package's
-default, `vocoder_weight_norm: true`, which nothing turns off); each side
+as a weight-norm pair (`training/weight_norm.py`) under the JAX
+package's default, `vocoder_weight_norm: true`; with `false` the kernels
+train as they are, as JAX's task trains them then (`vocoder_task.py:98,
+111-130`), and export unchanged. Each side
 has its own `AdamW` in the "vocoder" mode
 (optax.adamw). A multiband generator's subbands go through PQMF synthesis
 before the discriminators and the losses. The generator runs its train-mode
@@ -123,17 +125,20 @@ class HifiGanTask:
         self.use_mrstft = bool(hp.get("use_mrstft_loss", False))
         self.pqmf = pqmf_from_hparams(hp)
         self.hop = int(np.prod(hp["upsample_rates"])) * (self.pqmf.subbands if self.pqmf else 1)
+        self.weight_norm = bool(hp.get("vocoder_weight_norm", True))
         self.init_states(seed)
 
     # ---- state -----------------------------------------------------------
     def init_states(self, seed: int):
         """flax's initialisation of all three networks (the generator's MRF
         convs, upsamplers and conv_post at normal(0.01)), then (g, v) for
-        every normed kernel and a fresh optimizer for each side."""
+        every normed kernel (the modules' own parameters without
+        `vocoder_weight_norm`) and a fresh optimizer for each side."""
         flax_init_(self.generator, seed, small=("res_", "up_", "conv_post"))
         flax_init_(self.disc, seed + 1)
-        self.gen_params = wn.decompose(self.generator)
-        self.disc_params = wn.decompose(self.disc)
+        leaves = wn.decompose if self.weight_norm else (lambda m: dict(m.named_parameters()))
+        self.gen_params = leaves(self.generator)
+        self.disc_params = leaves(self.disc)
         self._new_optimizers()
 
     def to(self, device) -> "HifiGanTask":

@@ -15,7 +15,12 @@ relative max; for bf16, the plain version with one rounding point moved,
 above the mean bound. Phases, each printing one line with its results
 and seconds (a failed phase exits non-zero):
   1. device: name, count, nvidia-smi's name and power limit;
-  2. build the four kernels with nvcc (csrc/*.cu, one process per source);
+  2. build the four kernels with nvcc at every width each is built for
+     (csrc/*.cu, ops/_build.py WIDTHS: one library a kernel and width,
+     one process a library): the widths phases 3-20 launch first
+     (FIRST_WIDTHS), every nvcc started at once, the others in the
+     background at a lower priority, as many at once as the host has
+     cores, joined before phase 21;
   3. K1 (DiffNet residual stack), both routes, against their plain
      versions at the flagship widths, B=4, T=256;
   4. K2 (MRF stage), both routes, against their plain versions at each
@@ -34,10 +39,14 @@ and seconds (a failed phase exits non-zero):
      off, and bf16: cuDNN conv1d and cuBLAS products for K1, conv1d for
      K2), and each kernel's bound (the fp32 routes' at 495 / 3 TFLOP/s,
      3xTF32 on the TF32 tensor cores, with the factor against the fp32
-     CUDA cores' 67 TFLOP/s beside it); then the bf16 kernels launched
-     back to back, REPEAT_LAUNCHES + 1 times each case, in a child process
-     killed after REPEAT_TIMEOUT_S (tools/repeat_launch.py: K1-bf16 at
-     B=32, T=1024 and B=4, T=256, K2-bf16's F=256 stage at both), each
+     CUDA cores' 67 TFLOP/s beside it); and (read after phase 9) the bf16
+     kernels launched back to back, REPEAT_LAUNCHES + 1 times each case,
+     in a child process started when the background build is joined, run
+     beside phases 21 and 9 (which time nothing that is reported as a
+     kernel's time) and killed REPEAT_TIMEOUT_S after its start
+     (tools/repeat_launch.py CASES: K1-bf16 at B=32, T=1024 and B=4,
+     T=256, K2-bf16's F=256 stage at both, and the layouts other widths
+     add: K1-bf16 at C = 64 and 512, K2-bf16 at F = 8, 16 and 512), each
      last output bit for bit the first;
   7. warm synthesize() wall times at B=4, T=256 and at the bench's
      B=32, T=1024 under bf16 (and fp32 beside it), as audio seconds made
@@ -233,12 +242,24 @@ and seconds (a failed phase exits non-zero):
      the unsharded modules (fp32 at JAX's TP bounds), (c) one synthesize()
      at B=1, T=256 with DPM-Solver++ against one process (reported); no K1
      and no K2 launch on a TP rank, by design;
+  21. (run before 9) the kernels at the JAX scripts' widths, each route
+     (`widths_phase`): (a) tools/train_convergence at its default
+     TC_HIDDEN 64 with a 128-channel vocoder that tools/train_vocoder
+     trained 2 steps (K1 at C = 64, K2 at F = 64, 32, 16, 8), (b)
+     sampler_quality's toy mode (1241 K1 calls at C = 64), (c) one PLMS call
+     on random DiffNets at C = 64, 128, 384, 512 and one vocoder pass on
+     random NSF generators of 128 and 1024 channels (K2 at F = 64-8 and
+     512-64), (d) 3 FFT-Singer steps at the flagship's widths with remat off
+     and on from the same start: the losses within 1e-5, both peak memories
+     printed (its log checkpoints/chip_smoke/widths.log);
   9. both routes of each kernel against their plain versions at every
      input shape any phase launched them on (each counter records its
      shapes) that phases 3, 4 and 6 did not check: the batch and frame
      buckets of phases 5, 8, 10-19 (the mb4 stages, the plain generator's
      8·8·2·2 stages, phase 19's widened chunks and K1's write-last mode at
-     a stage's 4 layers among them, and phase 20's one-process reference).
+     a stage's 4 layers among them, phase 20's one-process reference, and
+     phase 21's widths), each K1 shape at its own C, each K2 shape at its
+     own F.
 The host's share of phases 10, 12, 13, 16 and 17 (the corpora, phase 16's
 corpus tools, and the binarizations) runs from the start in one process of
 its own at the lowest CPU priority (`--prepare`, PREP_PARTS; its log
@@ -247,7 +268,8 @@ those phases waits for its part and reports when it ran.
 The last two lines are one JSON object of kernel results and
 {"ok": true, "device": {...}}: each kernel's `launches` is its count over
 phase 5's three synthesize() calls, `launches_by_path` its count in each
-path of phases 5, 8 and 10-20. Without a CUDA device it exits 1 and prints
+path of phases 5, 8 and 10-21, `widths_launched` the widths of its
+launches over the whole run. Without a CUDA device it exits 1 and prints
 no result. The weights are the trained flagship's (artifacts/flagship);
 phase 5 fails, naming the file, where a checkout lacks one.
 """
@@ -275,8 +297,9 @@ FP32_TC_PEAK = 495e12 / 3
 BF16_PEAK = 989e12  # H100 SXM bf16 dense tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 # phase 6's repeat check (tools/repeat_launch.py): launches after the first of
-# each bf16 kernel and case, and the seconds before the child is killed (the
-# cases took about REPEAT_LAUNCHES * 25 ms on an H100, PERF.md)
+# each bf16 kernel and case, and the seconds from the child's start to its kill
+# (the cases took about 20 s together on an H100 at 500 launches, PERF.md; the
+# child runs beside phases 21 and 9)
 REPEAT_LAUNCHES = 500
 REPEAT_TIMEOUT_S = 120.0
 
@@ -2964,10 +2987,8 @@ TOOLS = (
     ("bench_train", dict(BT_STEPS="2", BT_VOC="1", BT_VOC_B="4"), (0, 0)),
     ("profile_split", dict(PS_B="8"), ("+", "+")),
     ("bench_serving", dict(SB_N="4", SB_CONC="4", SB_COMPARE="0"), ("+", "+")),
-    # K1 takes 256 residual channels: the convergence model at TC_HIDDEN 256 (its default 64
-    # raises in K1's wrapper on the card)
-    ("train_convergence", dict(TC_STEPS="4", TC_ITEMS="16", TC_HIDDEN="256", TC_OUT="<tmp>/tc",
-                               TC_SMOKE="1"), ("+", "+")),
+    ("train_convergence", dict(TC_STEPS="4", TC_ITEMS="16", TC_OUT="<tmp>/tc", TC_SMOKE="1"),
+     ("+", "+")),
     ("bench_pipeline", dict(BP_STEPS="8", BP_ITEMS="16", BP_OUT="<tmp>/bp"), (0, 0)),
 )
 
@@ -3208,6 +3229,203 @@ def work_dirs_phase(counters, by_path, dev, tmp, card):
         lines.append(f"phase 18 {time.perf_counter() - t_phase:.1f} s")
     finally:
         os.chdir(cwd)
+    bad = [k for k, v in checks.items() if not v]
+    lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
+    return not bad, lines
+
+
+# ---- phase 21: the kernels at the JAX scripts' widths, and remat ----------------
+# the widths phase 2 builds before phases 3-20, those they launch (the
+# flagship's, and phase 18's train_convergence at C = 64); the others build in
+# the background
+FIRST_WIDTHS = {"diffnet_stack": [256], "diffnet_stack_bf16": [64, 256],
+                "mrf_stage": [32, 64, 128, 256], "mrf_stage_bf16": [32, 64, 128, 256]}
+# (c)'s random DiffNets (K1's C) and NSF generators (upsample_initial_channel:
+# K2's F = 64-8 and 512-64), at B x T frames (B=4, T=1024: 32 tiles of 128
+# frames, K1-bf16's wide path at every one of these C)
+WIDTH_K1_C, WIDTH_VOC_CH, WIDTH_B, WIDTH_T = (64, 128, 384, 512), (128, 1024), 4, 1024
+# (d): FFT-Singer steps at the flagship's widths with remat on and off
+REMAT_STEPS, REMAT_B, REMAT_TOKENS, REMAT_FRAMES = 3, 16, 64, 512
+
+
+def widths_phase(counters, by_path, dev, tmp, card):
+    """Phase 21: the JAX scripts' default runs on the card, at their widths,
+    each route (bf16, fp32). (a) tools/train_convergence at its default
+    TC_HIDDEN 64 (a 10 x 64 DiffNet: K1 at C = 64), vocoding through a
+    128-channel NSF generator (K2 at F = 64, 32, 16, 8) that tools/train_vocoder
+    trained 2 steps (TV_CHANNELS 128), handed in through TC_VOC: rc 0 or 1
+    (TC_SMOKE's bar at 4 steps), K1 and K2 launched on the route's kernels
+    only. (b) tools/sampler_quality's toy mode (a 10 x 64 DiffNet, DDPM-1000 +
+    PLMS-200 + DPM-Solver++ 40): 1241 K1 launches. (c) one PLMS call (201
+    K1 calls) on a random DiffNet at each C of WIDTH_K1_C, and one vocoder
+    pass (4 K2 calls) on a random NSF generator at each
+    upsample_initial_channel of WIDTH_VOC_CH: finite outputs. (d) REMAT_STEPS
+    FFT-Singer train steps at the flagship's widths (bf16) with remat off and
+    on, the same initial parameters and generator: the losses agree within
+    1e-5 relative; both peak memories printed. Phase 9 holds every shape
+    launched here against the plain versions."""
+    from bisinger_tpu_torch.config import load_hparams_json
+    from bisinger_tpu_torch.data.dataset import batch_to_device
+    from bisinger_tpu_torch.inference.pipeline import FLAGSHIP_DIR, make_batch
+    from bisinger_tpu_torch.models.diffusion import GaussianDiffusion
+    from bisinger_tpu_torch.models.hifigan import HifiGanGenerator
+    from bisinger_tpu_torch.training.tasks import AuxDecoderMIDITask
+    from bisinger_tpu_torch.training.vocoder_task import flax_init_ as voc_init_
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    log_fn = os.path.join(repo, "checkpoints", "chip_smoke", "widths.log")
+    open(log_fn, "w").close()
+    lines, checks, stats = [], {}, {}
+    reset, read = launch_counts(counters, by_path)
+    t_phase = time.perf_counter()
+    routes = {"bf16": ("fused_residual_stack_bf16", "fused_mrf_stage_bf16"),
+              "fp32": ("fused_residual_stack", "fused_mrf_stage")}
+
+    def on_route(counts, route, k1, k2):
+        """The route's K1 and K2 counts are k1 and k2 ("+": at least one), the
+        other route's 0."""
+        mine = routes[route]
+        other = routes["fp32" if route == "bf16" else "bf16"]
+        got = (counts[mine[0]], counts[mine[1]])
+        return all(counts[k] == 0 for k in other) and all(
+            g > 0 if w == "+" else g == w for g, w in zip(got, (k1, k2)))
+
+    # ---- (a) train_convergence at TC_HIDDEN 64, a 128-channel vocoder ----
+    voc_out = os.path.join(tmp, "tc_voc")
+    rc, out_lines, secs, error = run_tool("train_vocoder", dict(
+        TV_STEPS="2", TV_BATCH="2", TV_FRAMES="16", TV_CHANNELS="128", TV_OUT=voc_out),
+        log_fn)
+    voc_files = sorted(os.listdir(os.path.join(voc_out, "vocoder"))) if os.path.isdir(
+        os.path.join(voc_out, "vocoder")) else []
+    checks["(a) train_vocoder wrote a 128-channel generator"] = error is None and any(
+        f.startswith("generator_") for f in voc_files)
+    lines.append(f"(a) train_vocoder TV_CHANNELS 128, 2 steps: rc {rc}, {secs:.1f} s, "
+                 f"{voc_files}")
+    for route in ("bf16", "fp32"):
+        knobs = dict(TC_STEPS="4", TC_ITEMS="16", TC_OUT=os.path.join(tmp, f"tc21_{route}"),
+                     TC_SMOKE="1", TC_VOC=os.path.join(voc_out, "vocoder"),
+                     TC_VOC_CHANNELS="128",
+                     TC_DTYPE="bfloat16" if route == "bf16" else "float32")
+        reset()
+        rc, out_lines, secs, error = run_tool("train_convergence", knobs, log_fn)
+        counts = read(f"21 (a) train_convergence, {route}")
+        summary = out_lines[-1] if out_lines else {}
+        checks[f"(a) train_convergence {route} ran (rc {rc})"] = rc in (0, 1) and error is None
+        checks[f"(a) train_convergence {route}: the 64-wide DiffNet and the trained "
+               "128-channel vocoder"] = summary.get("hidden") == 64 and bool(
+            summary.get("wav_vocoder_trained"))
+        checks[f"(a) train_convergence {route} launches K1, 4 K2 on its route"] = on_route(
+            counts, route, "+", 4)
+        stats[f"(a) {route}"] = dict(seconds=secs)
+        lines.append(f"(a) train_convergence {route} (TC_HIDDEN 64, TC_VOC 128 channels): rc "
+                     f"{rc}, {secs:.1f} s, launches {counts}; "
+                     + (error.splitlines()[-1] if error else json.dumps(
+                         {k: summary.get(k) for k in ("hidden", "converged",
+                                                      "wav_vocoder_trained")})))
+
+    # ---- (b) sampler_quality's toy mode ----
+    for route in ("bf16", "fp32"):
+        reset()
+        rc, out_lines, secs, error = run_tool("sampler_quality", dict(
+            SQ_STEPS="4", SQ_DTYPE="bfloat16" if route == "bf16" else "float32"), log_fn)
+        counts = read(f"21 (b) sampler_quality toy, {route}")
+        checks[f"(b) sampler_quality toy {route} ran"] = rc == 0 and error is None
+        checks[f"(b) sampler_quality toy {route}: 1241 K1, no K2"] = on_route(
+            counts, route, 1241, 0)
+        stats[f"(b) {route}"] = dict(seconds=secs)
+        shown = [{k: v for k, v in ln.items() if k in ("plms", "dpmpp")} for ln in out_lines]
+        lines.append(f"(b) sampler_quality toy {route}: rc {rc}, {secs:.1f} s, launches "
+                     f"{counts}; " + (error.splitlines()[-1] if error else json.dumps(shown)))
+
+    # ---- (c) PLMS on random DiffNets, vocoder passes on random generators ----
+    hp_diff = load_hparams_json(os.path.join(FLAGSHIP_DIR, "hparams_diff.json"))
+    gen = torch.Generator(device=dev)
+    for route in ("bf16", "fp32"):
+        dt = "bfloat16" if route == "bf16" else "float32"
+        for C in WIDTH_K1_C:
+            hp = dict(hp_diff, residual_channels=C, compute_dtype=dt)
+            torch.manual_seed(C)
+            model = GaussianDiffusion(hp, 64).to(dev).eval()
+            net = model.denoise_fn
+            for n, p in net.named_parameters():  # flax's zero output projection, drawn
+                if n.startswith("output_projection"):
+                    p.data.normal_(0.0, 0.05, generator=gen.manual_seed(C))
+            gen.manual_seed(C)
+            cond = torch.randn((WIDTH_B, WIDTH_T, hp["hidden_size"]), generator=gen, device=dev)
+            x = torch.randn((WIDTH_B, WIDTH_T, 80), generator=gen, device=dev)
+            reset()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = model.plms_sample_loop(x, net.cond_projections(cond), hp["K_step"],
+                                             hp["pndm_speedup"], stack=net.stack_weights())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read(f"21 (c) PLMS C={C}, {route}")
+            calls = hp["K_step"] // hp["pndm_speedup"] + 1
+            checks[f"(c) PLMS at C={C} {route}: {calls} K1 calls, finite"] = on_route(
+                counts, route, calls, 0) and bool(torch.isfinite(out).all())
+            lines.append(f"(c) PLMS, a random {hp['residual_layers']} x {C} DiffNet, "
+                         f"{route}, B={WIDTH_B} T={WIDTH_T}: {secs:.2f} s, launches {counts}")
+            del model, net, out
+        for ch in WIDTH_VOC_CH:
+            hp = dict(hp_diff, upsample_initial_channel=ch, compute_dtype=dt)
+            g = voc_init_(HifiGanGenerator(hp), ch).to(dev).eval()
+            gen.manual_seed(ch)
+            mel = torch.randn((2, 256, 80), generator=gen, device=dev)
+            f0 = 200.0 + 100.0 * torch.rand((2, 256), generator=gen, device=dev)
+            reset()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                wav = g(mel, f0, generator=gen)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read(f"21 (c) vocoder {ch} channels, {route}")
+            widths = [ch // 2 ** (i + 1) for i in range(len(hp["upsample_rates"]))]
+            checks[f"(c) vocoder {ch} channels {route} (F = {widths}): 4 K2 calls, finite"] = \
+                on_route(counts, route, 0, len(widths)) and bool(torch.isfinite(wav).all())
+            lines.append(f"(c) vocoder pass, a random NSF generator of {ch} channels (F = "
+                         f"{widths}), {route}: {tuple(wav.shape)}, {secs:.2f} s, launches "
+                         f"{counts}")
+            del g, wav
+
+    # ---- (d) FFT-Singer steps with remat off and on ----
+    hp_fs2 = load_hparams_json(os.path.join(FLAGSHIP_DIR, "hparams_fs2.json"))
+    batch = make_batch(REMAT_B, REMAT_TOKENS, REMAT_FRAMES, 64, seed=21, targets=True)
+    batch["mels"][batch["mel2ph"] == 0] = 0.0
+    batch = batch_to_device(batch, dev)
+    start, result = None, {}
+    for remat in (False, True):
+        task = AuxDecoderMIDITask(dict(hp_fs2, remat=remat), 64, device=dev)
+        if start is None:
+            start = task.state()["params"]
+        else:
+            task.load_state(start)
+        step_gen = torch.Generator(device=dev).manual_seed(21)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        t0 = time.perf_counter()
+        losses = [float(task.train_step(batch, step_gen)["total_loss"])
+                  for _ in range(REMAT_STEPS)]
+        torch.cuda.synchronize()
+        counts = read(f"21 (d) FFT-Singer remat {'on' if remat else 'off'}")
+        result[remat] = dict(losses=losses, peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                             seconds=time.perf_counter() - t0, counts=counts)
+        del task
+    off, on = result[False], result[True]
+    agree = all(abs(a - b) <= 1e-5 * abs(a) for a, b in zip(off["losses"], on["losses"]))
+    checks[f"(d) {REMAT_STEPS} FFT-Singer steps: remat on and off agree within 1e-5"] = agree
+    checks["(d) no kernel launched in the train steps"] = not any(
+        any(r["counts"].values()) for r in result.values())
+    lines.append(f"(d) FFT-Singer at the flagship's widths (hidden {hp_fs2['hidden_size']}, "
+                 f"{hp_fs2['enc_layers']} + {hp_fs2['dec_layers']} FFT layers, "
+                 f"{hp_fs2['compute_dtype']}), B={REMAT_B}, {REMAT_FRAMES} frames, "
+                 f"{REMAT_STEPS} steps: total loss remat off {off['losses']}, on {on['losses']}; "
+                 f"peak memory off {off['peak_gib']:.3f} GiB, on {on['peak_gib']:.3f} GiB; "
+                 f"seconds off {off['seconds']:.2f}, on {on['seconds']:.2f}")
+    lines.append(f"seconds on {card}: " + json.dumps(
+        {k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in stats.items()}))
+    lines.append(f"phase 21 {time.perf_counter() - t_phase:.1f} s")
     bad = [k for k, v in checks.items() if not v]
     lines.append(("FAILED " + ", ".join(bad)) if bad else "checks " + ", ".join(checks))
     return not bad, lines
@@ -4090,10 +4308,25 @@ def run_phases(tmp: str, prep: Prep) -> int:
                 f"cuda {torch.version.cuda}")
 
     with Phase("2 build") as ph:
-        secs = _build.build_all(log=log)
-        for name in _build.KERNELS:
-            _build.load(name)
-        ph.done("built " + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items())
+        # every instantiation, each kernel at each width it is built for: the
+        # widths phases 3-20 launch first, the others in the background, at a
+        # lower priority, joined before phase 21
+        t0 = time.perf_counter()
+        secs = _build.build_all(widths=FIRST_WIDTHS, log=log)
+        for name, width in _build.targets(widths=FIRST_WIDTHS):
+            _build.load(name, width)
+        rest = {}
+
+        def build_rest():
+            try:
+                rest["secs"] = _build.build_all(log=log, nice=10)
+            except Exception as e:  # the joining phase fails with it
+                rest["error"] = e
+
+        rest_thread = threading.Thread(target=build_rest, daemon=True)
+        rest_thread.start()
+        ph.done(f"built {len(secs)} libraries in {time.perf_counter() - t0:.1f} s ("
+                + ", ".join(f"{n} {s:.1f} s" for n, s in secs.items()) + ")"
                 if secs else "libraries already built")
 
     C, L = 256, 20
@@ -4441,20 +4674,6 @@ def run_phases(tmp: str, prep: Prep) -> int:
                 max_abs_err=errs[name], ms=row["ms"], plain_ms=row["plain_ms"],
                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                 library_ms=row["library_ms"]))
-        # the bf16 kernels launched back to back (K1-bf16's wide and narrow
-        # paths, K2-bf16's F=256 stage at both batches) in a child process that
-        # is killed if it has not ended: a barrier never released hangs a launch,
-        # possibly once in hundreds (an mbarrier ring of K2's deadlocked within
-        # 50 to 200)
-        from bisinger_tpu_torch.tools import repeat_launch
-        rep_ok, rep, rep_msg = repeat_launch.run(REPEAT_LAUNCHES, REPEAT_TIMEOUT_S, log=log)
-        lines.append(f"repeat launches ({REPEAT_LAUNCHES + 1} each, the child killed after "
-                     f"{REPEAT_TIMEOUT_S:.0f} s): {rep_msg}; "
-                     + ", ".join(f"{r['kernel']} B={r['B']} T={r['T']} {r['seconds']:.2f} s"
-                                 + ("" if r["bit_identical"] else " DIFFERS")
-                                 + (f" error {r['error']}" if r["error"] else "") for r in rep))
-        if not rep_ok:
-            bad.append(f"repeat launches: {rep_msg}")
         ph.done("tolerances (relative max/mean) K1 "
                 + ", ".join(tol_text(r[2]) for r in k1_routes.values()) + "; K2 "
                 + ", ".join(tol_text(r[2]) for r in k2_routes.values())
@@ -4579,71 +4798,114 @@ def run_phases(tmp: str, prep: Prep) -> int:
     finally:
         par.stop()
 
-    with Phase("9 kernels at every shape launched") as ph:
-        # the input shapes any phase launched a kernel on (phases 5 and 8 at
-        # their batch and frame buckets) that phases 3, 4 and 6 did not check:
-        # both routes of each kernel against their plain versions there, with
-        # every route's control
-        shapes = {"K1": set().union(counters["fused_residual_stack"].shapes,
-                                    counters["fused_residual_stack_bf16"].shapes),
-                  "K2": set().union(counters["fused_mrf_stage"].shapes,
-                                    counters["fused_mrf_stage_bf16"].shapes)}
-        lines, bad = [], []
-        # a write-last launch (a pipeline stage's) records its dilations too: both
-        # routes in that mode, the skip and the last layer's x held
-        for shape in sorted(shapes["K1"] - checked["K1"]):
-            B, T = shape[:2]
-            d = list(shape[3]) if len(shape) == 4 else dils
-            wl = dict(write_last=True) if len(shape) == 4 else {}
-            where = f"B={B} T={T}" + (f" L={len(d)} write-last" if wl else "")
-            gen.manual_seed(7 + B + T + len(d))
-            args = k1_inputs(B, T, C, len(d), gen, dev)
-            for name, (fn, plain, tol, cast, _, _) in k1_routes.items():
-                if tol[1] is not None:  # the bf16 mean bound, for a stack of len(d) layers
-                    tol = (tol[0], diffnet_stack.mean_tolerance_bf16(len(d)))
-                a = cast(args)
-                got, ref = fn(*a, d, **wl), plain(*a, d, **wl)
-                pairs = [(got[0], ref[0]), (got[1].float(), ref[1].float())] if wl else \
-                    [(got, ref)]
-                text = f"{name} {where}"
-                for (g, r), part in zip(pairs, ("", " x_last")):
-                    err, rel, mean = rel_err(g, r)
-                    errs[name] = max(errs[name], err)
-                    text += f"{part} {err:.3e}/{rel:.3e}/{mean:.3e}"
-                    if outside(rel, mean, tol):
-                        bad.append(f"{name} {where}{part}")
-                    if not part:
-                        skip_rel = rel
-                _, crel, cmean = rel_err(controls[name](*a, d), pairs[0][1])
-                text += f" (control {crel:.3e}/{cmean:.3e})"
-                if not control_holds(name, skip_rel, crel, cmean, tol):
-                    bad.append(f"{name} {where} control")
-                lines.append(text)
-        for B, U, F in sorted(shapes["K2"] - checked["K2"]):
-            gen.manual_seed(11 + B + U + F)
-            x, w, b = k2_inputs(B, U, F, rk, rd, gen, dev)
-            for name, (fn, plain, tol, wdt, _, _) in k2_routes.items():
-                wc = w.to(wdt)
-                ref = plain(x, wc, b, rk, rd)
-                err, rel, mean = rel_err(fn(x, wc, b, rk, rd), ref)
-                errs[name] = max(errs[name], err)
-                text = f"{name} B={B} U={U} F={F} {err:.3e}/{rel:.3e}/{mean:.3e}"
-                if outside(rel, mean, tol):
-                    bad.append(f"{name} B={B} U={U} F={F}")
-                _, crel, cmean = rel_err(controls[name](x, wc, b, rk, rd), ref)
-                text += f" (control {crel:.3e}/{cmean:.3e})"
-                if not control_holds(name, rel, crel, cmean):
-                    bad.append(f"{name} B={B} U={U} F={F} control")
-                lines.append(text)
-            del x, w, b
-        ph.done(f"{len(shapes['K1'] - checked['K1'])} K1 and "
-                f"{len(shapes['K2'] - checked['K2'])} K2 shapes beyond phases 3, 4 and 6; "
-                "max_abs_err/relative max/relative mean (tolerances as phase 6; K1-bf16's mean "
-                f"bound at a pipeline stage's 4 layers 4/20 of it: "
-                f"{diffnet_stack.mean_tolerance_bf16(4):g}): "
-                + "; ".join(lines) + (f"; MISMATCH at {bad}" if bad else "; ok"))
-        if bad:
+    with Phase("2 build, the other widths (in the background since phase 2)") as ph:
+        t0 = time.perf_counter()
+        rest_thread.join()
+        if "error" in rest:
+            ph.done(f"FAILED: {rest['error']}")
             return 1
+        for name, width in _build.targets():
+            _build.load(name, width)
+        ph.done(f"built {len(rest['secs'])} libraries (waited {time.perf_counter() - t0:.1f} "
+                "s here): " + ", ".join(f"{n} {s:.1f} s" for n, s in rest["secs"].items()))
+
+    # the bf16 kernels launched back to back (K1-bf16's wide and narrow
+    # paths, K2-bf16's F=256 stage at both batches, and the layouts of other
+    # widths) in a child process that is killed if it has not ended: a barrier
+    # never released hangs a launch, possibly once in hundreds (an mbarrier
+    # ring of K2's deadlocked within 50 to 200). It runs beside phases 21 and
+    # 9, which time nothing that the kernels line reports
+    from bisinger_tpu_torch.tools import repeat_launch
+    repeat = repeat_launch.start(REPEAT_LAUNCHES)
+    try:
+        with Phase("21 the kernels at the JAX scripts' widths, and remat") as ph:
+            ok, lines = widths_phase(counters, by_path, dev, tmp, smi)
+            ph.done(" | ".join(lines))
+            if not ok:
+                return 1
+
+        with Phase("9 kernels at every shape launched") as ph:
+            # the input shapes any phase launched a kernel on (phases 5 and 8 at
+            # their batch and frame buckets) that phases 3, 4 and 6 did not check:
+            # both routes of each kernel against their plain versions there, with
+            # every route's control
+            shapes = {"K1": set().union(counters["fused_residual_stack"].shapes,
+                                        counters["fused_residual_stack_bf16"].shapes),
+                      "K2": set().union(counters["fused_mrf_stage"].shapes,
+                                        counters["fused_mrf_stage_bf16"].shapes)}
+            lines, bad = [], []
+            # a write-last launch (a pipeline stage's) records its dilations too: both
+            # routes in that mode, the skip and the last layer's x held
+            for shape in sorted(shapes["K1"] - checked["K1"]):
+                B, T, Cs = shape[:3]
+                d = list(shape[3]) if len(shape) == 4 else dils
+                wl = dict(write_last=True) if len(shape) == 4 else {}
+                where = f"B={B} T={T} C={Cs}" + (f" L={len(d)} write-last" if wl else "")
+                gen.manual_seed(7 + B + T + Cs + len(d))
+                args = k1_inputs(B, T, Cs, len(d), gen, dev)
+                for name, (fn, plain, tol, cast, _, _) in k1_routes.items():
+                    if tol[1] is not None:  # the bf16 mean bound, for a stack of len(d) layers
+                        tol = (tol[0], diffnet_stack.mean_tolerance_bf16(len(d)))
+                    a = cast(args)
+                    got, ref = fn(*a, d, **wl), plain(*a, d, **wl)
+                    pairs = [(got[0], ref[0]), (got[1].float(), ref[1].float())] if wl else \
+                        [(got, ref)]
+                    text = f"{name} {where}"
+                    for (g, r), part in zip(pairs, ("", " x_last")):
+                        err, rel, mean = rel_err(g, r)
+                        errs[name] = max(errs[name], err)
+                        text += f"{part} {err:.3e}/{rel:.3e}/{mean:.3e}"
+                        if outside(rel, mean, tol):
+                            bad.append(f"{name} {where}{part}")
+                        if not part:
+                            skip_rel = rel
+                    _, crel, cmean = rel_err(controls[name](*a, d), pairs[0][1])
+                    text += f" (control {crel:.3e}/{cmean:.3e})"
+                    if not control_holds(name, skip_rel, crel, cmean, tol):
+                        bad.append(f"{name} {where} control")
+                    lines.append(text)
+            for B, U, F in sorted(shapes["K2"] - checked["K2"]):
+                gen.manual_seed(11 + B + U + F)
+                x, w, b = k2_inputs(B, U, F, rk, rd, gen, dev)
+                for name, (fn, plain, tol, wdt, _, _) in k2_routes.items():
+                    if tol[1] is not None:  # the bf16 mean bound of a stage of width F
+                        tol = (tol[0], mrf_stage.mean_tolerance_bf16(F))
+                    wc = w.to(wdt)
+                    ref = plain(x, wc, b, rk, rd)
+                    err, rel, mean = rel_err(fn(x, wc, b, rk, rd), ref)
+                    errs[name] = max(errs[name], err)
+                    text = f"{name} B={B} U={U} F={F} {err:.3e}/{rel:.3e}/{mean:.3e}"
+                    if outside(rel, mean, tol):
+                        bad.append(f"{name} B={B} U={U} F={F}")
+                    _, crel, cmean = rel_err(controls[name](x, wc, b, rk, rd), ref)
+                    text += f" (control {crel:.3e}/{cmean:.3e})"
+                    if not control_holds(name, rel, crel, cmean, tol):
+                        bad.append(f"{name} B={B} U={U} F={F} control")
+                    lines.append(text)
+                del x, w, b
+            ph.done(f"{len(shapes['K1'] - checked['K1'])} K1 and "
+                    f"{len(shapes['K2'] - checked['K2'])} K2 shapes beyond phases 3, 4 and 6; "
+                    "max_abs_err/relative max/relative mean (tolerances as phase 6; K1-bf16's mean "
+                    f"bound at a pipeline stage's 4 layers 4/20 of it: "
+                    f"{diffnet_stack.mean_tolerance_bf16(4):g}): "
+                    + "; ".join(lines) + (f"; MISMATCH at {bad}" if bad else "; ok"))
+            if bad:
+                return 1
+
+        with Phase("6 repeat launches (in a child beside phases 21 and 9)") as ph:
+            rep_ok, rep, rep_msg = repeat_launch.finish(repeat, REPEAT_TIMEOUT_S, log=log)
+            ph.done(f"{REPEAT_LAUNCHES + 1} launches each case, the child killed "
+                    f"{REPEAT_TIMEOUT_S:.0f} s after its start: {rep_msg}; "
+                    + ", ".join(f"{r['kernel']} B={r['B']} T={r['T']} width {r['width']} "
+                                f"{r['seconds']:.2f} s"
+                                + ("" if r["bit_identical"] else " DIFFERS")
+                                + (f" error {r['error']}" if r["error"] else "") for r in rep))
+            if not rep_ok:
+                return 1
+    finally:
+        if repeat[0].poll() is None:
+            repeat[0].kill()
+            repeat[0].communicate()
 
     total = time.perf_counter() - T_START
     log(f"[total] {total:.1f} s (budget {BUDGET_S:.0f} s, target 300 s)")
@@ -4653,6 +4915,8 @@ def run_phases(tmp: str, prep: Prep) -> int:
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {path: c[row["name"]] for path, c in by_path.items()}
+        # the widths (K1's C, K2's F) of every launch since the start
+        row["widths_launched"] = sorted({int(sh[2]) for sh in counters[row["name"]].shapes})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions at the flagship
-widths. Needs an NVIDIA GPU and nvcc; run on the card with
+widths and at every other width each is built for. Needs an NVIDIA GPU
+and nvcc; run on the card with
 
     python -m pytest tests/test_torch_gpu.py -m gpu
 
@@ -81,7 +82,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     b = torch.zeros((18, 256), device=cuda)
     with pytest.raises(ValueError, match="float32"):
         mrf_stage.mrf_stage(x, w, b, RK, RD)
-    with pytest.raises(ValueError, match="F in"):
+    with pytest.raises(ValueError, match="takes widths"):
         mrf_stage.mrf_stage(torch.zeros((1, 64, 48), device=cuda),
                             torch.zeros((2 * 48 * 48 * 63,), device=cuda),
                             torch.zeros((18, 48), device=cuda), RK, RD)
@@ -173,7 +174,8 @@ def test_bf16_kernels_end_back_to_back_within_a_limit(cuda):
 
     ok, results, msg = repeat_launch.run(2000, 180.0)
     assert ok, msg
-    assert [(r["kernel"], r["B"], r["T"]) for r in results] == list(repeat_launch.CASES)
+    assert [(r["kernel"], r["B"], r["T"], r["width"]) for r in results] == \
+        list(repeat_launch.CASES)
     assert all(r["launches"] == 2001 and r["bit_identical"] for r in results)
 
 
@@ -299,7 +301,7 @@ def test_first_build_from_two_threads_runs_nvcc_once(cuda, tmp_path, monkeypatch
     monkeypatch.setattr(_build.subprocess, "Popen",
                         lambda cmd, **kw: runs.append(cmd) or real_popen(cmd, **kw))
     libs = []
-    threads = [threading.Thread(target=lambda: libs.append(_build.load("mrf_stage")))
+    threads = [threading.Thread(target=lambda: libs.append(_build.load("mrf_stage", 256)))
                for _ in range(2)]
     for th in threads:
         th.start()
@@ -406,6 +408,73 @@ def _k2_fp32_args(g, B, U, F, rk=RK, rd=RD):
     w = torch.randn((n_w,), generator=g, device=g.device) * (7 * F) ** -0.5
     b = 0.1 * torch.randn((2 * sum(len(d) for d in rd), F), generator=g, device=g.device)
     return x, w, b
+
+
+K1_WIDTHS = tuple(range(32, 513, 32))
+K2_WIDTHS = (8, 16, 32, 64, 128, 256, 512)
+
+
+# Every width K1 is built for (ops/_build.py K1_WIDTHS), both routes, with a
+# ragged last tile each time: (2, 100) the narrow tiles (16 to 64 frames by
+# width); (4, 1100), 36 tiles of 128 frames, the bf16 wide path where C % 64
+# == 0 (128-frame tiles to C = 256, 64-frame ones above); (9, 1000), 144
+# tiles of 64 frames, the fp32 route's 64-frame tiles at C = 128 and 256
+@pytest.mark.parametrize("C", K1_WIDTHS)
+@pytest.mark.parametrize("route", ["fp32", "bf16"])
+def test_residual_stack_at_every_width(cuda, route, C):
+    L = 20
+    dils = [2 ** (i % 4) for i in range(L)]
+    counter = diffnet_stack.counter_bf16 if route == "bf16" else diffnet_stack.counter
+    for B, T in ((2, 100), (4, 1100), (9, 1000)):
+        g = torch.Generator(device=cuda).manual_seed(B + T + C)
+        args = _k1_fp32_args(g, B, T, L, C)
+        before = counter.launches
+        if route == "bf16":
+            args = _k1_bf16_args(args)
+            got = diffnet_stack.residual_stack_bf16(*args, dils)
+            ref = diffnet_stack.residual_stack_plain_bf16(*args, dils)
+        else:
+            got = diffnet_stack.residual_stack(*args, dils)
+            ref = diffnet_stack.residual_stack_plain(*args, dils)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        if route == "bf16":
+            assert _rel(got, ref) <= diffnet_stack.TOLERANCE_BF16, (B, T)
+            assert _mean_rel(got, ref) <= diffnet_stack.MEAN_TOLERANCE_BF16, (B, T)
+        else:
+            assert _rel(got, ref) <= diffnet_stack.TOLERANCE, (B, T)
+
+
+# Every width K2 is built for, both routes: B=2 with a ragged last chunk, the
+# stage's shape at B=4, T=256 in the generator where it stands (F = 512 to 64
+# after upsample_initial_channel 1024, 64 to 8 after 128; rates 8, 4, 2, 2),
+# and two blocks of other kernels and dilations
+K2_STAGE_U = {512: 2048, 256: 2048, 128: 8192, 64: 16384, 32: 32768, 16: 16384, 8: 32768}
+
+
+@pytest.mark.parametrize("F", K2_WIDTHS)
+@pytest.mark.parametrize("route", ["fp32", "bf16"])
+def test_mrf_stage_at_every_width(cuda, route, F):
+    counter = mrf_stage.counter_bf16 if route == "bf16" else mrf_stage.counter
+    for B, U, rk, rd in ((2, 2048 + 37, RK, RD), (4, K2_STAGE_U[F], RK, RD),
+                         (2, 1500, [3, 5], [[1, 2], [2, 4]])):
+        g = torch.Generator(device=cuda).manual_seed(B + U + F)
+        x, w, b = _k2_fp32_args(g, B, U, F, rk, rd)
+        before = counter.launches
+        if route == "bf16":
+            w = w.to(torch.bfloat16)
+            got = mrf_stage.mrf_stage_bf16(x, w, b, rk, rd)
+            ref = mrf_stage.mrf_stage_plain_bf16(x, w, b, rk, rd)
+        else:
+            got = mrf_stage.mrf_stage(x, w, b, rk, rd)
+            ref = mrf_stage.mrf_stage_plain(x, w, b, rk, rd)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        if route == "bf16":
+            assert _rel(got, ref) <= mrf_stage.TOLERANCE_BF16, (B, U)
+            assert _mean_rel(got, ref) <= mrf_stage.mean_tolerance_bf16(F), (B, U)
+        else:
+            assert _rel(got, ref) <= mrf_stage.TOLERANCE, (B, U)
 
 
 # The fp32 routes where their tiles do not divide the input: K1 with B=1 and
@@ -723,3 +792,27 @@ def test_nccl_group_at_world_size_one_and_on_a_shared_card(cuda, tmp_path):
         assert rc == 3 and "share the device cuda:0" in out, out[-2000:]
     for out, rc in ranks(2, "gloo", "gloo"):
         assert rc == 0 and "SUM [3.0, 3.0, 3.0]" in out, out[-2000:]
+
+
+# dataloader_prefetch_put: worker on the card: each batch copied on the
+# prefetch thread from pinned memory on a side stream, the step's stream
+# waiting on its event, equals the main thread's copy bit for bit
+def test_prefetch_put_worker_on_the_card(cuda):
+    import numpy as np
+
+    from bisinger_tpu_torch.data.dataset import batch_to_device
+    from bisinger_tpu_torch.data.prefetch import DevicePut, Prefetcher
+
+    r = np.random.RandomState(0)
+    raw = [dict(txt_tokens=r.randint(1, 50, (8, 64)), mels=r.randn(8, 512, 80).astype(np.float32),
+                f0=r.rand(8, 512).astype(np.float32)) for _ in range(6)]
+    put = DevicePut(cuda)
+    assert put.stream is not None
+    pf = Prefetcher(iter(raw), depth=2, transform=put.stage)
+    got = [put.take(staged) for staged in pf]
+    want = [batch_to_device(b, cuda) for b in raw]
+    torch.cuda.synchronize()
+    assert len(got) == len(raw)
+    for a, b in zip(got, want):
+        assert a.keys() == b.keys()
+        assert all(a[k].device == b[k].device and torch.equal(a[k], b[k]) for k in a)
